@@ -1,0 +1,45 @@
+"""Parameters from the JAX reference, as numpy arrays, to the port.
+
+``params_from_numpy(tree, device)`` takes the reference's parameter tree
+with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and
+returns the port's: the same dictionaries, with the layer-stacked
+``[L, ...]`` leaves under ``"layers"`` unstacked into a list of per-layer
+dictionaries.  Raw and wire-packed trees convert alike.  bfloat16 leaves
+(ml_dtypes arrays) cross bit for bit through a ``uint16`` view.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One numpy array -> tensor, bit-exact (bfloat16 via a uint16 view)."""
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """The reference's parameter tree (numpy leaves) -> the port's."""
+    out = {k: _map(v, lambda a: tensor_from_numpy(a, device))
+           for k, v in tree.items() if k != "layers"}
+    if "layers" in tree:
+        leaves = []
+        _map(tree["layers"], leaves.append)
+        n_layers = int(np.asarray(leaves[0]).shape[0])
+        out["layers"] = [
+            _map(tree["layers"], lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
+            for i in range(n_layers)
+        ]
+    return out

@@ -1,0 +1,108 @@
+"""Density Bound Block (DBB) structured sparsity (port of ``repro.core.dbb``).
+
+The reduction axis (the last axis) is tiled into blocks of ``bz``
+elements holding at most ``nnz`` non-zeros (paper §3.1).  The wire format
+is rank-ordered: ``values [..., K//bz, nnz]`` plus a ``uint8`` bitmask
+``[..., K//bz]`` where bit ``b`` marks a kept non-zero at block position
+``b`` and value slot ``j`` holds the ``j``-th set bit's value, so position
+``b`` decodes as ``bit_b ? values[popcount(mask & (2^b - 1))] : 0``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+DEFAULT_BZ = 8  # paper §6.2
+
+
+@dataclasses.dataclass(frozen=True)
+class DBBConfig:
+    """An ``NNZ/BZ`` density-bound-block configuration."""
+
+    nnz: int = 4
+    bz: int = DEFAULT_BZ
+
+    def __post_init__(self):
+        if not (1 <= self.nnz <= self.bz):
+            raise ValueError(f"NNZ must be in [1, BZ]; got {self.nnz}/{self.bz}")
+
+    @property
+    def is_dense(self) -> bool:
+        return self.nnz == self.bz
+
+    def __str__(self) -> str:
+        return f"{self.nnz}/{self.bz}"
+
+
+def _to_blocks(x: torch.Tensor, bz: int) -> torch.Tensor:
+    k = x.shape[-1]
+    if k % bz != 0:
+        raise ValueError(f"last dim {k} not divisible by block size {bz}")
+    return x.reshape(*x.shape[:-1], k // bz, bz)
+
+
+def _from_blocks(xb: torch.Tensor) -> torch.Tensor:
+    return xb.reshape(*xb.shape[:-2], xb.shape[-2] * xb.shape[-1])
+
+
+def topk_block_mask(x: torch.Tensor, cfg: DBBConfig) -> torch.Tensor:
+    """Boolean mask keeping the Top-NNZ magnitudes of each block.
+
+    The DAP hardware's cascade (paper Fig. 8): ``nnz`` max stages over the
+    magnitudes in the input's own dtype, each discounting earlier winners,
+    ties broken toward the LOWER index.  ``torch.topk`` promises no
+    tie-break, so it is not used.
+    """
+    if cfg.is_dense:
+        return torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    xb = _to_blocks(x, cfg.bz)
+    mag = xb.abs()
+    pos = torch.arange(cfg.bz, device=x.device)
+    kept = torch.zeros(xb.shape, dtype=torch.bool, device=x.device)
+    neg = torch.full_like(mag, float("-inf"))
+    bz_t = torch.full_like(pos, cfg.bz)
+    for _ in range(cfg.nnz):
+        cand = torch.where(kept, neg, mag)
+        mx = cand.amax(dim=-1, keepdim=True)
+        first = torch.where(cand == mx, pos, bz_t).amin(dim=-1, keepdim=True)
+        kept = kept | (pos == first)
+    return _from_blocks(kept)
+
+
+def prune(x: torch.Tensor, cfg: DBBConfig) -> torch.Tensor:
+    """Dense -> dense Top-NNZ-per-block pruning."""
+    if cfg.is_dense:
+        return x
+    return torch.where(topk_block_mask(x, cfg), x, torch.zeros_like(x))
+
+
+def pack_bitmask(x: torch.Tensor, cfg: DBBConfig):
+    """Dense -> ``(values [..., K//bz, nnz], bitmask [..., K//bz] uint8)``
+    in rank order.  Zeros are never kept: they take no value slot and no
+    mask bit; unused slots are zero."""
+    xb = _to_blocks(x, cfg.bz)
+    kept = _to_blocks(topk_block_mask(x, cfg), cfg.bz) & (xb != 0)
+    pos = torch.arange(cfg.bz, device=x.device)
+    # set bits first (ascending position), then unset positions; the keys
+    # are distinct, so the order is unique
+    key = torch.where(kept, pos, cfg.bz + pos)
+    order = torch.argsort(key, dim=-1)[..., : cfg.nnz]
+    vals = torch.gather(xb, -1, order)
+    sel = torch.gather(kept, -1, order)
+    vals = torch.where(sel, vals, torch.zeros_like(vals))
+    weights = (2 ** pos).to(torch.int32)
+    bitmask = (kept.to(torch.int32) * weights).sum(dim=-1).to(torch.uint8)
+    return vals, bitmask
+
+
+def pack_bitmask_int8(x: torch.Tensor, cfg: DBBConfig, scale_axis=None):
+    """Dense -> ``(int8 values, bitmask, f32 scale)``: :func:`pack_bitmask`
+    then symmetric quantization of the kept values, the scale shared over
+    the packed-layout axes ``scale_axis`` (None = per tensor)."""
+    from repro_torch.core import quant
+
+    vals, bitmask = pack_bitmask(x, cfg)
+    q, scale = quant.quantize(vals, axis=scale_axis)
+    return q, bitmask, scale

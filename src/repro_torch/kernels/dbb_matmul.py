@@ -1,0 +1,151 @@
+"""The int8 DBB matmul kernels on Hopper (``csrc/dbb_matmul_int8.cu``).
+
+Kernel #2 (``dbb_matmul_int8_cuda``) replaces the reference's
+``dbb_matmul_int8_pallas``: dense int8 activations times packed int8
+weights.  Kernel #3 (``dbb_matmul_aw_int8_cuda``) replaces
+``dbb_matmul_aw_int8_pallas``: both operands packed.  Both accumulate in
+int32 and drain through the dequant epilogue
+``act(float(acc) * (x_scale * w_scale) + bias)`` — bit-identical to the
+plain versions in ``kernels/ref.py``.  These wrappers take CUDA tensors
+only; ``kernels/ops.py`` dispatches CPU tensors to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import dbb
+from repro_torch.kernels import native
+
+INT8 = native.Counter()  # kernel #2: dense int8 x, packed int8 w
+AW_INT8 = native.Counter()  # kernel #3: packed int8 x and w
+
+_ACT = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
+_OUT = {torch.float32: 0, torch.bfloat16: 1}
+# blocks that fill the H100's 132 SMs twice: a launch with fewer output
+# tiles splits its K loop across blocks (int32 atomics, exact)
+TARGET_BLOCKS = 264
+_fns = None
+
+
+def _entries():
+    global _fns
+    if _fns is None:
+        lib = native.load("dbb_matmul_int8")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = lib.dbb_matmul_int8
+        fn.argtypes = [P, P, P, I] + [P] * 7 + [I] * 9 + [P]
+        fn.restype = I
+        tiles = lib.dbb_matmul_int8_tiles
+        tiles.argtypes = [I, I]
+        tiles.restype = I
+        _fns = (fn, tiles)
+    return _fns
+
+
+def _split_k(tiles: int, kb: int) -> int:
+    """K splits for a launch of ``tiles`` output tiles over ``kb`` 8-blocks
+    (at least 16 8-blocks, one shared-memory step, per split)."""
+    if tiles >= TARGET_BLOCKS // 2:
+        return 1
+    return max(1, min(-(-TARGET_BLOCKS // tiles), kb // 16))
+
+
+def _launch(counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
+            cfg_w, out_dtype, bias, act, acc_out):
+    if cfg_w.bz != 8:
+        raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
+    if act not in _ACT:
+        raise ValueError(f"unknown activation {act!r}; one of {tuple(_ACT)}")
+    if out_dtype not in _OUT:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    kb, nnz_w, n = w_vals.shape
+    if nnz_w != cfg_w.nnz:
+        raise ValueError(f"w_vals holds {nnz_w} slots, cfg says {cfg_w.nnz}")
+    if n % 4 != 0:
+        raise ValueError(f"the CUDA kernel reads 4 columns at a time: N={n} % 4 != 0")
+    dev = w_vals.device
+    p_wv = native.cuda_arg(w_vals, "w_vals", torch.int8)
+    p_wm = native.cuda_arg(w_mask, "w_mask", torch.uint8, (kb, n))
+    if p_wv % 4 or p_wm % 4:
+        raise ValueError("w_vals and w_mask must be 4-byte aligned")
+    p_ws = native.cuda_arg(w_scale, "w_scale", torch.float32, (n,))
+    if x_scale.ndim == 0:
+        per_row = 0
+        p_xs = native.cuda_arg(x_scale, "x_scale", torch.float32)
+    else:
+        per_row = 1
+        p_xs = native.cuda_arg(x_scale, "x_scale", torch.float32, (m,))
+    p_b = None
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        p_b = native.cuda_arg(bias, "bias", torch.float32, (n,))
+    p_acc = None
+    if acc_out is not None:
+        p_acc = native.cuda_arg(acc_out, "acc_out", torch.int32, (m, n))
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    p_xm = None if x_mask is None else x_mask.data_ptr()
+    fn, tiles = _entries()
+    split_k = _split_k(tiles(m, n), kb)
+    acc_ws = torch.empty((m, n), dtype=torch.int32, device=dev) if split_k > 1 else None
+    err = fn(
+        x.data_ptr(), p_xm, p_xs, per_row, p_wv, p_wm, p_ws, p_b, out.data_ptr(),
+        p_acc, None if acc_ws is None else acc_ws.data_ptr(), m, n, kb, nnz_a, nnz_w,
+        split_k, int(x_mask is not None), _OUT[out_dtype], _ACT[act],
+        native.stream_ptr(dev),
+    )
+    native.check(err, "dbb_matmul_int8")
+    counter.launches += 1
+    return out
+
+
+def dbb_matmul_int8_cuda(
+    x_q: torch.Tensor,  # [M, K] int8
+    x_scale: torch.Tensor,  # f32 scalar or [M]
+    w_vals: torch.Tensor,  # [K//8, NNZ, N] int8
+    w_mask: torch.Tensor,  # [K//8, N] uint8
+    w_scale: torch.Tensor,  # [N] f32
+    cfg: dbb.DBBConfig,
+    *,
+    out_dtype=torch.float32,
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+    acc_out: Optional[torch.Tensor] = None,  # [M, N] int32: raw accumulators
+) -> torch.Tensor:
+    """Kernel #2: ``act(x_scale*w_scale * (x_q @ decode_w(w)) + bias)``."""
+    if x_q.ndim != 2 or x_q.shape[1] != w_vals.shape[0] * cfg.bz:
+        raise ValueError(f"x_q {tuple(x_q.shape)} does not match w_vals {tuple(w_vals.shape)}")
+    native.cuda_arg(x_q, "x_q", torch.int8)
+    return _launch(INT8, x_q, None, x_q.shape[0], 1, x_scale, w_vals, w_mask,
+                   w_scale, cfg, out_dtype, bias, act, acc_out)
+
+
+def dbb_matmul_aw_int8_cuda(
+    x_vals: torch.Tensor,  # [M, K//8, NNZa] int8
+    x_mask: torch.Tensor,  # [M, K//8] uint8
+    x_scale: torch.Tensor,  # f32 scalar or [M]
+    w_vals: torch.Tensor,
+    w_mask: torch.Tensor,
+    w_scale: torch.Tensor,
+    cfg_a: dbb.DBBConfig,
+    cfg_w: dbb.DBBConfig,
+    *,
+    out_dtype=torch.float32,
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+    acc_out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel #3: kernel #2 with ``decode_a(x)`` on the left."""
+    m, kb, nnz_a = x_vals.shape
+    if kb != w_vals.shape[0] or nnz_a != cfg_a.nnz or cfg_a.bz != cfg_w.bz:
+        raise ValueError(
+            f"x_vals {tuple(x_vals.shape)} ({cfg_a}) does not match "
+            f"w_vals {tuple(w_vals.shape)} ({cfg_w})"
+        )
+    native.cuda_arg(x_vals, "x_vals", torch.int8)
+    native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
+    return _launch(AW_INT8, x_vals, x_mask, m, nnz_a, x_scale, w_vals, w_mask,
+                   w_scale, cfg_w, out_dtype, bias, act, acc_out)

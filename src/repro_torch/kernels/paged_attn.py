@@ -1,0 +1,116 @@
+"""Fused paged attention on Hopper (``csrc/paged_attn.cu``), GQA mode.
+
+Kernel #6 replaces the reference's ``paged_attn_fused``: it walks each
+request's page table in-kernel with an online softmax and dequantizes
+int8 pages in the load, so the ``[B, P*PS, D]`` window is never
+materialized.  The plain version is ``kernels/ref.py::paged_attn_ref``.
+The reference kernel's MLA latent mode (``latent_dv``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import native
+
+PAGED_ATTN = native.Counter()  # kernel #6
+
+# pages one block walks; the rest of a request's table goes to more blocks
+# whose partial softmax statistics a second kernel merges
+PAGES_PER_SPLIT = 4
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
+_fns = None
+
+
+def _entries():
+    global _fns
+    if _fns is None:
+        lib = native.load("paged_attn")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = lib.paged_attn
+        fn.argtypes = [P] * 10 + [I] * 10 + [ctypes.c_float, I, I, P]
+        fn.restype = I
+        smem = lib.paged_attn_smem_bytes
+        smem.argtypes = [I] * 5
+        smem.restype = ctypes.c_size_t
+        _fns = (fn, smem)
+    return _fns
+
+
+def paged_attn_cuda(
+    q: torch.Tensor,  # [B, S, H, Dk] compute dtype (f32 or bf16)
+    k_pages: torch.Tensor,  # [N, PS, KV*Dk] int8 (with k_scale) or q's dtype
+    v_pages: torch.Tensor,  # [N, PS, KV*Dv]
+    pos_tbl: torch.Tensor,  # [N, PS] int32
+    page_tables: torch.Tensor,  # [B, P] int32
+    q_pos: torch.Tensor,  # [B, S] int32
+    *,
+    kv_heads: int,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [N, PS] f32
+    v_scale: Optional[torch.Tensor] = None,
+    latent_dv: Optional[int] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """Kernel #6: ``[B, S, H, Dv]`` attention over the paged cache."""
+    if latent_dv is not None:
+        raise NotImplementedError(
+            "paged attention's MLA latent mode (latent_dv) is not ported yet "
+            "(ROADMAP queue 2, kernel #6 latent mode)"
+        )
+    b, s, h, dk = q.shape
+    if q.dtype not in _COMPUTE:
+        raise ValueError(f"q: compute dtype must be float32 or bfloat16, got {q.dtype}")
+    if out_dtype not in (None, q.dtype):
+        raise ValueError(f"out_dtype must be q's dtype {q.dtype}, got {out_dtype}")
+    if h % kv_heads != 0:
+        raise ValueError(f"{h} heads do not group over {kv_heads} KV heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    n_pages, ps = pos_tbl.shape
+    p_cnt = page_tables.shape[1]
+    if k_pages.shape[:2] != (n_pages, ps) or k_pages.shape[2] != kv_heads * dk:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} does not match q {tuple(q.shape)}")
+    if v_pages.shape[:2] != (n_pages, ps) or v_pages.shape[2] % kv_heads != 0:
+        raise ValueError(f"v_pages {tuple(v_pages.shape)} does not match the page pool")
+    dv = v_pages.shape[2] // kv_heads
+    kv_int8 = k_scale is not None
+    if (v_scale is not None) != kv_int8:
+        raise ValueError("int8 KV needs both k_scale and v_scale")
+    page_dtype = torch.int8 if kv_int8 else q.dtype
+    g = h // kv_heads
+    fn, smem = _entries()
+    need = smem(s, g, dk, dv, ps)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"paged attention needs {need} B of shared memory for S={s}, G={g}, "
+            f"Dk={dk}, Dv={dv}, PS={ps}; one block has {SMEM_LIMIT}"
+        )
+    args = [
+        native.cuda_arg(q, "q", q.dtype),
+        native.cuda_arg(k_pages, "k_pages", page_dtype),
+        native.cuda_arg(v_pages, "v_pages", page_dtype),
+        None if not kv_int8 else native.cuda_arg(k_scale, "k_scale", torch.float32, (n_pages, ps)),
+        None if not kv_int8 else native.cuda_arg(v_scale, "v_scale", torch.float32, (n_pages, ps)),
+        native.cuda_arg(pos_tbl, "pos_tbl", torch.int32),
+        native.cuda_arg(page_tables, "page_tables", torch.int32),
+        native.cuda_arg(q_pos, "q_pos", torch.int32, (b, s)),
+    ]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    n_split = -(-p_cnt // PAGES_PER_SPLIT)
+    ws = torch.empty((b * kv_heads * n_split * s * g * (dv + 2),), dtype=torch.float32,
+                     device=q.device)
+    scale = 1.0 / math.sqrt(dk)
+    err = fn(
+        *args, ws.data_ptr(), out.data_ptr(), b, s, h, kv_heads, dk, dv, ps, p_cnt,
+        PAGES_PER_SPLIT, -1 if window is None else int(window), float(scale),
+        int(kv_int8), _COMPUTE[q.dtype], native.stream_ptr(q.device),
+    )
+    native.check(err, "paged_attn")
+    PAGED_ATTN.launches += 1
+    return out

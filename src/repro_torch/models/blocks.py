@@ -1,0 +1,25 @@
+"""Pre-norm decoder block (port of ``repro.models.blocks.decoder_block``),
+dense GQA over the paged cache."""
+
+from __future__ import annotations
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import mlp_forward, rmsnorm
+
+
+def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
+                  rope_cs=None, page_tables=None):
+    """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``.  ``cache_layer`` holds
+    this layer's page pools and the already-updated shared slot table; the
+    pools are written in place."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a_out = attn.gqa_forward(
+        p["attn"], h, cfg, positions, layer_idx=layer_idx,
+        cache_layer=cache_layer, rope_cs=rope_cs, page_tables=page_tables,
+    )
+    x = x + a_out
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    m_out = mlp_forward(
+        p["mlp"], h2, act=cfg.mlp_act, sparsity=cfg.sparsity, layer_idx=layer_idx
+    )
+    return x + m_out

@@ -1,0 +1,209 @@
+"""Shared model building blocks (port of ``repro.models.common``): norms,
+the packed activation hand-off and the DBB-aware linear layer.
+
+Parameters are plain dictionaries of tensors with the reference's keys
+(``{"w"}`` dense, ``{"w_vals", "w_mask", "w_scale"}`` on the int8 wire).
+This slice serves the int8 wire only; the native wire's matmuls
+(kernels #1 and #4) are a later slice, and a linear that would need them
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core import dbb, quant
+from repro_torch.core.dap import apply_dap
+from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.kernels import epilogue, ops
+
+_NATIVE_WIRE = (
+    "the native (non-int8) DBB wire needs kernels #1/#4, not ported yet "
+    "(ROADMAP queue 2); serve with wire_dtype='int8'"
+)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# --------------------------------------------------------------------- init
+
+
+def make_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
+                dtype=torch.bfloat16, device="cuda", scale: Optional[float] = None):
+    """Seeded dense linear ``{"w" [d_in, d_out]}`` (+ zero ``"b"``): normal
+    draws in f32 times ``1/sqrt(d_in)``, cast to ``dtype`` (the reference's
+    scale rule; its random stream is JAX's and cannot be reproduced)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+    params = {"w": (w * scale).to(dtype)}
+    if bias:
+        params["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return params
+
+
+def make_norm(d: int, *, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------- packed activation flow
+
+
+@dataclasses.dataclass
+class PackedAct:
+    """A-DBB activation in kernel wire format — the packed hand-off shared
+    by sibling linears (Q/K/V, gate/up).  On the int8 wire ``vals`` is int8
+    and ``scale`` the dynamic scale (scalar, or one per token); ``dtype``
+    is the dense compute dtype outputs are produced in."""
+
+    vals: torch.Tensor  # [..., K//BZ, NNZ]
+    mask: torch.Tensor  # [..., K//BZ] uint8
+    cfg: dbb.DBBConfig
+    k: int
+    dtype: torch.dtype
+    scale: Optional[torch.Tensor] = None
+
+
+ActOrPacked = Union[torch.Tensor, PackedAct]
+
+
+def _active_dap_spec(sp: Optional[SparsityConfig], x, layer_idx, first_layer):
+    if sp is None or sp.mode != "awdbb":
+        return None
+    if first_layer and sp.exclude_first_layer:
+        return None
+    spec = sp.a_spec(layer_idx)
+    if spec is None or x.shape[-1] % spec.bz != 0:
+        return None
+    return spec
+
+
+def mlp_input_targets(p, act: str) -> tuple:
+    return (p["gate"], p["up"]) if act == "swiglu" else (p["up"],)
+
+
+def maybe_pack_input(x: ActOrPacked, targets: Sequence[dict],
+                     sparsity: Optional[SparsityConfig] = None,
+                     layer_idx: Optional[int] = None,
+                     first_layer: bool = False) -> ActOrPacked:
+    """DAP-prune + pack ``x`` once for a group of packed-weight linears, or
+    return ``x`` unchanged when the fused A/W-DBB path does not apply."""
+    if isinstance(x, PackedAct) or not targets:
+        return x
+    if not all(isinstance(t, dict) and "w_vals" in t for t in targets):
+        return x
+    spec = _active_dap_spec(sparsity, x, layer_idx, first_layer)
+    if spec is None:
+        return x
+    if not all("w_scale" in t for t in targets):
+        raise NotImplementedError(_NATIVE_WIRE)
+    vals, mask, scale = ops.dap_pack_int8(
+        x, spec.nnz, spec.bz,
+        act_scale=sparsity.act_scale if sparsity else "per_tensor",
+    )
+    return PackedAct(vals, mask, spec.cfg, x.shape[-1], x.dtype, scale)
+
+
+# ------------------------------------------------------------------ forward
+
+
+def rmsnorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
+           layer_idx: Optional[int] = None, dap_input: bool = True,
+           first_layer: bool = False, act: Optional[str] = None) -> torch.Tensor:
+    """DBB-aware linear ``act(x @ w (+ b))``.
+
+    * packed input and int8 wire weights: the joint A/W-DBB matmul
+      (kernel #3);
+    * dense input and int8 wire weights: DAP (when active), dynamic
+      activation quantization, then the W-DBB matmul (kernel #2);
+    * packed input and dense weights: expand the wire format, then the
+      dense path (DAP is not re-applied);
+    * dense weights: a plain matmul.
+    """
+    sp = sparsity
+    if isinstance(x, PackedAct):
+        if "w_vals" in p:
+            if "w_scale" not in p:
+                raise NotImplementedError(_NATIVE_WIRE)
+            cfg_w = dbb.DBBConfig(sp.w_nnz, sp.bz) if sp else dbb.DBBConfig(4, 8)
+            lead = x.vals.shape[:-2]
+            vals2 = x.vals.reshape((-1,) + tuple(x.vals.shape[-2:]))
+            mask2 = x.mask.reshape((-1,) + tuple(x.mask.shape[-1:]))
+            if x.scale is not None:
+                x_scale = x.scale if x.scale.ndim == 0 else x.scale.reshape(-1)
+            else:
+                # native-packed input meets int8 weights: quantize the
+                # packed values in place, per tensor
+                vals2, x_scale = quant.quantize(vals2)
+            y2 = ops.dbb_matmul_aw_int8(
+                vals2, mask2, x_scale, p["w_vals"], p["w_mask"], p["w_scale"],
+                x.cfg, cfg_w, bias=p.get("b"), act=act, out_dtype=x.dtype,
+            )
+            return y2.reshape(tuple(lead) + tuple(y2.shape[-1:]))
+        vals = x.vals
+        if x.scale is not None:
+            axis = None if x.scale.ndim == 0 else (-2, -1)
+            vals = quant.dequantize(vals, x.scale, axis=axis, dtype=x.dtype)
+        x = ops.expand_act(vals, x.mask, x.cfg)
+    elif dap_input:
+        spec = _active_dap_spec(sp, x, layer_idx, first_layer)
+        if spec is not None:
+            x = apply_dap(x, spec)
+
+    if "w_vals" in p:
+        if "w_scale" not in p:
+            raise NotImplementedError(_NATIVE_WIRE)
+        cfg = dbb.DBBConfig(sp.w_nnz, sp.bz) if sp else dbb.DBBConfig(4, 8)
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        y2 = ops.dbb_matmul_int8(
+            x2, p["w_vals"], p["w_mask"], p["w_scale"], cfg,
+            bias=p.get("b"), act=act, out_dtype=x.dtype,
+            act_scale=sp.act_scale if sp else "per_tensor",
+        )
+        return y2.reshape(*lead, y2.shape[-1])
+    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return epilogue.apply_act(y, act)
+
+
+def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "int8"):
+    """Dense linear params -> int8 DBB wire format (per-output-channel
+    weight scales), bias carried over."""
+    if wire_dtype != "int8":
+        raise NotImplementedError(_NATIVE_WIRE)
+    cfg = dbb.DBBConfig(sp.w_nnz, sp.bz)
+    w_vals, w_mask, w_scale = ops.pack_weight_int8(p["w"], cfg)
+    out = {"w_vals": w_vals, "w_mask": w_mask, "w_scale": w_scale}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def mlp_forward(p, x: ActOrPacked, *, act: str, sparsity=None, layer_idx=None):
+    """Gated (swiglu) or plain (gelu) MLP: the input is DAP-packed once for
+    gate+up, the activation fuses into the matmul epilogue, and the hidden
+    tensor is re-packed for the down projection."""
+    kw = dict(sparsity=sparsity, layer_idx=layer_idx)
+    xin = maybe_pack_input(x, mlp_input_targets(p, act), sparsity, layer_idx)
+    if act == "swiglu":
+        g = linear(p["gate"], xin, act="silu", **kw)
+        u = linear(p["up"], xin, **kw)
+        h = g * u
+    else:
+        h = linear(p["up"], xin, act="gelu", **kw)
+    hin = maybe_pack_input(h, (p["down"],), sparsity, layer_idx)
+    return linear(p["down"], hin, **kw)

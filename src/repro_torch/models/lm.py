@@ -1,0 +1,165 @@
+"""Decoder-only LM over the paged KV cache (port of the serving half of
+``repro.models.lm``), dense GQA.
+
+Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
+"final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
+its stacked ``[L, ...]`` layer axis unstacked into a list
+(``convert.params_from_numpy``), so the layer loop is a Python loop.
+The paged cache is written in place (``models/attention.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.sampling import sample_tokens
+from repro_torch.models import attention, blocks, rope
+from repro_torch.models.common import (
+    dtype_of,
+    linear,
+    make_linear,
+    make_norm,
+    pack_linear_params,
+    rmsnorm,
+)
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported; the port serves dense GQA "
+            "decoders only (ROADMAP queue 1)"
+        )
+
+
+def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[str] = "int8"):
+    """Seeded random parameters with ``lm.init_lm``'s scale rules: linears
+    ``N(0, 1/d_in)``, embedding ``N(0, 0.02^2)``, norms one, biases zero.
+
+    With ``wire_dtype="int8"`` every linear is packed to the int8 DBB wire
+    as soon as it is drawn, layer by layer, so the dense model never sits
+    on the device whole (16.7 GB in bf16 for granite-3-8b); ``None``
+    returns the dense parameters."""
+    _check_family(cfg)
+    dtype = dtype_of(cfg.dtype)
+    sp = cfg.sparsity
+
+    def lin(d_in, d_out, bias=False):
+        p = make_linear(generator, d_in, d_out, bias=bias, dtype=dtype, device=device)
+        if wire_dtype is not None and d_in % sp.bz == 0:
+            return pack_linear_params(p, sp, wire_dtype)
+        return p
+
+    d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    emb = torch.randn((cfg.padded_vocab, d), generator=generator, device=device)
+    params = {"embed": {"w": (emb * 0.02).to(dtype)}, "layers": []}
+    for _ in range(cfg.n_layers):
+        attn = {
+            "wq": lin(d, h * dh, cfg.qkv_bias),
+            "wk": lin(d, kvh * dh, cfg.qkv_bias),
+            "wv": lin(d, kvh * dh, cfg.qkv_bias),
+            "wo": lin(h * dh, d),
+        }
+        if cfg.mlp_act == "swiglu":
+            mlp = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff)}
+        else:
+            mlp = {"up": lin(d, cfg.d_ff)}
+        mlp["down"] = lin(cfg.d_ff, d)
+        params["layers"].append({
+            "ln1": make_norm(d, device=device), "ln2": make_norm(d, device=device),
+            "attn": attn, "mlp": mlp,
+        })
+    params["final_norm"] = make_norm(d, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(d, cfg.padded_vocab)
+    return params
+
+
+def _embed(params, tokens):
+    return F.embedding(tokens.long(), params["embed"]["w"])
+
+
+def _head(params, x, cfg):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params["embed"]["w"]
+        return torch.matmul(x, w.to(x.dtype).t())
+    # the sparsity config rides along for its quantization knobs only
+    # (dap_input=False): the int8 head keeps per-row activation scales
+    return linear(params["lm_head"], x, sparsity=cfg.sparsity, dap_input=False)
+
+
+def _prepare_pages(cache, scrub_pages=None, cow_pages=None) -> None:
+    """Page maintenance before a step's writes, in place and in order:
+    scrub freshly allocated pages' slot positions, then copy every plane
+    (and the slot positions) of each copy-on-write ``(src, dst)`` pair."""
+    if scrub_pages is not None:
+        cache["pos"][scrub_pages.long()] = -1
+    if cow_pages is not None:
+        src, dst = cow_pages[:, 0].long(), cow_pages[:, 1].long()
+        for name, val in cache.items():
+            if name != "pos":
+                val[:, dst] = val[:, src]
+        cache["pos"][dst] = cache["pos"][src]
+
+
+def paged_step(params, cache, tokens, positions, page_tables, cfg,
+               scrub_pages=None, cow_pages=None):
+    """One continuous-batching step: ``tokens/positions [B, S]`` is a mixed
+    batch (chunked prefill rows, decode rows, padding at position -1) over
+    per-row page tables ``[B, P]``.  Returns ``(logits [B, S, V_padded],
+    cache)``; the cache is updated in place."""
+    _check_family(cfg)
+    x = _embed(params, tokens)
+    rope_cs = rope.rope_cos_sin(positions, cfg.head_dim(), cfg.rope_theta)
+    _prepare_pages(cache, scrub_pages, cow_pages)
+    # one shared slot-position write for the whole stack, before the
+    # layers, so this step's tokens are visible to intra-chunk attention
+    attention.paged_update_pos(cache["pos"], positions, page_tables)
+    planes = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    for i, layer_p in enumerate(params["layers"]):
+        cache_layer = {n: cache[n][i] for n in planes}
+        cache_layer["pos"] = cache["pos"]
+        x = blocks.decoder_block(
+            layer_p, x, cfg, positions, cache_layer=cache_layer,
+            rope_cs=rope_cs, page_tables=page_tables,
+        )
+    return _head(params, x, cfg), cache
+
+
+def paged_decode_loop(params, cache, tokens, positions, page_tables, n_steps: int,
+                      cfg, *, max_steps: int, scrub_pages=None, cow_pages=None):
+    """``n_steps`` greedy decode iterations of :func:`paged_step`, each
+    sampled token fed back as the next input, without a host sync: the
+    loop only enqueues device work, and the caller reads the results once
+    per run.
+
+    ``tokens [B, 1]`` holds each row's last sampled token, ``positions
+    [B]`` its first write position (-1: idle row, which keeps feeding
+    token 0 at position -1 like the mixed step's padding).  Returns
+    ``(sampled [B, max_steps] int32, bad_at [B] int32, cache)``: ``bad_at``
+    is the first iteration whose raw logits held a non-finite value on an
+    active row (``max_steps`` when clean)."""
+    _check_family(cfg)
+    _prepare_pages(cache, scrub_pages, cow_pages)
+    b = tokens.shape[0]
+    v = cfg.vocab  # slice off vocab padding before sampling
+    dev = tokens.device
+    out = torch.zeros((b, max_steps), dtype=torch.int32, device=dev)
+    bad_at = torch.full((b,), max_steps, dtype=torch.int32, device=dev)
+    toks, pos = tokens, positions
+    for i in range(n_steps):
+        logits, cache = paged_step(params, cache, toks, pos[:, None], page_tables, cfg)
+        row = logits[:, 0, :v]
+        nxt = sample_tokens(row)
+        out[:, i] = nxt
+        active = pos >= 0
+        bad = active & ~torch.isfinite(row).all(dim=-1)
+        bad_at = torch.where(bad & (bad_at == max_steps), torch.full_like(bad_at, i), bad_at)
+        nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+        pos = torch.where(active, pos + 1, pos)
+        toks = nxt[:, None]
+    return out, bad_at, cache

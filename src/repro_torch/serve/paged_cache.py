@@ -1,0 +1,253 @@
+"""Paged KV cache (port of ``repro.serve.paged_cache``): a host-side
+free-list page allocator with refcounted copy-on-write sharing,
+per-request page tables, the shared-prefix page cache, and the device
+page pools.
+
+The allocator and prefix cache are copies of the reference's numpy code
+(the port imports nothing of ``repro``), without the fault-injection
+hook, the speculative-decode rollback and the snapshot export of later
+slices.  Page 0 is the null page: never allocated, it pads every page
+table and absorbs padding-token writes with ``pos = -1``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.attention import NULL_PAGE  # noqa: F401
+from repro_torch.models.common import dtype_of
+
+
+def pages_for(n_tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``n_tokens`` logical slots."""
+    return max(0, -(-n_tokens // page_size))
+
+
+class PageAllocator:
+    """Free-list page allocator with refcounted pages and per-request
+    page tables.
+
+    Invariants: every live page's refcount equals its page-table
+    references plus external holds; ``free ∪ live == {1 .. n_pages-1}``;
+    the null page is never allocated; a page becomes *dirty* exactly when
+    its refcount drops to zero and is scrubbed before its next owner's
+    first write (:meth:`note_scrubbed` is the scheduler's receipt).
+    """
+
+    def __init__(self, n_pages: int, page_size: int):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if n_pages < 2:
+            raise ValueError(
+                f"n_pages must be >= 2 (1 data page + the null page), got {n_pages}"
+            )
+        self.n_pages = n_pages
+        self.page_size = page_size
+        # LIFO free list ordered so .pop() hands out low ids first
+        self._free: List[int] = list(range(n_pages - 1, 0, -1))
+        self._tables: Dict[int, List[int]] = {}
+        self._refs: Dict[int, int] = {}
+        self._dirty: set = set()
+
+    # ------------------------------------------------------------- queries
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def page_table(self, rid) -> Tuple[int, ...]:
+        return tuple(self._tables[rid])
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def dirty_pages(self) -> frozenset:
+        return frozenset(self._dirty)
+
+    # ----------------------------------------------------------- mutations
+
+    def alloc(self, rid) -> None:
+        if rid in self._tables:
+            raise ValueError(f"request {rid!r} already allocated")
+        self._tables[rid] = []
+
+    def ensure(self, rid, n_tokens: int) -> List[int]:
+        """Grow ``rid``'s table to back ``n_tokens`` slots; returns the new
+        page ids.  Raises without side effects when the pool is short."""
+        table = self._tables[rid]
+        need = pages_for(n_tokens, self.page_size) - len(table)
+        if need <= 0:
+            return []
+        if need > len(self._free):
+            raise ValueError(
+                f"out of KV pages: request {rid!r} needs {need} more, "
+                f"{len(self._free)} free (pool {self.n_pages}, "
+                f"page_size {self.page_size})"
+            )
+        new = [self._free.pop() for _ in range(need)]
+        for p in new:
+            self._refs[p] = 1
+        table.extend(new)
+        return new
+
+    def adopt(self, rid, pages: Sequence[int]) -> None:
+        """Share already-live ``pages`` into ``rid``'s table (refcount + 1)."""
+        for p in pages:
+            if self._refs.get(p, 0) < 1:
+                raise ValueError(f"cannot adopt non-live page {p}")
+        table = self._tables[rid]
+        for p in pages:
+            self._refs[p] += 1
+            table.append(p)
+
+    def hold(self, page: int) -> None:
+        if self._refs.get(page, 0) < 1:
+            raise ValueError(f"cannot hold non-live page {page}")
+        self._refs[page] += 1
+
+    def unhold(self, page: int) -> None:
+        self._decref(page)
+
+    def cow(self, rid, idx: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write page ``idx`` of ``rid``'s table: returns the
+        ``(src, dst)`` pair whose content the caller must copy before the
+        divergent write, or None when the page is already private."""
+        table = self._tables[rid]
+        src = table[idx]
+        if self._refs[src] == 1:
+            return None
+        if not self._free:
+            raise ValueError(
+                f"out of KV pages: request {rid!r} needs a copy-on-write "
+                f"duplicate of page {src}, 0 free (pool {self.n_pages})"
+            )
+        dst = self._free.pop()
+        self._refs[dst] = 1
+        self._refs[src] -= 1
+        table[idx] = dst
+        return src, dst
+
+    def free(self, rid) -> None:
+        pages = self._tables.pop(rid)
+        for p in reversed(pages):
+            self._decref(p)
+
+    def note_scrubbed(self, pages: Sequence[int]) -> None:
+        self._dirty.difference_update(pages)
+
+    def _decref(self, page: int) -> None:
+        r = self._refs[page] - 1
+        if r > 0:
+            self._refs[page] = r
+            return
+        del self._refs[page]
+        self._free.append(page)
+        self._dirty.add(page)
+
+
+# ------------------------------------------------------ shared-prefix cache
+
+
+def page_hashes(tokens: np.ndarray, page_size: int) -> List[str]:
+    """Chained SHA-256 of every *full* page of ``tokens``: each digest
+    commits to the whole prefix up to and including its page."""
+    out: List[str] = []
+    h = hashlib.sha256(str(page_size).encode())
+    for i in range(len(tokens) // page_size):
+        chunk = np.ascontiguousarray(
+            tokens[i * page_size : (i + 1) * page_size], dtype=np.int32
+        )
+        h.update(chunk.tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+class PrefixCache:
+    """Page-granularity shared-prefix cache over a :class:`PageAllocator`:
+    chained prompt-page hashes -> live page ids, one allocator hold per
+    entry, LRU eviction of pages only the cache keeps alive."""
+
+    def __init__(self, allocator: PageAllocator):
+        self.allocator = allocator
+        self._entries: "OrderedDict[str, int]" = OrderedDict()
+        self.page_lookups = 0
+        self.page_hits = 0
+        self.insertions = 0
+        self.evictions = 0
+        self.tokens_total = 0
+        self.tokens_saved = 0
+
+    def match_hashes(self, hashes: Sequence[str]) -> List[int]:
+        """Longest run of cached pages for ``hashes`` (refreshes recency)."""
+        pages: List[int] = []
+        for h in hashes:
+            page = self._entries.get(h)
+            if page is None:
+                break
+            self._entries.move_to_end(h)
+            pages.append(page)
+        return pages
+
+    def register(self, digest: str, page: int) -> None:
+        if digest in self._entries:
+            return
+        self.allocator.hold(page)
+        self._entries[digest] = page
+        self.insertions += 1
+
+    def evict(self, n_needed: int, protect: Sequence[int] = ()) -> int:
+        """Unhold up to ``n_needed`` LRU entries whose page only the cache
+        keeps alive, skipping ``protect``; returns pages freed."""
+        if n_needed <= 0:
+            return 0
+        guard = set(protect)
+        freed = 0
+        for digest, page in list(self._entries.items()):
+            if page in guard or self.allocator.refcount(page) != 1:
+                continue
+            del self._entries[digest]
+            self.allocator.unhold(page)
+            self.evictions += 1
+            freed += 1
+            if freed >= n_needed:
+                break
+        return freed
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "entries": len(self._entries),
+            "page_lookups": self.page_lookups,
+            "page_hits": self.page_hits,
+            "hit_rate": self.page_hits / max(1, self.page_lookups),
+            "insertions": self.insertions,
+            "evictions": self.evictions,
+            "prefill_tokens_total": self.tokens_total,
+            "prefill_tokens_saved": self.tokens_saved,
+        }
+
+
+# -------------------------------------------------------------- device pools
+
+
+def make_paged_cache(cfg, n_pages: int, page_size: int, device):
+    """Device page pools for ``cfg``: ``k/v [L, n_pages, page_size, KV*D]``
+    (int8 plus ``k_scale/v_scale [L, n_pages, page_size]`` f32 planes under
+    the int8 KV wire) and the shared ``pos [n_pages, page_size]`` table,
+    all slots empty (-1)."""
+    kv_int8 = cfg.sparsity.kv_dtype == "int8"
+    dtype = torch.int8 if kv_int8 else dtype_of(cfg.dtype)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim())
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32, device=device),
+    }
+    if kv_int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.ones(shape[:3], dtype=torch.float32, device=device)
+    return cache

@@ -1,0 +1,247 @@
+"""Port parity, kernels: the plain versions of the three ported kernels
+(``repro_torch/kernels/ref.py`` — what a CPU tensor runs, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card) vs the
+reference's jnp oracles and its Pallas kernels in interpret mode, on the
+same numpy inputs.
+
+Tolerances, with their reasons:
+  * int8 matmuls (#2, #3): int32 accumulators and ``act=None`` outputs
+    bit-exact — integer work, then the same f32 multiply sequence;
+    ``silu`` outputs at rtol/atol 1e-6 (XLA and ATen compute sigmoid
+    differently).
+  * paged attention (#6): atol/rtol 1e-5 in f32 — the reference's own
+    kernel-vs-oracle bound (``tests/test_paged_attn.py``); the sums run
+    in another order.
+The CUDA kernels themselves need the card: ``test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dbb as jdbb
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.paged_attn import paged_attn_fused
+from repro_torch.core import dbb as tdbb
+from repro_torch.kernels import dbb_matmul, ops, paged_attn
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from test_paged_attn import make_paged_state
+
+torch.set_num_threads(1)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _operands(m, k, n, seed, per_row):
+    """Int8 wire operands from the reference's packers."""
+    cfg = jdbb.DBBConfig(4, 8)
+    x = jnp.asarray(_rand((m, k), seed))
+    w = jnp.asarray(_rand((k, n), seed + 1))
+    b = jnp.asarray(_rand((n,), seed + 2))
+    wv, wm, ws = jops.pack_weight_int8(w, cfg)
+    xq, xs = jref.quantize_act_int8(x, per_row=per_row)
+    xv, xm, xsp = jops.dap_pack_int8(x, 4, 8, act_scale="per_row" if per_row else "per_tensor")
+    return cfg, dict(x=x, b=b, wv=wv, wm=wm, ws=ws, xq=xq, xs=xs, xv=xv, xm=xm, xsp=xsp)
+
+
+def _check(got, want, act):
+    if act is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+SHAPES = [(16, 64, 128), (5, 40, 24), (3, 128, 256)]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row", "per_tensor"])
+@pytest.mark.parametrize("bias_act", [(False, None), (True, None), (False, "silu")])
+def test_dbb_matmul_int8_plain_vs_oracle(m, k, n, per_row, bias_act):
+    """Kernel #2's plain version vs ``ref.dbb_matmul_int8_ref``."""
+    has_bias, act = bias_act
+    cfg, o = _operands(m, k, n, 10 * m + k, per_row)
+    tcfg = tdbb.DBBConfig(4, 8)
+    b = o["b"] if has_bias else None
+    want = jref.dbb_matmul_int8_ref(o["xq"], o["xs"], o["wv"], o["wm"], o["ws"], cfg, bias=b, act=act)
+    got = tref.dbb_matmul_int8_ref(
+        _t(o["xq"]), _t(o["xs"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg,
+        bias=None if b is None else _t(b), act=act,
+    )
+    _check(got.numpy(), np.array(want), act)
+    # the int32 accumulator itself, bit for bit
+    acc_j = jnp.dot(o["xq"], jref.decode_w(o["wv"], o["wm"], cfg), preferred_element_type=jnp.int32)
+    acc_t = tref.int8_acc(_t(o["xq"]), tref.decode_w(_t(o["wv"]), _t(o["wm"]), tcfg))
+    np.testing.assert_array_equal(acc_t.numpy(), np.array(acc_j))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row", "per_tensor"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_dbb_matmul_aw_int8_plain_vs_oracle(m, k, n, per_row, act):
+    """Kernel #3's plain version vs ``ref.dbb_matmul_aw_int8_ref``."""
+    cfg, o = _operands(m, k, n, 10 * m + k + 1, per_row)
+    tcfg = tdbb.DBBConfig(4, 8)
+    want = jref.dbb_matmul_aw_int8_ref(
+        o["xv"], o["xm"], o["xsp"], o["wv"], o["wm"], o["ws"], cfg, cfg, act=act
+    )
+    got = tref.dbb_matmul_aw_int8_ref(
+        _t(o["xv"]), _t(o["xm"]), _t(o["xsp"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]),
+        tcfg, tcfg, act=act,
+    )
+    _check(got.numpy(), np.array(want), act)
+    acc_j = jnp.dot(
+        jref.decode_a(o["xv"], o["xm"], cfg), jref.decode_w(o["wv"], o["wm"], cfg),
+        preferred_element_type=jnp.int32,
+    )
+    acc_t = tref.int8_acc(
+        tref.decode_a(_t(o["xv"]), _t(o["xm"]), tcfg), tref.decode_w(_t(o["wv"]), _t(o["wm"]), tcfg)
+    )
+    np.testing.assert_array_equal(acc_t.numpy(), np.array(acc_j))
+
+
+@pytest.mark.parametrize("kernel", ["w", "aw"])
+def test_int8_plain_vs_interpret_kernel(kernel):
+    """The plain versions vs the reference's Pallas kernels run in
+    interpret mode (as tests/test_kernels.py runs them), per-row scales,
+    act=None: bit-exact."""
+    cfg, o = _operands(16, 64, 128, 3, per_row=True)
+    tcfg = tdbb.DBBConfig(4, 8)
+    tiles = dict(tm=16, tk=64, tn=128)
+    if kernel == "w":
+        want = jops.dbb_matmul_int8(
+            o["xq"], o["wv"], o["wm"], o["ws"], cfg, impl="interpret", x_scale=o["xs"], **tiles
+        )
+        got = ops.dbb_matmul_int8(
+            _t(o["xq"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg, x_scale=_t(o["xs"])
+        )
+    else:
+        want = jops.dbb_matmul_aw_int8(
+            o["xv"], o["xm"], o["xsp"], o["wv"], o["wm"], o["ws"], cfg, cfg,
+            impl="interpret", **tiles,
+        )
+        got = ops.dbb_matmul_aw_int8(
+            _t(o["xv"]), _t(o["xm"]), _t(o["xsp"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]),
+            tcfg, tcfg,
+        )
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+
+
+# ------------------------------------------------------- paged attention
+
+
+def _attn_inputs(seed, s, int8, n_tokens=(10, 6)):
+    kvh, dh = 2, 16
+    cache, pos_tbl, tables = make_paged_state(seed, n_tokens=n_tokens, kvd=kvh * dh, int8=int8)
+    rng = np.random.default_rng(seed + 100)
+    b = len(n_tokens)
+    q = jnp.asarray(rng.normal(size=(b, s, 2 * kvh, dh)).astype(np.float32))
+    q_pos = jnp.asarray(np.stack([np.arange(t - s, t) for t in n_tokens]).astype(np.int32))
+    return kvh, cache, pos_tbl, tables, q, q_pos
+
+
+def _port_attn(kvh, cache, pos_tbl, tables, q, q_pos, window=None):
+    return tref.paged_attn_ref(
+        _t(q), _t(cache["k"]), _t(cache["v"]), _t(pos_tbl), _t(tables), _t(q_pos),
+        kv_heads=kvh, window=window,
+        k_scale=_t(cache["k_scale"]) if "k_scale" in cache else None,
+        v_scale=_t(cache["v_scale"]) if "v_scale" in cache else None,
+    ).numpy()
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, np.array(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["native_kv", "int8_kv"])
+@pytest.mark.parametrize("s", [1, 4], ids=["decode", "chunk"])
+@pytest.mark.parametrize("window", [None, 3], ids=["full", "window3"])
+def test_paged_attn_plain_vs_oracle_and_kernel(int8, s, window):
+    """Kernel #6's plain version vs ``ref.paged_attn_ref`` and vs the
+    interpret-mode Pallas kernel: decode and chunk, int8 and native KV,
+    full attention and a sliding window."""
+    kvh, cache, pos_tbl, tables, q, q_pos = _attn_inputs(11 + s, s, int8)
+    kw = dict(kv_heads=kvh, window=window, k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    got = _port_attn(kvh, cache, pos_tbl, tables, q, q_pos, window)
+    _close(got, jref.paged_attn_ref(q, cache["k"], cache["v"], pos_tbl, tables, q_pos, **kw))
+    _close(got, paged_attn_fused(q, cache["k"], cache["v"], pos_tbl, tables, q_pos, interpret=True, **kw))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["native_kv", "int8_kv"])
+def test_paged_attn_plain_vs_port_gather_path(int8):
+    """Within the port: the fused plain version vs the gather path
+    (``paged_read`` + ``mha``)."""
+    kvh, cache, pos_tbl, tables, q, q_pos = _attn_inputs(21, 4, int8)
+    tcache = {k: _t(v) for k, v in cache.items()}
+    k_win, v_win, pos_win = tattn.paged_read(tcache, _t(pos_tbl), _t(tables))
+    b, t = k_win.shape[:2]
+    want = tattn.mha(_t(q), k_win.reshape(b, t, kvh, -1), v_win.reshape(b, t, kvh, -1), _t(q_pos), pos_win)
+    _close(_port_attn(kvh, cache, pos_tbl, tables, q, q_pos), want.numpy())
+
+
+def test_paged_attn_recycled_page_scrub():
+    """A recycled page (stale garbage, slots scrubbed to -1) streaming
+    first contributes exactly nothing: the same request without it in
+    its table gives the same output."""
+    kvh, dh = 1, 8
+    cache, pos_tbl, tables = make_paged_state(
+        6, n_tokens=(5,), n_pages=6, ps=4, kvd=kvh * dh, garbage_scale=100.0
+    )
+    stale = 5 if int(tables[0, 0]) != 5 else 4
+    tables_stale = jnp.asarray([[stale, *np.asarray(tables[0, :-1])]], jnp.int32)
+    pos_tbl = pos_tbl.at[stale].set(-1)
+    q = jnp.asarray(np.random.default_rng(7).normal(size=(1, 1, 2, dh)).astype(np.float32))
+    q_pos = jnp.asarray([[4]], jnp.int32)
+    want = _port_attn(kvh, cache, pos_tbl, tables, q, q_pos)
+    _close(_port_attn(kvh, cache, pos_tbl, tables_stale, q, q_pos), want)
+    _close(want, jref.paged_attn_ref(q, cache["k"], cache["v"], pos_tbl, tables, q_pos, kv_heads=kvh))
+
+
+# ------------------------------------------------------------- dispatch
+
+
+def test_cpu_dispatch_counts_plain_calls_only():
+    """A CPU tensor takes the plain version: the plain counters rise and
+    no kernel launch is counted."""
+    ops.reset_counters()
+    cfg, o = _operands(4, 64, 32, 5, per_row=True)
+    tcfg = tdbb.DBBConfig(4, 8)
+    ops.dbb_matmul_int8(_t(o["x"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg, act_scale="per_row")
+    ops.dbb_matmul_aw_int8(_t(o["xv"]), _t(o["xm"]), _t(o["xsp"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg, tcfg)
+    kvh, cache, pos_tbl, tables, q, q_pos = _attn_inputs(3, 1, True)
+    ops.paged_attention(
+        _t(q), _t(cache["k"]), _t(cache["v"]), _t(pos_tbl), _t(tables), _t(q_pos),
+        kv_heads=kvh, k_scale=_t(cache["k_scale"]), v_scale=_t(cache["v_scale"]),
+    )
+    counts = ops.counters()
+    assert {k: (c.launches, c.plain) for k, c in counts.items()} == {
+        "dbb_matmul_int8": (0, 1), "dbb_matmul_aw_int8": (0, 1), "paged_attn": (0, 1),
+    }
+    ops.reset_counters()
+    assert all(c.launches == 0 and c.plain == 0 for c in ops.counters().values())
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise; they never
+    compute on the CPU themselves."""
+    cfg, o = _operands(4, 64, 32, 6, per_row=True)
+    tcfg = tdbb.DBBConfig(4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dbb_matmul.dbb_matmul_int8_cuda(_t(o["xq"]), _t(o["xs"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg)
+    with pytest.raises(NotImplementedError, match="latent"):
+        paged_attn.paged_attn_cuda(
+            torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 8), torch.zeros(1, 4, 8),
+            torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32),
+            torch.zeros(1, 1, dtype=torch.int32), kv_heads=1, latent_dv=4,
+        )
+    assert dbb_matmul.INT8.launches == 0
