@@ -10,15 +10,21 @@ non-zero and prints no result:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled
    with nvcc for sm_90a, all at once, and its time;
-3. each kernel held against its plain PyTorch version on the card at the
-   main path's full-width granite-3-8b shapes, and timed beside its plain
-   version, a PyTorch library call computing the same function, and its
-   bound (bytes over 3.35 TB/s or operations over the peak rate);
-4. the main path: a full-width granite-3-8b engine (40 layers, seeded
-   random weights, bf16, int8 DBB wire, int8 KV) serves 8 requests
-   continuously through ``Engine.generate_requests``, and the launch
-   counters show every linear and every attention call went through the
-   kernels.
+3. each kernel held against its plain PyTorch version on the card at its
+   main path's full widths, and timed beside its plain version, a
+   PyTorch library call computing the same function, and its bound
+   (bytes over 3.35 TB/s or operations over the peak rate): the int8
+   matmuls (#2, #3) and GQA paged attention (#6) at granite-3-8b's
+   shapes; the native-wire matmuls (#1, #4), with a check that a row's
+   bits do not depend on M, and latent paged attention (#6, MLA) at
+   minicpm3-4b's;
+4. the main paths, each driven with the launch counters set to 0 just
+   before and read just after: full-width granite-3-8b (40 layers, int8
+   DBB wire, int8 KV) and full-width minicpm3-4b (62 layers, native DBB
+   wire, native KV), seeded random weights in bf16, each serving 8
+   requests continuously through ``Engine.generate_requests``; the
+   counters show every packed linear and every attention call went
+   through the kernels, and a request re-served alone is byte-identical.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,6 +32,7 @@ The line before the last is the per-kernel JSON record; the last line is
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -38,10 +45,12 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 SEED = 0
 N_REQUESTS, N_NEW = 8, 32
-SERVE = dict(
-    prefill_mode="continuous", pack_weights=True, wire_dtype="int8", kv_dtype="int8",
-    max_seq=1024, page_size=16, max_batch=4, prefill_chunk=16, decode_block=16,
+SERVE_SHAPE = dict(
+    prefill_mode="continuous", pack_weights=True, max_seq=1024, page_size=16, max_batch=4,
+    prefill_chunk=16, decode_block=16,
 )
+# the two main paths: (architecture, wire, KV dtype)
+PATHS = (("granite_3_8b", "int8", "int8"), ("minicpm3_4b", "native", "native"))
 # (name, kernel, act on the main path, K, N) of granite-3-8b's linears
 LINEARS = (
     ("wq", "aw", None, 4096, 4096),
@@ -53,16 +62,40 @@ LINEARS = (
     ("down", "aw", None, 12800, 4096),
     ("lm_head", "w", None, 4096, 49408),
 )
+# (name, kernel, act on the main path, DAP-pruned input, K, N) of
+# minicpm3-4b's packed linears on the native wire
+NATIVE_LINEARS = (
+    ("q_down", "aw", None, True, 2560, 768),
+    ("kv_down", "aw", None, True, 2560, 288),
+    ("q_up", "w", None, True, 768, 3840),
+    ("wo", "w", None, True, 2560, 2560),
+    ("gate", "aw", "silu", True, 2560, 6400),
+    ("up", "aw", None, True, 2560, 6400),
+    ("down", "aw", None, True, 6400, 2560),
+    ("lm_head", "w", None, False, 2560, 73472),
+)
 KERNELS = {
-    "dbb_matmul_aw_int8": dict(
-        source="src/repro_torch/kernels/csrc/dbb_matmul_int8.cu",
-        replaces="src/repro/kernels/dbb_matmul.py:345",
+    "dbb_matmul": dict(
+        source="src/repro_torch/kernels/csrc/dbb_matmul_native.cu",
+        replaces="src/repro/kernels/dbb_matmul.py:158",
     ),
     "dbb_matmul_int8": dict(
         source="src/repro_torch/kernels/csrc/dbb_matmul_int8.cu",
         replaces="src/repro/kernels/dbb_matmul.py:272",
     ),
+    "dbb_matmul_aw_int8": dict(
+        source="src/repro_torch/kernels/csrc/dbb_matmul_int8.cu",
+        replaces="src/repro/kernels/dbb_matmul.py:345",
+    ),
+    "dbb_matmul_aw": dict(
+        source="src/repro_torch/kernels/csrc/dbb_matmul_native.cu",
+        replaces="src/repro/kernels/dbb_matmul.py:419",
+    ),
     "paged_attn": dict(
+        source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:168",
+    ),
+    "paged_attn_latent": dict(
         source="src/repro_torch/kernels/csrc/paged_attn.cu",
         replaces="src/repro/kernels/paged_attn.py:168",
     ),
@@ -95,27 +128,29 @@ def phase_card(torch):
 
 
 def timer(torch, flush_buf):
-    """Mean device time in ms over ``iters`` calls, each timed with its own
-    CUDA events and started with a cold L2 (a 256 MB write first), as the
-    main path meets its weights: streamed once per step."""
+    """Median device time in ms over ``iters`` calls, each timed with its
+    own CUDA events and started with a cold L2 (a 256 MB write first), as
+    the main path meets its weights: streamed once per step.  The median
+    keeps one call that a stall of the shared host delayed past the
+    device's head start out of the figure."""
 
     def run(fn, iters, warmup=1):
         for _ in range(warmup):
             fn()
-        total = 0.0
+        times = []
         for _ in range(iters):
             flush_buf.zero_()
-            # keep the card busy while the host enqueues the call, so the
-            # events time the device work and not the Python wrapper
-            torch.cuda._sleep(2_000_000)
+            # keep the card busy (~6 ms) while the host enqueues the call, so
+            # the events time the device work and not the Python wrapper
+            torch.cuda._sleep(10_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
             torch.cuda.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
 
     return run
 
@@ -286,26 +321,223 @@ def phase_attention(torch, run_ms):
     return stats
 
 
-def phase_main_path(torch, np):
+def phase_native_matmuls(torch, run_ms):
+    """Kernels #1 and #4 at minicpm3-4b's full-width shapes, bf16 operands:
+    held against their plain versions (float64 products, rounded once)
+    within 1e-5 of the largest output in f32, a row's bits checked equal
+    at M=1, 4 and 64, and timed at M=4 and 64."""
+    from repro_torch.core import dbb
+    from repro_torch.core.dap import DAPSpec, apply_dap
+    from repro_torch.kernels import dbb_matmul, ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cfg = dbb.DBBConfig(4, 8)
+    bf16 = torch.bfloat16
+    per_kernel = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0,
+                          ops=0.0) for k in ("dbb_matmul_aw", "dbb_matmul")}
+    for name, kind, act, dap, k, n in NATIVE_LINEARS:
+        w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
+        wv, wm = ops.pack_weight(w, cfg)
+        del w
+        w_dense = ref.decode_w(wv, wm, cfg)
+        w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
+        kname = "dbb_matmul_aw" if kind == "aw" else "dbb_matmul"
+        count = 1 if name == "lm_head" else 62  # launches per forward pass
+        x = torch.randn((64, k), generator=gen, device="cuda").to(bf16)
+        if dap:
+            x = apply_dap(x, DAPSpec(4, 8))
+        if kind == "aw":
+            xv, xm = ops.dap_pack(x, 4, 8)
+            x_dense = ref.decode_a(xv, xm, cfg)
+            kern = lambda m, a, o: dbb_matmul.dbb_matmul_aw_cuda(  # noqa: E731
+                xv[:m], xm[:m], wv, wm, cfg, cfg, act=a, out_dtype=o)
+            plain = lambda m, a, o: ref.dbb_matmul_aw_ref(  # noqa: E731
+                xv[:m], xm[:m], wv, wm, cfg, cfg, act=a, out_dtype=o)
+            x_bytes = lambda m: 2 * xv[:m].numel() + xm[:m].numel()  # noqa: E731
+        else:
+            x_dense = x
+            kern = lambda m, a, o: dbb_matmul.dbb_matmul_cuda(  # noqa: E731
+                x[:m], wv, wm, cfg, act=a, out_dtype=o)
+            plain = lambda m, a, o: ref.dbb_matmul_ref(  # noqa: E731
+                x[:m], wv, wm, cfg, act=a, out_dtype=o)
+            x_bytes = lambda m: 2 * m * k  # noqa: E731
+        # a row's bits do not depend on M
+        y = {m: kern(m, act, torch.float32) for m in (1, 4, 64)}
+        check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
+              f"{name}: a row's output differs between M=1, 4 and 64")
+        for m in (4, 64):
+            # f32 output within 1e-5 of the largest output; bf16 within that
+            # plus one bf16 ulp of the larger of the two outputs (an f32
+            # difference can straddle a rounding, up into the next binade)
+            want = plain(m, act, torch.float32)
+            tol32 = 1e-5 * want.abs().max().item()
+            err32 = (y[m] - want).abs().max().item()
+            check(err32 <= tol32, f"{name} M={m}: f32 output off by {err32:.3g} "
+                  f"(largest output {want.abs().max().item():.3g})")
+            yb = kern(m, act, bf16).float()
+            yb_ref = plain(m, act, bf16).float()
+            errb = (yb - yb_ref).abs()
+            ulp = 2.0 ** -7 * torch.maximum(yb.abs(), yb_ref.abs())
+            check(bool((errb <= ulp + tol32).all()),
+                  f"{name} M={m}: bf16 output off by {errb.max().item():.3g}")
+            err = max(err32, errb.max().item())
+            t_k = run_ms(lambda: kern(m, act, bf16), iters=10)
+            t_p = run_ms(lambda: plain(m, act, bf16), iters=2)
+            t_lib = run_ms(lambda: torch.matmul(x_dense[:m], w_dense), iters=10)
+            nbytes = x_bytes(m) + 2 * wv.numel() + wm.numel() + 2 * m * n
+            x_nz = (x_dense[:m] != 0).sum(dim=0).double()
+            nops = 2.0 * float((x_nz * w_nz).sum())  # non-zero products only
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            say(f"kernel {kname} {name} M={m} K={k} N={n} bf16: kernel_ms {t_k:.4f} "
+                f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms {bound:.4f} "
+                f"({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
+            agg = per_kernel[kname]
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            if m == 64:  # the JSON record: one mixed-step forward pass
+                agg["ms"] += count * t_k
+                agg["plain_ms"] += count * t_p
+                agg["library_ms"] += count * t_lib
+                agg["bytes"] += count * nbytes
+                agg["ops"] += count * nops
+        say(f"kernel {kname} {name}: rows bitwise equal at M=1, 4 and 64")
+        del wv, wm, w_dense, x_dense, y
+        torch.cuda.empty_cache()
+    for agg in per_kernel.values():
+        t_bytes = agg["bytes"] / HBM_BYTES_PER_S
+        t_ops = agg["ops"] / BF16_OPS_PER_S
+        agg["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        agg["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return per_kernel
+
+
+def phase_latent_attention(torch, run_ms):
+    """Kernel #6's latent mode at minicpm3-4b's shapes (40 heads over one
+    288-wide latent, v its first 256 features, softmax scale 1/sqrt(96)),
+    native bf16 and int8 KV, held against its plain version and timed
+    beside SDPA on the gathered latent window."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import paged_attn, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, h, dk, dv, ps, p_cnt = 4, 40, 288, 256, 16, 64
+    scale = 1.0 / math.sqrt(64 + 32)
+    n_pages = b * p_cnt + 1
+    lat = torch.randn((n_pages, ps, dk), generator=gen, device="cuda")
+    lat_q, lat_s = quant.quantize_rows(lat)
+    lat = lat.to(torch.bfloat16)
+    pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    lengths = (1000, 517, 64, 250)  # tokens cached per request
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")  # null padded
+    nxt = 0
+    for i, t in enumerate(lengths):
+        used = -(-t // ps) + 1  # + one recycled page: allocated, slots scrubbed
+        pages = perm[nxt:nxt + used]
+        nxt += used
+        tables[i, :used] = pages
+        for j, page in enumerate(pages[:-1].tolist()):
+            pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
+            pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
+    valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
+    n_valid = int(valid_pages.sum())
+    stats = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
+    for kv_name, pages, k_scale in (("native", lat, None), ("int8", lat_q, lat_s)):
+        for s in (1, 16):
+            q = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
+            q_pos = torch.stack(
+                [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+            kw = dict(kv_heads=1, softmax_scale=scale, k_scale=k_scale, latent_dv=dv)
+            out = paged_attn.paged_attn_cuda(q, pages, None, pos_tbl, tables, q_pos, **kw)
+            want = ref.paged_attn_ref(q, pages, None, pos_tbl, tables, q_pos, **kw)
+            # bf16: two bf16 ulps at 1, as for the GQA mode
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= 1.6e-2, f"paged_attn_latent S={s} {kv_name} KV bf16: max error {err:.3g}")
+            pages32 = pages if k_scale is not None else pages.float()
+            out32 = paged_attn.paged_attn_cuda(q.float(), pages32, None, pos_tbl, tables, q_pos, **kw)
+            want32 = ref.paged_attn_ref(q.float(), pages32, None, pos_tbl, tables, q_pos, **kw)
+            err32 = (out32 - want32).abs().max().item()
+            check(err32 <= 1e-5 + 1e-5 * want32.abs().max().item(),
+                  f"paged_attn_latent S={s} {kv_name} KV f32: max error {err32:.3g}")
+            t_k = run_ms(lambda: paged_attn.paged_attn_cuda(
+                q, pages, None, pos_tbl, tables, q_pos, **kw), 20)
+            t_p = run_ms(lambda: ref.paged_attn_ref(q, pages, None, pos_tbl, tables, q_pos, **kw), 2)
+            # library yardstick: SDPA over the gathered, dequantized latent
+            # window, shared by the 40 heads (the gather is set-up)
+            win = pages[tables.long()].reshape(b, p_cnt * ps, dk)
+            if k_scale is not None:
+                win = quant.dequantize_rows(win, k_scale[tables.long()].reshape(b, -1),
+                                            torch.bfloat16)
+            kk = win[:, None].expand(b, h, p_cnt * ps, dk)
+            vv = win[:, None, :, :dv].expand(b, h, p_cnt * ps, dv)
+            kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
+            mask = (kpos >= 0) & (kpos <= q_pos.reshape(b, 1, s, 1))
+            qq = q.transpose(1, 2)
+            t_lib = run_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, scale=scale), 20)
+            page_bytes = ps * dk * pages.element_size() + 4 * ps + (4 * ps if k_scale is not None else 0)
+            nbytes = (2 * q.numel() + 2 * b * s * h * dv + n_valid * page_bytes
+                      + tables.numel() * 4 + q_pos.numel() * 4)
+            nops = 2.0 * s * h * (dk + dv) * n_valid * ps  # QK^T and PV over kept pages
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            say(f"kernel paged_attn_latent B={b} S={s} H={h} Dk={dk} Dv={dv} P={p_cnt} "
+                f"PS={ps} {kv_name}-KV bf16: kernel_ms {t_k:.4f} plain_ms {t_p:.3f} "
+                f"library_ms {t_lib:.4f} (SDPA) bound_ms {bound:.4f} ({by}) "
+                f"max_abs_err {err:.3g} (f32 {err32:.3g})")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            if s == 16 and kv_name == "native":  # the JSON record: one mixed-step pass
+                stats.update(ms=62 * t_k, plain_ms=62 * t_p, library_ms=62 * t_lib,
+                             bytes=62 * nbytes, ops=62 * nops)
+    t_bytes = stats["bytes"] / HBM_BYTES_PER_S
+    t_ops = stats["ops"] / BF16_OPS_PER_S
+    stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    stats["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return stats
+
+
+def expected_launches(cfg, wire):
+    """Kernel launches of one forward pass of ``cfg`` on ``wire``."""
+    n_l = cfg.n_layers
+    if cfg.mla is not None:  # q_down, kv_down, gate, up, down packed; q_up, wo dense
+        packed, dense, attn = 5 * n_l, 2 * n_l + 1, ("paged_attn_latent", n_l)
+    else:  # wq, wk, wv, gate, up, down packed; wo dense
+        packed, dense, attn = 6 * n_l, n_l + 1, ("paged_attn", n_l)
+    names = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if wire == "int8"
+             else ("dbb_matmul_aw", "dbb_matmul"))
+    return {names[0]: packed, names[1]: dense, attn[0]: attn[1]}
+
+
+def phase_main_path(torch, np, arch, wire, kv_dtype):
+    """One main path: a full-width engine serves 8 requests; the launch
+    counters are set to 0 just before and read just after."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.serve import paged_cache
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    cfg = configs.get_config("granite_3_8b")
+    serve = dict(SERVE_SHAPE, wire_dtype=wire, kv_dtype=kv_dtype)
+    cfg = configs.get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen, "cuda", wire_dtype="int8")
+    params = lm.init_params(cfg, gen, "cuda", wire_dtype=wire)
     torch.cuda.synchronize()
-    packed_bytes = sum(
-        t.numel() * t.element_size()
-        for layer in params["layers"] for sub in layer.values() for p in sub.values()
-        for t in (p.values() if isinstance(p, dict) else [p])
-    ) + sum(t.numel() * t.element_size() for t in params["lm_head"].values())
-    say(f"main path: init_params {time.perf_counter() - t0:.1f} s, packed linear "
-        f"weights {packed_bytes} B (int8 DBB wire), embedding "
-        f"{params['embed']['w'].numel() * 2} B (bf16)")
-    eng = Engine(params, cfg, ServeConfig(**SERVE), device="cuda")
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    say(f"main path {arch}: init_params {time.perf_counter() - t0:.1f} s, "
+        f"{cfg.n_layers} layers, {wire} DBB wire, {kv_dtype} KV, layer and head weights "
+        f"{nbytes(params['layers']) + nbytes(params['lm_head'])} B, embedding "
+        f"{nbytes(params['embed'])} B (bf16)")
+    eng = Engine(params, cfg, ServeConfig(**serve), device="cuda")
 
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 513, size=N_REQUESTS)
@@ -330,54 +562,53 @@ def phase_main_path(torch, np):
     lm.paged_step = inner
     passes = steps["n"]
     results = eng.last_results
-    say(f"main path: {N_REQUESTS} requests, prompt lengths {lens.tolist()}, "
+    say(f"main path {arch}: {N_REQUESTS} requests, prompt lengths {lens.tolist()}, "
         f"arrivals {arrivals}, {N_NEW} new tokens each; {eng.step_calls} scheduler "
         f"dispatches ({eng.decode_run_calls} decode runs), {passes} forward passes, "
         f"wall {wall:.2f} s")
     for r in results:
         check(r.finish_reason == "length" and r.n_generated == N_NEW,
-              f"request {r.rid}: {r.finish_reason} after {r.n_generated} tokens")
-    check(all(len(o) == len(p) + N_NEW for o, p in zip(outs, prompts)), "output lengths")
-    # per forward pass: wq, wk, wv, gate, up, down per layer; wo per layer
-    # plus the lm_head; one attention per layer (240, 41, 40 at 40 layers)
-    n_l = cfg.n_layers
-    expect = {"dbb_matmul_aw_int8": 6 * n_l, "dbb_matmul_int8": n_l + 1, "paged_attn": n_l}
-    for name, per_pass in expect.items():
-        launches, plain = counts[name]
-        check(plain == 0, f"{name}: plain version ran {plain} times on the main path")
+              f"{arch} request {r.rid}: {r.finish_reason} after {r.n_generated} tokens")
+    check(all(len(o) == len(p) + N_NEW for o, p in zip(outs, prompts)), f"{arch}: output lengths")
+    expect = expected_launches(cfg, wire)
+    for name, (launches, plain) in counts.items():
+        check(plain == 0, f"{arch} {name}: plain version ran {plain} times on the main path")
+        per_pass = expect.get(name, 0)
         check(launches == per_pass * passes,
-              f"{name}: {launches} launches, expected {per_pass} x {passes} passes")
-    say(f"main path: launches {json.dumps({k: v[0] for k, v in counts.items()})}, "
+              f"{arch} {name}: {launches} launches, expected {per_pass} x {passes} passes")
+    say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})}, "
         f"plain-version calls {json.dumps({k: v[1] for k, v in counts.items()})}")
     ttft = sorted(r.time_to_first_token for r in results)
     tok_s = N_REQUESTS * N_NEW / wall
-    say(f"main path: TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms "
-        f"(from enqueue; arrivals staggered), decode+prefill throughput "
-        f"{tok_s:.2f} generated tokens/s, peak memory "
+    say(f"main path {arch}: TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
+        f"{ttft[-1] * 1e3:.1f} ms (from enqueue; arrivals staggered), decode+prefill "
+        f"throughput {tok_s:.2f} generated tokens/s, peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
 
     # the same request served alone (its prompt pages now hit the prefix
-    # cache): per-row int8 scales make it byte-identical
+    # cache): every kernel sums a row in an order that does not depend on
+    # the batch, so it is byte-identical
     k = int(np.argmax(lens))
     again = eng.generate_requests([prompts[k]], N_NEW)[0]
-    check(np.array_equal(again, outs[k]), f"request {k} re-served alone diverged")
+    check(np.array_equal(again, outs[k]), f"{arch}: request {k} re-served alone diverged")
     # finite logits: the longest prompt's prefill logits, one solo step on
     # a fresh cache, and its greedy token equals the served first token
-    from repro_torch.serve import paged_cache
-
     s = len(prompts[k])
-    n_pages = -(-s // SERVE["page_size"]) + 1
-    cache = paged_cache.make_paged_cache(eng.cfg, n_pages, SERVE["page_size"], "cuda")
+    n_pages = -(-s // serve["page_size"]) + 1
+    cache = paged_cache.make_paged_cache(eng.cfg, n_pages, serve["page_size"], "cuda")
     logits, _ = lm.paged_step(
         eng.params, cache, torch.tensor(prompts[k][None], device="cuda"),
         torch.arange(s, dtype=torch.int32, device="cuda")[None],
         torch.arange(1, n_pages, dtype=torch.int32, device="cuda")[None], eng.cfg,
     )
     row = logits[0, -1, : cfg.vocab]
-    check(bool(torch.isfinite(logits[0, :, : cfg.vocab]).all()), "non-finite logits")
-    check(int(row.argmax()) == int(outs[k][s]), "solo prefill token differs from served token")
-    say(f"main path: re-served request {k} alone byte-identical; its prefill logits "
+    check(bool(torch.isfinite(logits[0, :, : cfg.vocab]).all()), f"{arch}: non-finite logits")
+    check(int(row.argmax()) == int(outs[k][s]),
+          f"{arch}: solo prefill token differs from served token")
+    say(f"main path {arch}: re-served request {k} alone byte-identical; its prefill logits "
         f"finite, shape {tuple(logits.shape)}")
+    del eng, params, cache, logits
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -407,24 +638,33 @@ def main():
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     run_ms = timer(torch, flush)
-    mm = phase_matmuls(torch, run_ms)
-    attn = phase_attention(torch, run_ms)
+    stats = phase_matmuls(torch, run_ms)
+    stats["paged_attn"] = phase_attention(torch, run_ms)
+    stats.update(phase_native_matmuls(torch, run_ms))
+    stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
     del flush
     torch.cuda.empty_cache()
-    counts = phase_main_path(torch, np)
+    launches = {}
+    for arch, wire, kv_dtype in PATHS:
+        counts = phase_main_path(torch, np, arch, wire, kv_dtype)
+        launches.update({k: v[0] for k, v in counts.items() if v[0]})
 
     record = []
     for name, info in KERNELS.items():
-        st = mm[name] if name in mm else attn
+        st = stats[name]
+        check(launches.get(name, 0) > 0, f"{name}: no launch on any main path")
         record.append({
             "name": name, "route": "cuda", "source": info["source"],
-            "replaces": info["replaces"], "launches": counts[name][0],
+            "replaces": info["replaces"], "launches": launches[name],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": st["library_ms"],
         })
-    say("kernel times above in the record: one mixed-step forward pass of granite-3-8b "
-        "(M=64 rows, S=16 query tokens per request), summed over its launches")
+    say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
+        "query tokens per request), summed over its launches, of granite-3-8b for "
+        "dbb_matmul_int8, dbb_matmul_aw_int8 and paged_attn, of minicpm3-4b for "
+        "dbb_matmul, dbb_matmul_aw and paged_attn_latent; launches over the main path "
+        "that runs each kernel")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where one serving step of the PyTorch port spends its time, on the GPU.
 
-    python3 scripts/profile_torch_step.py [--layers 40] [--iters 5]
+    python3 scripts/profile_torch_step.py [--arch granite_3_8b] [--wire int8]
+        [--kv int8] [--layers N] [--iters 5]
 
-Builds full-width granite-3-8b (seeded random weights, int8 DBB wire,
-int8 KV; ``--layers`` cuts the depth) and times two steps of
+Builds a full-width model (seeded random weights in bf16; granite-3-8b
+on the int8 DBB wire with int8 KV by default, or e.g. ``--arch
+minicpm3_4b --wire native --kv native``; ``--layers`` cuts the depth) and
+times two steps of
 ``lm.paged_step`` with a warm cache: a mixed step (4 rows x 16 tokens, the
 main path's prefill chunk) and a decode step (4 rows x 1 token).  For each
 it prints the wall time per step (host clock around a synchronized step),
@@ -25,7 +28,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=40)
+    ap.add_argument("--arch", default="granite_3_8b")
+    ap.add_argument("--wire", default="int8", choices=("native", "int8"))
+    ap.add_argument("--kv", default="int8", choices=("native", "int8"))
+    ap.add_argument("--layers", type=int, default=None, help="default: the full depth")
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -40,10 +46,15 @@ def main():
     from repro_torch.serve import paged_cache
 
     native.build_all()
-    cfg = dataclasses.replace(configs.get_config("granite_3_8b"), n_layers=args.layers)
-    sp = dataclasses.replace(cfg.sparsity, act_scale="per_row", kv_dtype="int8")
+    cfg = configs.get_config(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+    # the engine's effective settings: per-row activation scales on the int8 wire
+    sp = dataclasses.replace(cfg.sparsity, kv_dtype=args.kv)
+    if args.wire == "int8":
+        sp = dataclasses.replace(sp, act_scale="per_row")
     cfg = dataclasses.replace(cfg, sparsity=sp)
-    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                            wire_dtype=args.wire)
     b, ps, p_cnt = 4, 16, 64
     cache = paged_cache.make_paged_cache(cfg, b * p_cnt + 1, ps, "cuda")
     tables = (torch.arange(b * p_cnt, dtype=torch.int32, device="cuda") + 1).reshape(b, p_cnt)
@@ -74,7 +85,7 @@ def main():
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        print(f"{name} ({cfg.n_layers} layers): wall {wall_ms:.2f} ms/step; profiled step "
+        print(f"{args.arch} {args.wire} wire {args.kv} KV {name} ({cfg.n_layers} layers): wall {wall_ms:.2f} ms/step; profiled step "
               f"wall {prof_wall_ms:.2f} ms, device busy {busy_ms:.2f} ms over "
               f"{len(kernels)} kernels, idle share {1 - busy_ms / prof_wall_ms:.3f}")
         by_name = {}

@@ -1,17 +1,17 @@
 """Architecture registry: ``get_config(name, smoke=False)``.
 
-The port serves dense GQA decoders only, so granite-3-8b is the one
-architecture registered; the others follow with their families.
+The port serves dense decoders only: granite-3-8b (GQA) and minicpm3-4b
+(MLA) are registered; the others follow with their families.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b
+from repro_torch.configs import granite_3_8b, minicpm3_4b
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCH_IDS = ("granite_3_8b",)
+ARCH_IDS = ("granite_3_8b", "minicpm3_4b")
 
-_MODULES = {"granite_3_8b": granite_3_8b}
+_MODULES = {"granite_3_8b": granite_3_8b, "minicpm3_4b": minicpm3_4b}
 
 
 def canon(name: str) -> str:

@@ -1,7 +1,7 @@
-"""Model configuration (port of ``repro.configs.base.ModelConfig``).
+"""Model configuration (port of ``repro.configs.base``).
 
-Only the fields a dense GQA decoder reads are carried; each has the
-reference's name, default and meaning, and a test holds them equal
+Only the fields a dense decoder (GQA or MLA) reads are carried; each has
+the reference's name, default and meaning, and a test holds them equal
 field for field.
 """
 
@@ -14,9 +14,20 @@ from repro_torch.core.sparsity import DENSE, SparsityConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (MiniCPM3 / DeepSeek-v2 style)."""
+
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"  # only dense GQA is ported
+    family: str = "dense"  # only dense decoders (GQA or MLA) are ported
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -30,6 +41,7 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # tokens; None = full attention
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    mla: Optional[MLAConfig] = None
     sparsity: SparsityConfig = DENSE
     # embedding / lm_head rows are padded to a multiple of this
     vocab_pad_multiple: int = 256
@@ -44,4 +56,8 @@ class ModelConfig:
         return ((self.vocab + m - 1) // m) * m
 
     def kv_dim(self) -> int:
+        """Width of one token's cached K row: the latent ``(c_kv ‖ k_rope)``
+        under MLA, all KV heads otherwise."""
+        if self.mla is not None:
+            return self.mla.kv_lora_rank + self.mla.qk_rope_head_dim
         return self.n_kv_heads * self.head_dim()

@@ -97,6 +97,23 @@ def pack_bitmask(x: torch.Tensor, cfg: DBBConfig):
     return vals, bitmask
 
 
+def expand_bitmask(values: torch.Tensor, bitmask: torch.Tensor, cfg: DBBConfig) -> torch.Tensor:
+    """``(values, bitmask) -> dense``; inverse of :func:`pack_bitmask`:
+    ``dense[b] = bit_b ? values[rank(b)] : 0`` with
+    ``rank(b) = popcount(mask & (2^b - 1))``.  A one-hot sum in float32
+    as the reference does: exactly one term per position is non-zero, so
+    it is exact."""
+    mask = bitmask.to(torch.int32)
+    pos = torch.arange(cfg.bz, dtype=torch.int32, device=values.device)
+    bits = (mask[..., None] >> pos) & 1  # [..., nblk, BZ]
+    rank = torch.cumsum(bits, dim=-1) - bits  # popcount of lower bits
+    slots = torch.arange(cfg.nnz, dtype=torch.int32, device=values.device)
+    onehot = rank[..., None] == slots
+    gathered = (values[..., None, :].float() * onehot.float()).sum(dim=-1)
+    dense_b = (bits.float() * gathered).to(values.dtype)
+    return _from_blocks(dense_b)
+
+
 def pack_bitmask_int8(x: torch.Tensor, cfg: DBBConfig, scale_axis=None):
     """Dense -> ``(int8 values, bitmask, f32 scale)``: :func:`pack_bitmask`
     then symmetric quantization of the kept values, the scale shared over

@@ -1,4 +1,4 @@
-// Fused paged attention for Hopper (sm_90a), GQA mode.
+// Fused paged attention for Hopper (sm_90a): GQA mode and MLA's latent mode.
 //
 // Replaces the Pallas TPU kernel
 //   repro/kernels/paged_attn.py::paged_attn_fused  (_paged_attn_kernel)
@@ -11,7 +11,15 @@
 // Masking derives only from the slot positions: -1 is invalid (empty,
 // null page, scrubbed), causality is k_pos <= q_pos, and an optional
 // sliding window bounds the lookback.  Probabilities are cast to the
-// value dtype before P @ V; the output divides by max(l, 1e-30).
+// value dtype before P @ V; the output divides by max(l, 1e-30).  Logits
+// scale by the caller's softmax scale (1/sqrt(Dk) for GQA; MLA passes
+// 1/sqrt(qk_nope + qk_rope), not 1/sqrt of its latent width).
+//
+// Latent mode (MLA's absorbed attention, latent != 0): KV = 1, each page
+// row holds the (c_kv || k_rope) latent, queries are (q_abs || q_rope),
+// and v is the first Dv features of the same dequantized k row: the v
+// pages (MLA's 1-wide dummy) and any v scale are never read, and the k
+// tile in shared memory serves both products.
 //
 // What bounds it on the H100.  Every query row reads the whole cached
 // window of its request once, and at serving shapes (S * G <= 64 rows per
@@ -66,7 +74,8 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
                   const float* __restrict__ v_scale, const int32_t* __restrict__ pos_tbl,
                   const int32_t* __restrict__ page_tables, const int32_t* __restrict__ q_pos,
                   float* __restrict__ ws, int S, int H, int KV, int Dk, int Dv, int PS,
-                  int P, int pages_per_split, int s_blk, int window, float scale) {
+                  int P, int pages_per_split, int s_blk, int window, int latent,
+                  float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int G = H / KV, SGALL = S * G;
@@ -76,8 +85,8 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
   const int QST = Dk + 1, KST = Dk + 1;   // +1: conflict-free row strides
   float* q_s = smem;                      // [SGM][QST]
   float* k_s = q_s + SGM * QST;           // [PS][KST]
-  float* v_s = k_s + PS * KST;            // [PS][Dv]
-  float* p_s = v_s + PS * Dv;             // [SGM][PS] logits, then probs
+  float* v_s = k_s + PS * KST;            // [PS][Dv] (latent: none, v = k_s)
+  float* p_s = v_s + (latent ? 0 : PS * Dv);  // [SGM][PS] logits, then probs
   float* acc_s = p_s + SGM * PS;          // [SGM][Dv]
   float* m_s = acc_s + SGM * Dv;          // [SGM]
   float* l_s = m_s + SGM;                 // [SGM]
@@ -115,7 +124,7 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
       if (k_scale != nullptr) v = round_c(v * k_scale[row], ctag);
       k_s[sl * KST + d] = v;
     }
-    for (int i = tid; i < PS * Dv; i += THREADS) {
+    for (int i = tid; i < (latent ? 0 : PS * Dv); i += THREADS) {
       const int sl = i / Dv, d = i % Dv;
       const size_t row = (size_t)pid * PS + sl;
       float v = to_f(v_pages[row * kvd_v + (size_t)kvh * Dv + d]);
@@ -160,11 +169,13 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
     __syncthreads();
 
     // acc = acc * alpha + probs(cast to the value dtype) @ v
+    const float* vv = latent ? k_s : v_s;
+    const int vst = latent ? KST : Dv;
     for (int i = tid; i < SG * Dv; i += THREADS) {
       const int r = i / Dv, d = i % Dv;
       const float* pr = p_s + r * PS;
       float pv = 0.0f;
-      for (int sl = 0; sl < PS; ++sl) pv = fmaf(round_c(pr[sl], ctag), v_s[sl * Dv + d], pv);
+      for (int sl = 0; sl < PS; ++sl) pv = fmaf(round_c(pr[sl], ctag), vv[sl * vst + d], pv);
       acc_s[i] = acc_s[i] * a_s[r] + pv;
     }
   }
@@ -211,10 +222,11 @@ paged_attn_combine(const float* __restrict__ ws, CT* __restrict__ out, int B, in
 
 int s_block(int G) { return G >= ROWS ? 1 : ROWS / G; }
 
-size_t smem_bytes(int S, int G, int Dk, int Dv, int PS) {
+size_t smem_bytes(int S, int G, int Dk, int Dv, int PS, int latent) {
   const size_t SG = (size_t)(S < s_block(G) ? S : s_block(G)) * G;
-  return sizeof(float) * (SG * (Dk + 1) + (size_t)PS * (Dk + 1) + (size_t)PS * Dv +
-                          SG * PS + SG * Dv + 3 * SG) +
+  const size_t v_tile = latent ? 0 : (size_t)PS * Dv;
+  return sizeof(float) * (SG * (Dk + 1) + (size_t)PS * (Dk + 1) + v_tile + SG * PS +
+                          SG * Dv + 3 * SG) +
          sizeof(int32_t) * PS;
 }
 
@@ -223,8 +235,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int32_t* pos, const int32_t* tables,
                    const int32_t* qpos, float* ws, void* out, int B, int S, int H, int KV,
                    int Dk, int Dv, int PS, int P, int pages_per_split, int window,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, H / KV, Dk, Dv, PS);
+                   int latent, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(S, H / KV, Dk, Dv, PS, latent);
   cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<KT, CT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -234,7 +246,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   const int nrow = (S + s_blk - 1) / s_blk;
   paged_attn_kernel<KT, CT><<<dim3(B * KV, nsplit, nrow), THREADS, smem, stream>>>(
       (const CT*)q, (const KT*)k, (const KT*)v, ks, vs, pos, tables, qpos, ws, S, H, KV,
-      Dk, Dv, PS, P, pages_per_split, s_blk, window, scale);
+      Dk, Dv, PS, P, pages_per_split, s_blk, window, latent, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)B * KV * S * (H / KV) * Dv;
@@ -247,23 +259,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
 
 // Dynamic shared memory the kernel needs for these shapes: at most ROWS
 // query rows per block (the wrapper refuses shapes above 227 KB).
-extern "C" size_t paged_attn_smem_bytes(int S, int G, int Dk, int Dv, int PS) {
-  return smem_bytes(S, G, Dk, Dv, PS);
+extern "C" size_t paged_attn_smem_bytes(int S, int G, int Dk, int Dv, int PS, int latent) {
+  return smem_bytes(S, G, Dk, Dv, PS, latent);
 }
 
 // C entry point, bound with ctypes (kernels/paged_attn.py).  kv_int8
-// selects int8 pages with k_scale/v_scale planes; c_bf16 selects bf16 (else
-// f32) for q, native pages and the output.  window <= 0 means no sliding
-// window.  ws is f32 scratch of B*KV*ceil(P/pages_per_split)*S*G*(Dv+2)
+// selects int8 pages with k_scale/v_scale planes (latent: k_scale only);
+// c_bf16 selects bf16 (else f32) for q, native pages and the output.
+// window <= 0 means no sliding window.  latent != 0 is MLA's latent mode:
+// KV == 1, Dv <= Dk, v_pages and v_scale unread (may be NULL).  ws is f32 scratch of B*KV*ceil(P/pages_per_split)*S*G*(Dv+2)
 // floats for the splits' partial statistics.  Returns cudaGetLastError().
 extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_pages,
                           const void* k_scale, const void* v_scale, const void* pos_tbl,
                           const void* page_tables, const void* q_pos, void* ws, void* out,
                           int B, int S, int H, int KV, int Dk, int Dv, int PS, int P,
-                          int pages_per_split, int window, float scale, int kv_int8,
-                          int c_bf16, void* stream) {
+                          int pages_per_split, int window, int latent, float scale,
+                          int kv_int8, int c_bf16, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || PS <= 0 || P <= 0 ||
-      pages_per_split <= 0)
+      pages_per_split <= 0 || (latent && (KV != 1 || Dv <= 0 || Dv > Dk)))
     return (int)cudaErrorInvalidValue;
   float* w = (float*)ws;
   cudaStream_t st = (cudaStream_t)stream;
@@ -274,7 +287,7 @@ extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_page
   const int32_t* qp = (const int32_t*)q_pos;
 #define PA_ARGS(KS, VS)                                                            \
   q, k_pages, v_pages, KS, VS, pos, tab, qp, w, out, B, S, H, KV, Dk, Dv, PS, P,   \
-      pages_per_split, window, scale, st
+      pages_per_split, window, latent, scale, st
   cudaError_t err;
   if (kv_int8) {
     err = c_bf16 ? launch<int8_t, __nv_bfloat16>(PA_ARGS(ks, vs))

@@ -1,13 +1,22 @@
-"""The int8 DBB matmul kernels on Hopper (``csrc/dbb_matmul_int8.cu``).
+"""The DBB matmul kernels on Hopper (``csrc/dbb_matmul_int8.cu``,
+``csrc/dbb_matmul_native.cu``).
 
-Kernel #2 (``dbb_matmul_int8_cuda``) replaces the reference's
+Int8 wire: kernel #2 (``dbb_matmul_int8_cuda``) replaces the reference's
 ``dbb_matmul_int8_pallas``: dense int8 activations times packed int8
 weights.  Kernel #3 (``dbb_matmul_aw_int8_cuda``) replaces
 ``dbb_matmul_aw_int8_pallas``: both operands packed.  Both accumulate in
 int32 and drain through the dequant epilogue
 ``act(float(acc) * (x_scale * w_scale) + bias)`` — bit-identical to the
-plain versions in ``kernels/ref.py``.  These wrappers take CUDA tensors
-only; ``kernels/ops.py`` dispatches CPU tensors to the plain versions.
+plain versions in ``kernels/ref.py``.
+
+Native wire (values in the model dtype, bf16 or f32): kernel #1
+(``dbb_matmul_cuda``) replaces ``dbb_matmul_pallas`` and kernel #4
+(``dbb_matmul_aw_cuda``) replaces ``dbb_matmul_aw_pallas``: an f32
+accumulator drained through ``act(acc + bias)``.  Their K splits depend
+on (K, N) only, so a row's output is bitwise the same whatever M is.
+
+These wrappers take CUDA tensors only; ``kernels/ops.py`` dispatches CPU
+tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from repro_torch.kernels import native
 
 INT8 = native.Counter()  # kernel #2: dense int8 x, packed int8 w
 AW_INT8 = native.Counter()  # kernel #3: packed int8 x and w
+NATIVE = native.Counter()  # kernel #1: dense x, packed w, model dtype
+AW_NATIVE = native.Counter()  # kernel #4: packed x and w, model dtype
 
 _ACT = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
@@ -29,6 +40,7 @@ _OUT = {torch.float32: 0, torch.bfloat16: 1}
 # tiles splits its K loop across blocks (int32 atomics, exact)
 TARGET_BLOCKS = 264
 _fns = None
+_native_fns = None
 
 
 def _entries():
@@ -149,3 +161,121 @@ def dbb_matmul_aw_int8_cuda(
     native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
     return _launch(AW_INT8, x_vals, x_mask, m, nnz_a, x_scale, w_vals, w_mask,
                    w_scale, cfg_w, out_dtype, bias, act, acc_out)
+
+
+# ------------------------------------------------------------ native wire
+
+_FLOAT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _native_entries():
+    global _native_fns
+    if _native_fns is None:
+        lib = native.load("dbb_matmul_native")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = lib.dbb_matmul_native
+        fn.argtypes = [P] * 7 + [I] * 11 + [P]
+        fn.restype = I
+        step = lib.dbb_matmul_native_step_blocks
+        step.argtypes = [I]
+        step.restype = I
+        _native_fns = (fn, step)
+    return _native_fns
+
+
+def _native_split(n: int, kb: int, step: int):
+    """``(kb_per_split, n_split)`` for a native-wire launch: enough K
+    splits that the output tiles of one 16-row tile fill the H100 twice,
+    each a whole number of ``step``-deep shared-memory steps.  A function
+    of N and K only — never of M — so every row sums in the same order."""
+    tiles = -(-n // 64)
+    steps = -(-kb // step)
+    want = 1 if tiles >= TARGET_BLOCKS // 2 else min(-(-TARGET_BLOCKS // tiles), steps)
+    kb_per_split = -(-steps // max(1, want)) * step
+    return kb_per_split, -(-kb // kb_per_split)
+
+
+def _launch_native(counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg_w, out_dtype,
+                   bias, act):
+    if cfg_w.bz != 8:
+        raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
+    if act not in _ACT:
+        raise ValueError(f"unknown activation {act!r}; one of {tuple(_ACT)}")
+    if out_dtype not in _OUT:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if w_vals.dtype not in _FLOAT:
+        raise ValueError(f"w_vals: native wire values must be float32 or bfloat16, got {w_vals.dtype}")
+    if x.dtype != w_vals.dtype:
+        raise ValueError(f"x ({x.dtype}) and w_vals ({w_vals.dtype}) must share a dtype")
+    kb, nnz_w, n = w_vals.shape
+    if nnz_w != cfg_w.nnz or not 1 <= nnz_w <= 8:
+        raise ValueError(f"w_vals holds {nnz_w} slots, cfg says {cfg_w.nnz}")
+    dev = w_vals.device
+    p_wv = native.cuda_arg(w_vals, "w_vals", w_vals.dtype)
+    p_wm = native.cuda_arg(w_mask, "w_mask", torch.uint8, (kb, n))
+    if p_wv % 16 or p_wm % 4:
+        raise ValueError("w_vals must be 16-byte and w_mask 4-byte aligned")
+    p_b = None
+    if bias is not None:
+        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+        p_b = native.cuda_arg(bias, "bias", torch.float32, (n,))
+    fn, step = _native_entries()
+    bf16 = _FLOAT[w_vals.dtype]
+    kb_per_split, n_split = _native_split(n, kb, step(bf16))
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    part = (torch.empty((n_split, m, n), dtype=torch.float32, device=dev)
+            if n_split > 1 else None)
+    err = fn(
+        x.data_ptr(), None if x_mask is None else x_mask.data_ptr(), p_wv, p_wm, p_b,
+        out.data_ptr(), None if part is None else part.data_ptr(), m, n, kb, nnz_a, nnz_w,
+        kb_per_split, n_split, int(x_mask is not None), bf16, _OUT[out_dtype], _ACT[act],
+        native.stream_ptr(dev),
+    )
+    native.check(err, "dbb_matmul_native")
+    counter.launches += 1
+    return out
+
+
+def dbb_matmul_cuda(
+    x: torch.Tensor,  # [M, K] bf16 or f32
+    w_vals: torch.Tensor,  # [K//8, NNZ, N], x's dtype
+    w_mask: torch.Tensor,  # [K//8, N] uint8
+    cfg: dbb.DBBConfig,
+    *,
+    out_dtype=None,
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """Kernel #1: ``act(x @ decode_w(w) + bias)``, f32 accumulator."""
+    if x.ndim != 2 or x.shape[1] != w_vals.shape[0] * cfg.bz:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_vals {tuple(w_vals.shape)}")
+    if native.cuda_arg(x, "x", x.dtype) % 16:
+        x = x.clone()  # the kernel reads 8 values at a time
+    return _launch_native(NATIVE, x, None, x.shape[0], 1, w_vals, w_mask, cfg,
+                          out_dtype or x.dtype, bias, act)
+
+
+def dbb_matmul_aw_cuda(
+    x_vals: torch.Tensor,  # [M, K//8, NNZa], the model dtype
+    x_mask: torch.Tensor,  # [M, K//8] uint8
+    w_vals: torch.Tensor,
+    w_mask: torch.Tensor,
+    cfg_a: dbb.DBBConfig,
+    cfg_w: dbb.DBBConfig,
+    *,
+    out_dtype=None,
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """Kernel #4: kernel #1 with ``decode_a(x)`` on the left."""
+    m, kb, nnz_a = x_vals.shape
+    if (kb != w_vals.shape[0] or nnz_a != cfg_a.nnz or cfg_a.bz != cfg_w.bz
+            or not 1 <= nnz_a <= 8):
+        raise ValueError(
+            f"x_vals {tuple(x_vals.shape)} ({cfg_a}) does not match "
+            f"w_vals {tuple(w_vals.shape)} ({cfg_w})"
+        )
+    native.cuda_arg(x_vals, "x_vals", x_vals.dtype)
+    native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
+    return _launch_native(AW_NATIVE, x_vals, x_mask, m, nnz_a, w_vals, w_mask, cfg_w,
+                          out_dtype or x_vals.dtype, bias, act)

@@ -1,10 +1,13 @@
-"""Fused paged attention on Hopper (``csrc/paged_attn.cu``), GQA mode.
+"""Fused paged attention on Hopper (``csrc/paged_attn.cu``).
 
 Kernel #6 replaces the reference's ``paged_attn_fused``: it walks each
 request's page table in-kernel with an online softmax and dequantizes
 int8 pages in the load, so the ``[B, P*PS, D]`` window is never
-materialized.  The plain version is ``kernels/ref.py::paged_attn_ref``.
-The reference kernel's MLA latent mode (``latent_dv``) is not ported yet.
+materialized.  Two modes, counted apart: GQA (``PAGED_ATTN``) and MLA's
+latent mode (``PAGED_ATTN_LATENT``: ``kv_heads=1``, the page holds the
+``(c_kv ‖ k_rope)`` latent and v is its first ``latent_dv`` features, so
+the v pages are never read).  The plain version is
+``kernels/ref.py::paged_attn_ref``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.kernels import native
 
-PAGED_ATTN = native.Counter()  # kernel #6
+PAGED_ATTN = native.Counter()  # kernel #6, GQA mode
+PAGED_ATTN_LATENT = native.Counter()  # kernel #6, MLA latent mode
 
 # pages one block walks; the rest of a request's table goes to more blocks
 # whose partial softmax statistics a second kernel merges
@@ -33,10 +37,10 @@ def _entries():
         lib = native.load("paged_attn")
         P, I = ctypes.c_void_p, ctypes.c_int
         fn = lib.paged_attn
-        fn.argtypes = [P] * 10 + [I] * 10 + [ctypes.c_float, I, I, P]
+        fn.argtypes = [P] * 10 + [I] * 11 + [ctypes.c_float, I, I, P]
         fn.restype = I
         smem = lib.paged_attn_smem_bytes
-        smem.argtypes = [I] * 5
+        smem.argtypes = [I] * 6
         smem.restype = ctypes.c_size_t
         _fns = (fn, smem)
     return _fns
@@ -45,24 +49,21 @@ def _entries():
 def paged_attn_cuda(
     q: torch.Tensor,  # [B, S, H, Dk] compute dtype (f32 or bf16)
     k_pages: torch.Tensor,  # [N, PS, KV*Dk] int8 (with k_scale) or q's dtype
-    v_pages: torch.Tensor,  # [N, PS, KV*Dv]
+    v_pages: Optional[torch.Tensor],  # [N, PS, KV*Dv]; unread in latent mode
     pos_tbl: torch.Tensor,  # [N, PS] int32
     page_tables: torch.Tensor,  # [B, P] int32
     q_pos: torch.Tensor,  # [B, S] int32
     *,
     kv_heads: int,
     window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,  # default 1/sqrt(Dk)
     k_scale: Optional[torch.Tensor] = None,  # [N, PS] f32
     v_scale: Optional[torch.Tensor] = None,
     latent_dv: Optional[int] = None,
     out_dtype=None,
 ) -> torch.Tensor:
-    """Kernel #6: ``[B, S, H, Dv]`` attention over the paged cache."""
-    if latent_dv is not None:
-        raise NotImplementedError(
-            "paged attention's MLA latent mode (latent_dv) is not ported yet "
-            "(ROADMAP queue 2, kernel #6 latent mode)"
-        )
+    """Kernel #6: ``[B, S, H, Dv]`` attention over the paged cache; with
+    ``latent_dv`` the MLA latent mode."""
     b, s, h, dk = q.shape
     if q.dtype not in _COMPUTE:
         raise ValueError(f"q: compute dtype must be float32 or bfloat16, got {q.dtype}")
@@ -76,41 +77,52 @@ def paged_attn_cuda(
     p_cnt = page_tables.shape[1]
     if k_pages.shape[:2] != (n_pages, ps) or k_pages.shape[2] != kv_heads * dk:
         raise ValueError(f"k_pages {tuple(k_pages.shape)} does not match q {tuple(q.shape)}")
-    if v_pages.shape[:2] != (n_pages, ps) or v_pages.shape[2] % kv_heads != 0:
-        raise ValueError(f"v_pages {tuple(v_pages.shape)} does not match the page pool")
-    dv = v_pages.shape[2] // kv_heads
     kv_int8 = k_scale is not None
-    if (v_scale is not None) != kv_int8:
-        raise ValueError("int8 KV needs both k_scale and v_scale")
+    latent = latent_dv is not None
+    if latent:
+        if kv_heads != 1 or not 0 < latent_dv <= dk:
+            raise ValueError(
+                f"latent mode needs kv_heads=1 and 0 < latent_dv <= Dk={dk}, got "
+                f"kv_heads={kv_heads}, latent_dv={latent_dv}"
+            )
+        if v_scale is not None:
+            raise ValueError("latent mode reads v from the k pages: no v_scale")
+        dv = latent_dv
+    else:
+        if v_pages is None or v_pages.shape[:2] != (n_pages, ps) or v_pages.shape[2] % kv_heads:
+            raise ValueError("v_pages does not match the page pool")
+        if (v_scale is not None) != kv_int8:
+            raise ValueError("int8 KV needs both k_scale and v_scale")
+        dv = v_pages.shape[2] // kv_heads
     page_dtype = torch.int8 if kv_int8 else q.dtype
+    args = [
+        native.cuda_arg(q, "q", q.dtype),
+        native.cuda_arg(k_pages, "k_pages", page_dtype),
+        None if latent else native.cuda_arg(v_pages, "v_pages", page_dtype),
+        None if not kv_int8 else native.cuda_arg(k_scale, "k_scale", torch.float32, (n_pages, ps)),
+        None if v_scale is None else native.cuda_arg(v_scale, "v_scale", torch.float32, (n_pages, ps)),
+        native.cuda_arg(pos_tbl, "pos_tbl", torch.int32),
+        native.cuda_arg(page_tables, "page_tables", torch.int32),
+        native.cuda_arg(q_pos, "q_pos", torch.int32, (b, s)),
+    ]
     g = h // kv_heads
     fn, smem = _entries()
-    need = smem(s, g, dk, dv, ps)
+    need = smem(s, g, dk, dv, ps, int(latent))
     if need > SMEM_LIMIT:
         raise ValueError(
             f"paged attention needs {need} B of shared memory for S={s}, G={g}, "
             f"Dk={dk}, Dv={dv}, PS={ps}; one block has {SMEM_LIMIT}"
         )
-    args = [
-        native.cuda_arg(q, "q", q.dtype),
-        native.cuda_arg(k_pages, "k_pages", page_dtype),
-        native.cuda_arg(v_pages, "v_pages", page_dtype),
-        None if not kv_int8 else native.cuda_arg(k_scale, "k_scale", torch.float32, (n_pages, ps)),
-        None if not kv_int8 else native.cuda_arg(v_scale, "v_scale", torch.float32, (n_pages, ps)),
-        native.cuda_arg(pos_tbl, "pos_tbl", torch.int32),
-        native.cuda_arg(page_tables, "page_tables", torch.int32),
-        native.cuda_arg(q_pos, "q_pos", torch.int32, (b, s)),
-    ]
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     n_split = -(-p_cnt // PAGES_PER_SPLIT)
     ws = torch.empty((b * kv_heads * n_split * s * g * (dv + 2),), dtype=torch.float32,
                      device=q.device)
-    scale = 1.0 / math.sqrt(dk)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dk)
     err = fn(
         *args, ws.data_ptr(), out.data_ptr(), b, s, h, kv_heads, dk, dv, ps, p_cnt,
-        PAGES_PER_SPLIT, -1 if window is None else int(window), float(scale),
+        PAGES_PER_SPLIT, -1 if window is None else int(window), int(latent), float(scale),
         int(kv_int8), _COMPUTE[q.dtype], native.stream_ptr(q.device),
     )
     native.check(err, "paged_attn")
-    PAGED_ATTN.launches += 1
+    (PAGED_ATTN_LATENT if latent else PAGED_ATTN).launches += 1
     return out

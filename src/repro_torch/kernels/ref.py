@@ -46,6 +46,34 @@ def decode_a(x_vals: torch.Tensor, x_mask: torch.Tensor, cfg: dbb.DBBConfig) -> 
     return dense.reshape(*dense.shape[:-2], dense.shape[-2] * cfg.bz)
 
 
+def float_acc(x: torch.Tensor, w_dense: torch.Tensor) -> torch.Tensor:
+    """The f32 accumulator ``x @ w_dense`` of float operands (f32 or bf16),
+    multiplied in float64 and rounded once to f32: every bf16 or f32
+    product is exact in float64 and the sum nearly so, so a row's result
+    does not depend on how many rows are multiplied with it."""
+    return (x.double() @ w_dense.double()).float()
+
+
+def dbb_matmul_ref(x, w_vals, w_mask, cfg, out_dtype=None,
+                   bias: Optional[torch.Tensor] = None,
+                   act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of kernel #1: ``act(x @ decode_w(w) + bias)`` with an
+    f32 accumulator, the epilogue on it, then the cast to ``out_dtype``
+    (default ``x``'s dtype)."""
+    w_dense = decode_w(w_vals, w_mask, cfg).to(x.dtype)
+    y = epilogue.apply_epilogue(float_acc(x, w_dense), bias, act)
+    return y.to(out_dtype or x.dtype)
+
+
+def dbb_matmul_aw_ref(x_vals, x_mask, w_vals, w_mask, cfg_a, cfg_w, out_dtype=None,
+                      bias: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of kernel #4: kernel #1 on ``decode_a(x)``."""
+    x_dense = decode_a(x_vals, x_mask, cfg_a)
+    return dbb_matmul_ref(x_dense, w_vals, w_mask, cfg_w, out_dtype=out_dtype,
+                          bias=bias, act=act)
+
+
 def combined_scale(x_scale: torch.Tensor, w_scale: torch.Tensor, n: int) -> torch.Tensor:
     """``x_scale * w_scale`` as ``[1, N]`` (scalar ``x_scale``) or ``[M, N]``
     (per-row ``x_scale [M]``) — formed before the accumulator multiply."""
@@ -92,6 +120,13 @@ def dbb_matmul_aw_int8_ref(x_vals, x_mask, x_scale, w_vals, w_mask, w_scale,
     )
 
 
+def pack_weight_for_kernel(w: torch.Tensor, cfg: dbb.DBBConfig):
+    """Dense ``w [K, N]`` -> native wire ``(w_vals [K//BZ, NNZ, N], w_mask
+    [K//BZ, N] uint8)`` in ``w``'s dtype (prunes if needed)."""
+    vals, mask = dbb.pack_bitmask(w.t(), cfg)  # [N, KB, NNZ], [N, KB]
+    return torch.movedim(vals, 0, -1).contiguous(), torch.movedim(mask, 0, -1).contiguous()
+
+
 def pack_weight_int8(w: torch.Tensor, cfg: dbb.DBBConfig):
     """Dense ``w [K, N]`` -> ``(w_vals [K//BZ, NNZ, N] int8, w_mask
     [K//BZ, N] uint8, w_scale [N] f32)`` with per-output-channel scales."""
@@ -113,39 +148,50 @@ def quantize_act_int8(x: torch.Tensor, per_row: bool = False):
 
 def paged_attn_ref(
     q: torch.Tensor,  # [B, S, H, Dk]
-    k_pages: torch.Tensor,  # [N, PS, KV*Dk]
-    v_pages: torch.Tensor,  # [N, PS, KV*Dv]
+    k_pages: torch.Tensor,  # [N, PS, KV*Dk] (latent: [N, PS, Dk], KV == 1)
+    v_pages: Optional[torch.Tensor],  # [N, PS, KV*Dv]; unread when latent
     pos_tbl: torch.Tensor,  # [N, PS] int32
     page_tables: torch.Tensor,  # [B, P] int32
     q_pos: torch.Tensor,  # [B, S] int32
     *,
     kv_heads: int,
     window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    latent_dv: Optional[int] = None,
     out_dtype=None,
 ) -> torch.Tensor:
-    """Plain version of kernel #6 (GQA mode): one page per step of a loop
-    over ``page_tables`` with the fused kernel's online softmax — int8
-    pages dequantize in the load (``f32(q) * scale``, then rounded to the
+    """Plain version of kernel #6: one page per step of a loop over
+    ``page_tables`` with the fused kernel's online softmax — int8 pages
+    dequantize in the load (``f32(q) * scale``, then rounded to the
     compute dtype), logits and the ``(acc, m, l)`` statistics are f32,
     masking derives from the slot positions only, and probabilities are
-    cast to the value dtype before ``P @ V``."""
+    cast to the value dtype before ``P @ V``.  Logits scale by
+    ``softmax_scale`` (default ``1/sqrt(Dk)``).
+
+    GQA mode reads v from ``v_pages``.  MLA's latent mode
+    (``latent_dv``, ``kv_heads=1``) takes v as the first ``latent_dv``
+    features of the dequantized k page; ``v_pages`` and ``v_scale`` are
+    not read."""
     b, s, h, dk = q.shape
     g = h // kv_heads
     sg = s * g
     n_pages, ps = pos_tbl.shape
     p_cnt = page_tables.shape[1]
-    dv = v_pages.shape[-1] // kv_heads
+    latent = latent_dv is not None
+    if latent and (kv_heads != 1 or not 0 < latent_dv <= dk):
+        raise ValueError(f"latent mode needs kv_heads=1 and 0 < latent_dv <= {dk}")
+    dv = latent_dv if latent else v_pages.shape[-1] // kv_heads
     out_dtype = out_dtype or q.dtype
-    scale = 1.0 / math.sqrt(dk)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dk)
     neg_inf = -1e30
     cdtype = q.dtype
     tables = page_tables.long()
 
     q_r = q.reshape(b, s, kv_heads, g, dk).transpose(1, 2).reshape(b, kv_heads, sg, dk)
     k_r = k_pages.reshape(n_pages, ps, kv_heads, dk)
-    v_r = v_pages.reshape(n_pages, ps, kv_heads, dv)
+    v_r = None if latent else v_pages.reshape(n_pages, ps, kv_heads, dv)
     acc = torch.zeros((b, kv_heads, sg, dv), dtype=torch.float32, device=q.device)
     m = torch.full((b, kv_heads, sg, 1), neg_inf, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kv_heads, sg, 1), dtype=torch.float32, device=q.device)
@@ -168,9 +214,12 @@ def paged_attn_ref(
         m_new = torch.maximum(m, m_cur)
         alpha = torch.exp(m - m_new)
         probs = torch.exp(logits - m_new)
-        v_p = v_r[pid]
-        if v_scale is not None:
-            v_p = (v_p.float() * v_scale[pid][:, :, None, None]).to(cdtype)
+        if latent:
+            v_p = k_p[..., :dv]  # MLA: v is the latent prefix of k
+        else:
+            v_p = v_r[pid]
+            if v_scale is not None:
+                v_p = (v_p.float() * v_scale[pid][:, :, None, None]).to(cdtype)
         pv = torch.einsum("bkxp,bpkv->bkxv", probs.to(v_p.dtype).float(), v_p.float())
         acc = acc * alpha + pv
         m = m_new

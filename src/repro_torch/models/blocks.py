@@ -1,5 +1,5 @@
 """Pre-norm decoder block (port of ``repro.models.blocks.decoder_block``),
-dense GQA over the paged cache."""
+dense GQA or MLA over the paged cache."""
 
 from __future__ import annotations
 
@@ -13,10 +13,16 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
     this layer's page pools and the already-updated shared slot table; the
     pools are written in place."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a_out = attn.gqa_forward(
-        p["attn"], h, cfg, positions, layer_idx=layer_idx,
-        cache_layer=cache_layer, rope_cs=rope_cs, page_tables=page_tables,
-    )
+    if cfg.mla is not None:
+        a_out = attn.mla_forward(
+            p["attn"], h, cfg, positions, layer_idx=layer_idx,
+            cache_layer=cache_layer, page_tables=page_tables,
+        )
+    else:
+        a_out = attn.gqa_forward(
+            p["attn"], h, cfg, positions, layer_idx=layer_idx,
+            cache_layer=cache_layer, rope_cs=rope_cs, page_tables=page_tables,
+        )
     x = x + a_out
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     m_out = mlp_forward(

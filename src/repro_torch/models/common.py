@@ -1,11 +1,10 @@
 """Shared model building blocks (port of ``repro.models.common``): norms,
 the packed activation hand-off and the DBB-aware linear layer.
 
-Parameters are plain dictionaries of tensors with the reference's keys
-(``{"w"}`` dense, ``{"w_vals", "w_mask", "w_scale"}`` on the int8 wire).
-This slice serves the int8 wire only; the native wire's matmuls
-(kernels #1 and #4) are a later slice, and a linear that would need them
-raises ``NotImplementedError``.
+Parameters are plain dictionaries of tensors with the reference's keys:
+``{"w"}`` dense, ``{"w_vals", "w_mask"}`` on the native DBB wire (values
+in the model dtype) and ``{"w_vals", "w_mask", "w_scale"}`` on the int8
+wire.
 """
 
 from __future__ import annotations
@@ -20,11 +19,6 @@ from repro_torch.core import dbb, quant
 from repro_torch.core.dap import apply_dap
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.kernels import epilogue, ops
-
-_NATIVE_WIRE = (
-    "the native (non-int8) DBB wire needs kernels #1/#4, not ported yet "
-    "(ROADMAP queue 2); serve with wire_dtype='int8'"
-)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -100,13 +94,14 @@ def maybe_pack_input(x: ActOrPacked, targets: Sequence[dict],
     spec = _active_dap_spec(sparsity, x, layer_idx, first_layer)
     if spec is None:
         return x
-    if not all("w_scale" in t for t in targets):
-        raise NotImplementedError(_NATIVE_WIRE)
-    vals, mask, scale = ops.dap_pack_int8(
-        x, spec.nnz, spec.bz,
-        act_scale=sparsity.act_scale if sparsity else "per_tensor",
-    )
-    return PackedAct(vals, mask, spec.cfg, x.shape[-1], x.dtype, scale)
+    if all("w_scale" in t for t in targets):  # int8 wire end to end
+        vals, mask, scale = ops.dap_pack_int8(
+            x, spec.nnz, spec.bz,
+            act_scale=sparsity.act_scale if sparsity else "per_tensor",
+        )
+        return PackedAct(vals, mask, spec.cfg, x.shape[-1], x.dtype, scale)
+    vals, mask = ops.dap_pack(x, spec.nnz, spec.bz)
+    return PackedAct(vals, mask, spec.cfg, x.shape[-1], x.dtype)
 
 
 # ------------------------------------------------------------------ forward
@@ -114,7 +109,14 @@ def maybe_pack_input(x: ActOrPacked, targets: Sequence[dict],
 
 def rmsnorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if xf.device.type == "cuda":
+        # CUDA picks a row reduction's order from the number of rows: the
+        # mean in float64, rounded once, keeps a row's result independent
+        # of its batch (the CPU sums in f32 like the reference)
+        xd = xf.double()
+        var = (xd * xd).mean(dim=-1, keepdim=True).float()
+    else:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(x.dtype)
 
@@ -125,9 +127,13 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     """DBB-aware linear ``act(x @ w (+ b))``.
 
     * packed input and int8 wire weights: the joint A/W-DBB matmul
-      (kernel #3);
+      (kernel #3); a native-packed input is quantized per tensor first;
+    * packed input and native wire weights: the native joint A/W-DBB
+      matmul (kernel #4); an int8-packed input is dequantized first;
     * dense input and int8 wire weights: DAP (when active), dynamic
       activation quantization, then the W-DBB matmul (kernel #2);
+    * dense input and native wire weights: DAP (when active), then the
+      native W-DBB matmul (kernel #1);
     * packed input and dense weights: expand the wire format, then the
       dense path (DAP is not re-applied);
     * dense weights: a plain matmul.
@@ -135,22 +141,30 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     sp = sparsity
     if isinstance(x, PackedAct):
         if "w_vals" in p:
-            if "w_scale" not in p:
-                raise NotImplementedError(_NATIVE_WIRE)
             cfg_w = dbb.DBBConfig(sp.w_nnz, sp.bz) if sp else dbb.DBBConfig(4, 8)
             lead = x.vals.shape[:-2]
             vals2 = x.vals.reshape((-1,) + tuple(x.vals.shape[-2:]))
             mask2 = x.mask.reshape((-1,) + tuple(x.mask.shape[-1:]))
-            if x.scale is not None:
-                x_scale = x.scale if x.scale.ndim == 0 else x.scale.reshape(-1)
+            if "w_scale" in p:
+                if x.scale is not None:
+                    x_scale = x.scale if x.scale.ndim == 0 else x.scale.reshape(-1)
+                else:
+                    # native-packed input meets int8 weights: quantize the
+                    # packed values in place, per tensor
+                    vals2, x_scale = quant.quantize(vals2)
+                y2 = ops.dbb_matmul_aw_int8(
+                    vals2, mask2, x_scale, p["w_vals"], p["w_mask"], p["w_scale"],
+                    x.cfg, cfg_w, bias=p.get("b"), act=act, out_dtype=x.dtype,
+                )
             else:
-                # native-packed input meets int8 weights: quantize the
-                # packed values in place, per tensor
-                vals2, x_scale = quant.quantize(vals2)
-            y2 = ops.dbb_matmul_aw_int8(
-                vals2, mask2, x_scale, p["w_vals"], p["w_mask"], p["w_scale"],
-                x.cfg, cfg_w, bias=p.get("b"), act=act, out_dtype=x.dtype,
-            )
+                if x.scale is not None:
+                    # int8-packed input meets native weights: dequantize it,
+                    # with the reference's scalar-scale broadcast
+                    vals2 = quant.dequantize(vals2, x.scale, dtype=x.dtype)
+                y2 = ops.dbb_matmul_aw(
+                    vals2, mask2, p["w_vals"], p["w_mask"], x.cfg, cfg_w,
+                    bias=p.get("b"), act=act, out_dtype=x.dtype,
+                )
             return y2.reshape(tuple(lead) + tuple(y2.shape[-1:]))
         vals = x.vals
         if x.scale is not None:
@@ -163,16 +177,20 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
             x = apply_dap(x, spec)
 
     if "w_vals" in p:
-        if "w_scale" not in p:
-            raise NotImplementedError(_NATIVE_WIRE)
         cfg = dbb.DBBConfig(sp.w_nnz, sp.bz) if sp else dbb.DBBConfig(4, 8)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        y2 = ops.dbb_matmul_int8(
-            x2, p["w_vals"], p["w_mask"], p["w_scale"], cfg,
-            bias=p.get("b"), act=act, out_dtype=x.dtype,
-            act_scale=sp.act_scale if sp else "per_tensor",
-        )
+        if "w_scale" in p:
+            y2 = ops.dbb_matmul_int8(
+                x2, p["w_vals"], p["w_mask"], p["w_scale"], cfg,
+                bias=p.get("b"), act=act, out_dtype=x.dtype,
+                act_scale=sp.act_scale if sp else "per_tensor",
+            )
+        else:
+            y2 = ops.dbb_matmul(
+                x2, p["w_vals"], p["w_mask"], cfg, bias=p.get("b"), act=act,
+                out_dtype=x.dtype,
+            )
         return y2.reshape(*lead, y2.shape[-1])
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
@@ -180,14 +198,19 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     return epilogue.apply_act(y, act)
 
 
-def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "int8"):
-    """Dense linear params -> int8 DBB wire format (per-output-channel
-    weight scales), bias carried over."""
-    if wire_dtype != "int8":
-        raise NotImplementedError(_NATIVE_WIRE)
+def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "native"):
+    """Dense linear params -> packed DBB wire format, bias carried over:
+    ``"native"`` keeps the model dtype for the values, ``"int8"``
+    quantizes them with per-output-channel scales (``w_scale``)."""
+    if wire_dtype not in ("native", "int8"):
+        raise ValueError(f"unknown wire_dtype {wire_dtype!r}; native|int8")
     cfg = dbb.DBBConfig(sp.w_nnz, sp.bz)
-    w_vals, w_mask, w_scale = ops.pack_weight_int8(p["w"], cfg)
-    out = {"w_vals": w_vals, "w_mask": w_mask, "w_scale": w_scale}
+    if wire_dtype == "int8":
+        w_vals, w_mask, w_scale = ops.pack_weight_int8(p["w"], cfg)
+        out = {"w_vals": w_vals, "w_mask": w_mask, "w_scale": w_scale}
+    else:
+        w_vals, w_mask = ops.pack_weight(p["w"], cfg)
+        out = {"w_vals": w_vals, "w_mask": w_mask}
     if "b" in p:
         out["b"] = p["b"]
     return out

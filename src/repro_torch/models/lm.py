@@ -1,5 +1,5 @@
 """Decoder-only LM over the paged KV cache (port of the serving half of
-``repro.models.lm``), dense GQA.
+``repro.models.lm``), dense GQA or MLA.
 
 Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
@@ -31,7 +31,7 @@ def _check_family(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense GQA "
-            "decoders only (ROADMAP queue 1)"
+            "and MLA decoders only (ROADMAP queue 1)"
         )
 
 
@@ -39,30 +39,36 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
     """Seeded random parameters with ``lm.init_lm``'s scale rules: linears
     ``N(0, 1/d_in)``, embedding ``N(0, 0.02^2)``, norms one, biases zero.
 
-    With ``wire_dtype="int8"`` every linear is packed to the int8 DBB wire
-    as soon as it is drawn, layer by layer, so the dense model never sits
-    on the device whole (16.7 GB in bf16 for granite-3-8b); ``None``
-    returns the dense parameters."""
+    With ``wire_dtype="int8"`` or ``"native"`` every DBB-eligible linear
+    is packed to that wire as soon as it is drawn, layer by layer, so the
+    dense model never sits on the device whole (16.7 GB in bf16 for
+    granite-3-8b); MLA's ``kv_up`` stays dense, as serving needs it.
+    ``None`` returns the dense parameters."""
     _check_family(cfg)
     dtype = dtype_of(cfg.dtype)
     sp = cfg.sparsity
 
-    def lin(d_in, d_out, bias=False):
-        p = make_linear(generator, d_in, d_out, bias=bias, dtype=dtype, device=device)
-        if wire_dtype is not None and d_in % sp.bz == 0:
+    def pack(p):
+        if wire_dtype is not None and p["w"].shape[0] % sp.bz == 0:
             return pack_linear_params(p, sp, wire_dtype)
         return p
+
+    def lin(d_in, d_out, bias=False):
+        return pack(make_linear(generator, d_in, d_out, bias=bias, dtype=dtype, device=device))
 
     d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     emb = torch.randn((cfg.padded_vocab, d), generator=generator, device=device)
     params = {"embed": {"w": (emb * 0.02).to(dtype)}, "layers": []}
     for _ in range(cfg.n_layers):
-        attn = {
-            "wq": lin(d, h * dh, cfg.qkv_bias),
-            "wk": lin(d, kvh * dh, cfg.qkv_bias),
-            "wv": lin(d, kvh * dh, cfg.qkv_bias),
-            "wo": lin(h * dh, d),
-        }
+        if cfg.mla is not None:
+            attn = attention.make_mla(generator, cfg, dtype=dtype, device=device, pack=pack)
+        else:
+            attn = {
+                "wq": lin(d, h * dh, cfg.qkv_bias),
+                "wk": lin(d, kvh * dh, cfg.qkv_bias),
+                "wv": lin(d, kvh * dh, cfg.qkv_bias),
+                "wo": lin(h * dh, d),
+            }
         if cfg.mlp_act == "swiglu":
             mlp = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff)}
         else:
@@ -114,7 +120,9 @@ def paged_step(params, cache, tokens, positions, page_tables, cfg,
     cache)``; the cache is updated in place."""
     _check_family(cfg)
     x = _embed(params, tokens)
-    rope_cs = rope.rope_cos_sin(positions, cfg.head_dim(), cfg.rope_theta)
+    rope_cs = None  # MLA rotates its own qk_rope dims in the layer
+    if cfg.mla is None:
+        rope_cs = rope.rope_cos_sin(positions, cfg.head_dim(), cfg.rope_theta)
     _prepare_pages(cache, scrub_pages, cow_pages)
     # one shared slot-position write for the whole stack, before the
     # layers, so this step's tokens are visible to intra-chunk attention

@@ -6,15 +6,18 @@ serves requests of mixed lengths with staggered arrivals over the paged
 KV cache: the scheduler (``serve/scheduler.py``) plans each iteration,
 ``lm.paged_step`` runs mixed prefill/decode steps and
 ``lm.paged_decode_loop`` runs decode-only stretches, one host sync per
-step or run.  Weights serve on the int8 DBB wire with per-row (per-token)
-dynamic activation scales, so a request's tokens never depend on what it
-is batched with.
+step or run.  Weights serve packed on the DBB wire: ``wire_dtype="native"``
+(the default, values in the model dtype, kernels #1 and #4) or ``"int8"``
+(kernels #2 and #3, with per-row dynamic activation scales).  Either way
+every kernel sums a row in an order that does not depend on the batch,
+so a request's tokens never depend on what it is batched with.  Dense
+decoders with GQA or MLA attention are served.
 
-This slice ports that path only.  Every other setting raises
+This is the continuous path only.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that will lift it:
-other prefill modes, unpacked or native-wire weights, sampled decoding,
-speculative decoding, snapshots and non-dense-GQA families.  A kernel
-failure raises; there is no fallback path.
+other prefill modes, unpacked weights, sampled decoding, speculative
+decoding, snapshots and non-dense families.  A kernel failure raises;
+there is no fallback path.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ class ServeConfig:
     top_p: float = 1.0
     seed: int = 0
     pack_weights: bool = True
-    wire_dtype: str = "int8"
+    wire_dtype: str = "native"
     kv_dtype: str = "native"
     prefill_mode: str = "continuous"
     page_size: int = 16
@@ -75,10 +78,8 @@ class ServeConfig:
             raise _not_ported(f"prefill_mode={self.prefill_mode!r}", "queue 1, item 8")
         if not self.pack_weights:
             raise _not_ported("serving unpacked (dense) weights", "queue 1, item 7")
-        if self.wire_dtype != "int8":
-            raise _not_ported(
-                f"wire_dtype={self.wire_dtype!r}", "queue 2, kernels #1 and #4"
-            )
+        if self.wire_dtype not in ("native", "int8"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}; native|int8")
         if self.spec is not None:
             raise _not_ported("speculative decoding (spec)", "queue 1, item 8")
         if self.snapshot_every:
@@ -142,9 +143,11 @@ def _result(req: Request) -> RequestResult:
     )
 
 
-def pack_params_for_serving(params, cfg, wire_dtype: str = "int8"):
-    """Convert every DBB-eligible linear (not the embedding, norms or
-    router) to the int8 wire format; already-packed linears pass through."""
+def pack_params_for_serving(params, cfg, wire_dtype: str = "native"):
+    """Convert every DBB-eligible linear to the packed wire format of
+    ``wire_dtype``; the embedding, norms, router and MLA's ``kv_up`` (its
+    absorbed attention reads the raw weight per head) stay dense, and
+    already-packed linears pass through."""
     sp = cfg.sparsity
 
     def walk(p, path=""):
@@ -174,7 +177,7 @@ def _to_device(tree, device):
 
 
 class Engine:
-    """Greedy continuous-batching engine over int8 DBB-packed weights."""
+    """Greedy continuous-batching engine over DBB-packed weights."""
 
     def __init__(self, params, cfg, scfg: ServeConfig, device=None):
         if device is None:
@@ -188,16 +191,19 @@ class Engine:
         lm._check_family(cfg)
         if cfg.sparsity.mode not in ("wdbb", "awdbb"):
             raise ValueError(
-                "the int8 wire needs a wdbb/awdbb sparsity mode, got "
+                "packed serving needs a wdbb/awdbb sparsity mode, got "
                 f"{cfg.sparsity.mode!r}"
             )
         self.scfg = scfg
-        self.params = pack_params_for_serving(_to_device(params, self.device), cfg)
-        # per-row (per-token) activation scales on every int8-wire path make
-        # the integer-exact datapath batch-invariant
-        sp = dataclasses.replace(
-            cfg.sparsity, act_scale="per_row", kv_dtype=scfg.kv_dtype
+        self.params = pack_params_for_serving(
+            _to_device(params, self.device), cfg, scfg.wire_dtype
         )
+        # per-row (per-token) activation scales on every int8-wire path make
+        # the integer-exact datapath batch-invariant (the native wire
+        # quantizes no activation)
+        sp = dataclasses.replace(cfg.sparsity, kv_dtype=scfg.kv_dtype)
+        if scfg.wire_dtype == "int8":
+            sp = dataclasses.replace(sp, act_scale="per_row")
         self.cfg = dataclasses.replace(cfg, sparsity=sp)
         self.step_calls = 0  # mixed steps + decode runs dispatched
         self.decode_run_calls = 0  # decode runs among them

@@ -235,19 +235,25 @@ class PrefixCache:
 
 
 def make_paged_cache(cfg, n_pages: int, page_size: int, device):
-    """Device page pools for ``cfg``: ``k/v [L, n_pages, page_size, KV*D]``
-    (int8 plus ``k_scale/v_scale [L, n_pages, page_size]`` f32 planes under
-    the int8 KV wire) and the shared ``pos [n_pages, page_size]`` table,
-    all slots empty (-1)."""
+    """Device page pools for ``cfg``: ``k/v [L, n_pages, page_size, D]``
+    and the shared ``pos [n_pages, page_size]`` table, all slots empty
+    (-1).  GQA pages hold ``KV*D`` per plane; MLA's k pages hold the
+    ``(c_kv ‖ k_rope)`` latent and its v pages a 1-wide zero dummy.  Under
+    the int8 KV wire the planes are int8 with ``k_scale/v_scale
+    [L, n_pages, page_size]`` f32 planes — MLA quantizes only the latent
+    k plane (a scale plane would cost more than the dummy v it saves)."""
     kv_int8 = cfg.sparsity.kv_dtype == "int8"
-    dtype = torch.int8 if kv_int8 else dtype_of(cfg.dtype)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim())
+    v_int8 = kv_int8 and cfg.mla is None
+    native = dtype_of(cfg.dtype)
+    k_shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim())
+    v_shape = k_shape[:3] + (1 if cfg.mla is not None else cfg.kv_dim(),)
     cache = {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": torch.zeros(k_shape, dtype=torch.int8 if kv_int8 else native, device=device),
+        "v": torch.zeros(v_shape, dtype=torch.int8 if v_int8 else native, device=device),
         "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32, device=device),
     }
     if kv_int8:
-        for name in ("k_scale", "v_scale"):
-            cache[name] = torch.ones(shape[:3], dtype=torch.float32, device=device)
+        cache["k_scale"] = torch.ones(k_shape[:3], dtype=torch.float32, device=device)
+    if v_int8:
+        cache["v_scale"] = torch.ones(k_shape[:3], dtype=torch.float32, device=device)
     return cache

@@ -1,38 +1,47 @@
 """Shared set-up of the ``test_torch_*`` parity suite: the same small
-granite-3-8b configuration for the JAX reference and the PyTorch port,
-weights drawn once by the reference and converted bit for bit, and the
-engine's effective (int8-wire) sparsity settings on both sides."""
+configuration (granite-3-8b, or minicpm3-4b for MLA) for the JAX
+reference and the PyTorch port, weights drawn once by the reference and
+converted bit for bit, and the engine's effective sparsity settings on
+both sides."""
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro import configs as jconfigs
 from repro.models import lm as jlm
+from repro.serve import engine as jengine
+from repro.serve import paged_cache as jpc
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import ops
+from repro_torch.models import lm as tlm
+from repro_torch.serve import engine as tengine
+from repro_torch.serve import paged_cache as tpc
 
 # the small_cfg of tests/test_serve.py: 2 layers, narrow widths, f32
 SMALL = dict(vocab=64, d_model=64, d_ff=128, n_layers=2, dtype="float32")
 
 
-def small_cfgs(**over):
+def small_cfgs(arch="granite_3_8b", **over):
     kw = dict(SMALL, **over)
-    jcfg = dataclasses.replace(jconfigs.get_config("granite_3_8b", smoke=True), **kw)
-    tcfg = dataclasses.replace(tconfigs.get_config("granite_3_8b", smoke=True), **kw)
+    jcfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True), **kw)
+    tcfg = dataclasses.replace(tconfigs.get_config(arch, smoke=True), **kw)
     return jcfg, tcfg
 
 
-def effective(jcfg, tcfg, kv_dtype="native"):
-    """The configs the engines serve with on the int8 wire: per-row
-    activation scales, the chosen KV dtype, and (reference) the gather
-    paged-attention path."""
+def effective(jcfg, tcfg, kv_dtype="native", wire="int8"):
+    """The configs the engines serve with: the chosen KV dtype, per-row
+    activation scales on the int8 wire (the native wire quantizes no
+    activation), and (reference) the gather paged-attention path."""
+    scale = "per_row" if wire == "int8" else jcfg.sparsity.act_scale
     jsp = dataclasses.replace(
-        jcfg.sparsity, act_scale="per_row", kv_dtype=kv_dtype, paged_attn="gather"
+        jcfg.sparsity, act_scale=scale, kv_dtype=kv_dtype, paged_attn="gather"
     )
-    tsp = dataclasses.replace(tcfg.sparsity, act_scale="per_row", kv_dtype=kv_dtype)
+    tsp = dataclasses.replace(tcfg.sparsity, act_scale=scale, kv_dtype=kv_dtype)
     return (
         dataclasses.replace(jcfg, sparsity=jsp),
         dataclasses.replace(tcfg, sparsity=tsp),
@@ -48,3 +57,117 @@ def reference_params(jcfg, seed=0):
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def leaves(tree, prefix=""):
+    """``(path, leaf)`` pairs of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+# the continuous-batching case of tests/test_serve.py: prompts of lengths
+# 9, 5 and 12, arrivals [0, 3, 1], max_batch=2, page_size=8, chunk 4
+SERVE = dict(max_seq=32, page_size=8, max_batch=2, prefill_chunk=4)
+LENS, ARRIVALS, N_NEW = (9, 5, 12), [0, 3, 1], 6
+
+
+def prompts_for(vocab):
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, vocab, (s,)).astype(np.int32) for s in LENS]
+
+
+def replay_logits(jeng, teng, jcfg, tcfg, outs, n_new):
+    """Both engines' packed weights replay every request's fed stream in
+    one paged step (one row per request, padded with position -1);
+    asserts each served token is its row's argmax and returns the logits
+    of the positions that chose a token, ``(port, reference)``."""
+    fed = [w[:-1] for w in outs]
+    s = max(len(f) for f in fed)
+    b, ps = len(fed), jeng.scfg.page_size
+    per = -(-s // ps)
+    toks = np.zeros((b, s), np.int32)
+    pos = np.full((b, s), -1, np.int32)
+    for i, f in enumerate(fed):
+        toks[i, : len(f)] = f
+        pos[i, : len(f)] = np.arange(len(f))
+    tables = (1 + np.arange(b * per, dtype=np.int32)).reshape(b, per)
+    jl, _ = jlm.paged_step(
+        jeng.params, jpc.make_paged_cache(jcfg, b * per + 1, ps), jnp.asarray(toks),
+        jnp.asarray(pos), jnp.asarray(tables), jcfg,
+    )
+    tl, _ = tlm.paged_step(
+        teng.params, tpc.make_paged_cache(tcfg, b * per + 1, ps, "cpu"), torch.from_numpy(toks),
+        torch.from_numpy(pos), torch.from_numpy(tables), tcfg,
+    )
+    jl, tl = np.array(jl), to_np(tl)
+    got, want = [], []
+    for i, w in enumerate(outs):
+        chose = slice(len(w) - n_new - 1, len(w) - 1)
+        got.append(tl[i, chose, : tcfg.vocab])
+        want.append(jl[i, chose, : jcfg.vocab])
+        np.testing.assert_array_equal(got[-1].argmax(-1), w[len(w) - n_new:])
+    return np.concatenate(got), np.concatenate(want)
+
+
+def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype):
+    """The port's engine (on the CPU) vs the reference's continuous engine
+    (gather path) on the same prompts: greedy tokens equal on this pinned
+    seed, logits within 1e-4 at every position that chose a token (ULP
+    differences between XLA and ATen could flip a near-tied argmax on
+    other seeds).  Returns the port's kernel counters of the serve."""
+    prompts = prompts_for(jcfg.vocab)
+    jeng = jengine.Engine(params, jcfg, jengine.ServeConfig(
+        prefill_mode="continuous", pack_weights=True, wire_dtype=wire,
+        kv_dtype=kv_dtype, paged_attn="gather", **SERVE,
+    ))
+    want = jeng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
+    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
+        wire_dtype=wire, kv_dtype=kv_dtype, **SERVE), device="cpu")
+    ops.reset_counters()
+    got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
+    counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
+    assert [r.finish_reason for r in teng.last_results] == ["length"] * len(prompts)
+    assert all(launches == 0 for launches, _ in counts.values())
+    jcfg_e, tcfg_e = effective(jcfg, tcfg, kv_dtype, wire)
+    tl, jl = replay_logits(jeng, teng, jcfg_e, tcfg_e, want, N_NEW)
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(got[i], want[i], err_msg=f"request {i}")
+    return counts
+
+
+def invariants_byte_exact(tcfg, tparams, wire, kv_dtype):
+    """The port's own invariants, byte for byte: continuous == each
+    request served alone, ``decode_block=1`` == 16, and a call that
+    reuses cached prompt pages == the cold call.  Returns the kernel
+    counters of the first serve and its engine."""
+    prompts = prompts_for(tcfg.vocab)
+
+    def eng(**kw):
+        scfg = tengine.ServeConfig(**{**SERVE, "wire_dtype": wire, "kv_dtype": kv_dtype, **kw})
+        return tengine.Engine(tparams, tcfg, scfg, device="cpu")
+
+    ops.reset_counters()
+    main = eng(prefix_cache=False)
+    outs = main.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
+    counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
+    for i, p in enumerate(prompts):
+        solo = eng().generate_requests([p], N_NEW)
+        np.testing.assert_array_equal(outs[i], solo[0], err_msg=f"request {i} solo")
+    one = eng(decode_block=1, prefix_cache=False)
+    for a, b in zip(outs, one.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)):
+        np.testing.assert_array_equal(a, b)
+    assert main.decode_run_calls > 0 and one.step_calls > main.step_calls
+    warm = eng()
+    long_prompt = np.concatenate([prompts[2], prompts[0]])[:20]
+    cold = warm.generate_requests([long_prompt], N_NEW)
+    again = warm.generate_requests([long_prompt], N_NEW)
+    assert warm.prefix_stats()["page_hits"] > 0
+    np.testing.assert_array_equal(again[0], cold[0])
+    return counts, main

@@ -4,12 +4,16 @@ Marked ``cuda``: each test skips (inside the ``cuda`` fixture, never at
 import) when no CUDA device is present, as on a CPU-only host.  On a
 machine with an H100 and nvcc, run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-``chip_smoke.py`` runs the same checks at granite-3-8b's full widths;
-these stay small and add odd, ragged shapes.
+``chip_smoke.py`` runs the same checks at granite-3-8b's and
+minicpm3-4b's full widths; these stay small and add odd, ragged shapes.
 
-Tolerances: int32 accumulators and ``act=None`` float32 outputs are
-bit-exact (integer work, then the same f32 operations); paged attention
-in f32 is held to 1e-5, the reference's kernel-vs-oracle bound."""
+Tolerances: int32 accumulators and ``act=None`` float32 outputs of the
+int8 matmuls are bit-exact (integer work, then the same f32 operations);
+the native-wire matmuls are held to 1e-5 of the largest output in f32
+(f32 sums in another order than the plain version's float64), and in
+bf16 to that plus one bf16 ulp of the larger output (an f32 difference
+can straddle a bf16 rounding); paged attention in f32 is held to 1e-5, the reference's
+kernel-vs-oracle bound."""
 
 import math
 
@@ -72,3 +76,89 @@ def test_paged_attn_kernel_f32(cuda, s):
         got = paged_attn.paged_attn_cuda(q, k_q, v_q, pos, tables, q_pos, **kw)
         want = ref.paged_attn_ref(q, k_q, v_q, pos, tables, q_pos, **kw)
         torch.testing.assert_close(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+def _native_operands(gen, m, k, n, dtype):
+    cfg = dbb.DBBConfig(4, 8)
+    w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(dtype)
+    wv, wm = ops.pack_weight(w, cfg)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    xv, xm = ops.dap_pack(x, 4, 8)
+    bias = torch.randn((n,), generator=gen, device="cuda")
+    return cfg, x, xv, xm, wv, wm, bias
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 64, 128), (5, 40, 24), (64, 256, 200), (17, 136, 70),
+                                   (3, 2048, 290)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_native_matmul_kernels_vs_plain(cuda, m, k, n, dtype, kind):
+    """Kernels #1 and #4 vs their plain versions, ragged N included (70
+    and 290 are not multiples of 4: the kernel's scalar load path)."""
+    cfg, x, xv, xm, wv, wm, bias = _native_operands(cuda, m, k, n, dtype)
+    for act, b in ((None, None), ("silu", bias), ("gelu", None)):
+        if kind == "aw":
+            got = dbb_matmul.dbb_matmul_aw_cuda(xv, xm, wv, wm, cfg, cfg, bias=b, act=act,
+                                                out_dtype=torch.float32)
+            want = ref.dbb_matmul_aw_ref(xv, xm, wv, wm, cfg, cfg, bias=b, act=act,
+                                         out_dtype=torch.float32)
+        else:
+            got = dbb_matmul.dbb_matmul_cuda(x, wv, wm, cfg, bias=b, act=act,
+                                             out_dtype=torch.float32)
+            want = ref.dbb_matmul_ref(x, wv, wm, cfg, bias=b, act=act, out_dtype=torch.float32)
+        tol32 = 1e-5 * want.abs().max().item() + 1e-6
+        err = (got - want).abs().max().item()
+        assert err <= tol32, (act, err)
+    got16 = (dbb_matmul.dbb_matmul_aw_cuda(xv, xm, wv, wm, cfg, cfg, out_dtype=torch.bfloat16)
+             if kind == "aw" else dbb_matmul.dbb_matmul_cuda(x, wv, wm, cfg,
+                                                            out_dtype=torch.bfloat16))
+    want16 = ref.dbb_matmul_aw_ref(xv, xm, wv, wm, cfg, cfg, out_dtype=torch.bfloat16) \
+        if kind == "aw" else ref.dbb_matmul_ref(x, wv, wm, cfg, out_dtype=torch.bfloat16)
+    err16 = (got16.float() - want16.float()).abs()
+    ulp = 2.0 ** -7 * torch.maximum(got16.float().abs(), want16.float().abs())
+    assert bool((err16 <= ulp + 1e-5 * want16.float().abs().max().item() + 1e-6).all())
+    counter = dbb_matmul.AW_NATIVE if kind == "aw" else dbb_matmul.NATIVE
+    assert counter.launches > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_native_matmul_rows_bitwise_independent_of_m(cuda, dtype, kind):
+    """A row's output bits are the same at M=1 and inside M=64: the K
+    split depends on (K, N) only and nothing is added atomically."""
+    cfg, x, xv, xm, wv, wm, _ = _native_operands(cuda, 64, 2560, 288, dtype)
+
+    def run(rows):
+        if kind == "aw":
+            return dbb_matmul.dbb_matmul_aw_cuda(xv[rows], xm[rows], wv, wm, cfg, cfg, act="silu")
+        return dbb_matmul.dbb_matmul_cuda(x[rows], wv, wm, cfg, act="silu")
+
+    full = run(slice(0, 64))
+    for r in (0, 21, 63):
+        assert torch.equal(run(slice(r, r + 1))[0], full[r]), r
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["native_kv", "int8_kv"])
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_attn_latent_kernel(cuda, int8, s):
+    """#6 in MLA's latent mode: kv_heads=1, v the first Dv features of the
+    dequantized k row, no v pages or v scale, an explicit softmax scale."""
+    n_pages, ps, lora, rope_d, h, b = 12, 8, 40, 8, 6, 2
+    lat = torch.randn((n_pages, ps, lora + rope_d), generator=cuda, device="cuda")
+    k_scale = None
+    if int8:
+        lat, k_scale = quant.quantize_rows(lat)
+    pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    pos[3] = torch.arange(ps, dtype=torch.int32)
+    pos[7, :5] = torch.arange(ps, ps + 5, dtype=torch.int32)
+    pos[5, :6] = torch.arange(6, dtype=torch.int32)
+    tables = torch.tensor([[3, 7, 9], [5, 0, 0]], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, s, h, lora + rope_d), generator=cuda, device="cuda")
+    q_pos = torch.stack([torch.arange(13 - s, 13), torch.arange(6 - s, 6)]).to(
+        device="cuda", dtype=torch.int32)
+    rows = q_pos >= 0
+    kw = dict(kv_heads=1, softmax_scale=0.21, k_scale=k_scale, latent_dv=lora)
+    got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+    want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
+    torch.testing.assert_close(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+    assert paged_attn.PAGED_ATTN_LATENT.launches > 0

@@ -223,9 +223,18 @@ def test_cpu_dispatch_counts_plain_calls_only():
         _t(q), _t(cache["k"]), _t(cache["v"]), _t(pos_tbl), _t(tables), _t(q_pos),
         kv_heads=kvh, k_scale=_t(cache["k_scale"]), v_scale=_t(cache["v_scale"]),
     )
+    xv, xm = ops.dap_pack(_t(o["x"]), 4, 8)
+    wv, wm = ops.pack_weight(_t(o["x"]).t().contiguous(), tcfg)
+    ops.dbb_matmul(_t(o["x"]), wv, wm, tcfg)
+    ops.dbb_matmul_aw(xv, xm, wv, wm, tcfg, tcfg)
+    ops.paged_attention(  # latent mode: one 32-wide latent head
+        _t(q).reshape(q.shape[0], q.shape[1], -1, 32), _t(cache["k"]), None, _t(pos_tbl),
+        _t(tables), _t(q_pos), kv_heads=1, k_scale=_t(cache["k_scale"]), latent_dv=8, softmax_scale=0.3,
+    )
     counts = ops.counters()
     assert {k: (c.launches, c.plain) for k, c in counts.items()} == {
-        "dbb_matmul_int8": (0, 1), "dbb_matmul_aw_int8": (0, 1), "paged_attn": (0, 1),
+        "dbb_matmul": (0, 1), "dbb_matmul_int8": (0, 1), "dbb_matmul_aw_int8": (0, 1),
+        "dbb_matmul_aw": (0, 1), "paged_attn": (0, 1), "paged_attn_latent": (0, 1),
     }
     ops.reset_counters()
     assert all(c.launches == 0 and c.plain == 0 for c in ops.counters().values())
@@ -238,10 +247,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     tcfg = tdbb.DBBConfig(4, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         dbb_matmul.dbb_matmul_int8_cuda(_t(o["xq"]), _t(o["xs"]), _t(o["wv"]), _t(o["wm"]), _t(o["ws"]), tcfg)
-    with pytest.raises(NotImplementedError, match="latent"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         paged_attn.paged_attn_cuda(
             torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 8), torch.zeros(1, 4, 8),
             torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32),
             torch.zeros(1, 1, dtype=torch.int32), kv_heads=1, latent_dv=4,
         )
+    x = _t(o["x"])
+    wv, wm = ops.pack_weight(x.t().contiguous(), tcfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dbb_matmul.dbb_matmul_cuda(x, wv, wm, tcfg)
+    xv, xm = ops.dap_pack(x, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dbb_matmul.dbb_matmul_aw_cuda(xv, xm, wv, wm, tcfg, tcfg)
     assert dbb_matmul.INT8.launches == 0
+    assert dbb_matmul.NATIVE.launches == 0 and dbb_matmul.AW_NATIVE.launches == 0
+    assert paged_attn.PAGED_ATTN_LATENT.launches == 0

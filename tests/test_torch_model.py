@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import effective, reference_params, small_cfgs, to_np
+from _torch_parity import effective, leaves, reference_params, small_cfgs, to_np
 from repro.models import attention as jattn
 from repro.models import blocks as jblocks
 from repro.models import lm as jlm
@@ -34,17 +34,6 @@ torch.set_num_threads(1)
 N_PAGES, PS = 9, 8
 
 
-def _leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}/{k}")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{prefix}/{i}")
-    else:
-        yield prefix, tree
-
-
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tcfg = small_cfgs()
@@ -52,7 +41,7 @@ def setup():
     # eager, as the reference Engine packs: under jit XLA folds the
     # scale's amax / 127 into amax * (1 / 127), one ulp off in places
     jpacked = jengine.pack_params_for_serving(params, jcfg, "int8")
-    tpacked = tengine.pack_params_for_serving(tparams, tcfg)
+    tpacked = tengine.pack_params_for_serving(tparams, tcfg, "int8")
     return jcfg, tcfg, jpacked, tpacked
 
 
@@ -60,8 +49,8 @@ def test_packed_params_bit_exact(setup):
     """The port packs the converted raw weights to exactly the bytes the
     reference packs (values, bitmasks, per-channel scales)."""
     _, _, jpacked, tpacked = setup
-    want = dict(_leaves(params_from_numpy(jax.tree_util.tree_map(np.asarray, jpacked))))
-    got = dict(_leaves(tpacked))
+    want = dict(leaves(params_from_numpy(jax.tree_util.tree_map(np.asarray, jpacked))))
+    got = dict(leaves(tpacked))
     assert got.keys() == want.keys()
     for name in want:
         assert got[name].dtype == want[name].dtype, name
@@ -75,18 +64,18 @@ def test_init_params_packs_as_drawn():
     _, tcfg = small_cfgs()
     packed = tlm.init_params(tcfg, torch.Generator().manual_seed(3), "cpu", wire_dtype="int8")
     dense = tlm.init_params(tcfg, torch.Generator().manual_seed(3), "cpu", wire_dtype=None)
-    after = dict(_leaves(tengine.pack_params_for_serving(dense, tcfg)))
-    got = dict(_leaves(packed))
+    after = dict(leaves(tengine.pack_params_for_serving(dense, tcfg, "int8")))
+    got = dict(leaves(packed))
     assert got.keys() == after.keys()
     for name in got:
         assert torch.equal(got[name], after[name]), name
     jcfg, _ = small_cfgs()
     jshapes = jax.eval_shape(lambda: jlm.init_lm(jcfg, jax.random.PRNGKey(0))[0])
-    dense_leaves = dict(_leaves(dense))
+    dense_leaves = dict(leaves(dense))
     assert len(dense_leaves) == len(jax.tree_util.tree_leaves(jshapes)) + (
         tcfg.n_layers - 1
     ) * len(jax.tree_util.tree_leaves(jshapes["layers"]))
-    for name, leaf in _leaves(jshapes):
+    for name, leaf in leaves(jshapes):
         if name.startswith("/layers/"):
             got = dense_leaves["/layers/0/" + name[len("/layers/"):]]
             assert tuple(got.shape) == leaf.shape[1:], name
