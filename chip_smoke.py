@@ -14,17 +14,25 @@ non-zero and prints no result:
    main path's full widths, and timed beside its plain version, a
    PyTorch library call computing the same function, and its bound
    (bytes over 3.35 TB/s or operations over the peak rate): the int8
-   matmuls (#2, #3) and GQA paged attention (#6) at granite-3-8b's
-   shapes; the native-wire matmuls (#1, #4), with a check that a row's
-   bits do not depend on M, and latent paged attention (#6, MLA) at
-   minicpm3-4b's;
+   matmuls (#2, #3) at granite-3-8b's shapes; GQA paged attention (#6)
+   at granite-3-8b's (int8 KV) and granite-moe-1b-a400m's (native KV),
+   with the padding and idle rows of a mixed step; the native-wire
+   matmuls (#1, #4), with a check that a row's bits do not depend on M,
+   at minicpm3-4b's and granite-moe-1b-a400m's; latent paged attention
+   (#6, MLA) at minicpm3-4b's; DAP (#5) bit for bit at every
+   dense-input width of the three paths, NaN, infinities, ties and -0.0
+   included;
 4. the main paths, each driven with the launch counters set to 0 just
    before and read just after: full-width granite-3-8b (40 layers, int8
-   DBB wire, int8 KV) and full-width minicpm3-4b (62 layers, native DBB
-   wire, native KV), seeded random weights in bf16, each serving 8
-   requests continuously through ``Engine.generate_requests``; the
-   counters show every packed linear and every attention call went
-   through the kernels, and a request re-served alone is byte-identical.
+   DBB wire, int8 KV), full-width minicpm3-4b (62 layers, native DBB
+   wire, native KV) and full-width granite-moe-1b-a400m (24 layers, 32
+   experts top-8, native wire and KV: the reference's default), seeded
+   random weights in bf16, each serving 8 requests continuously through
+   ``Engine.generate_requests``; the counters show every packed linear,
+   every attention call and every DAP went through the kernels.  A dense
+   arch's request re-served alone is byte-identical; an MoE token
+   depends on its co-batch (expert capacity), so there a fresh engine
+   re-serves the same requests and arrivals byte-identically.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,8 +57,12 @@ SERVE_SHAPE = dict(
     prefill_mode="continuous", pack_weights=True, max_seq=1024, page_size=16, max_batch=4,
     prefill_chunk=16, decode_block=16,
 )
-# the two main paths: (architecture, wire, KV dtype)
-PATHS = (("granite_3_8b", "int8", "int8"), ("minicpm3_4b", "native", "native"))
+# the main paths: (architecture, wire, KV dtype)
+PATHS = (("granite_3_8b", "int8", "int8"), ("minicpm3_4b", "native", "native"),
+         ("granite_moe_1b_a400m", "native", "native"))
+# (K, name) of the dense-input widths that DAP (#5) prunes on the main paths
+DAP_WIDTHS = ((768, "minicpm3 q_up"), (1024, "granite-moe wo and MoE input"),
+              (2560, "minicpm3 wo"), (4096, "granite-3-8b wo"))
 # (name, kernel, act on the main path, K, N) of granite-3-8b's linears
 LINEARS = (
     ("wq", "aw", None, 4096, 4096),
@@ -62,8 +74,8 @@ LINEARS = (
     ("down", "aw", None, 12800, 4096),
     ("lm_head", "w", None, 4096, 49408),
 )
-# (name, kernel, act on the main path, DAP-pruned input, K, N) of
-# minicpm3-4b's packed linears on the native wire
+# (name, kernel, act on the main path, DAP-pruned input, K, N) of the
+# packed linears on the native wire: minicpm3-4b's and granite-moe-1b-a400m's
 NATIVE_LINEARS = (
     ("q_down", "aw", None, True, 2560, 768),
     ("kv_down", "aw", None, True, 2560, 288),
@@ -73,6 +85,13 @@ NATIVE_LINEARS = (
     ("up", "aw", None, True, 2560, 6400),
     ("down", "aw", None, True, 6400, 2560),
     ("lm_head", "w", None, False, 2560, 73472),
+)
+MOE_NATIVE_LINEARS = (
+    ("wq", "aw", None, True, 1024, 1024),
+    ("wk", "aw", None, True, 1024, 512),
+    ("wv", "aw", None, True, 1024, 512),
+    ("wo", "w", None, True, 1024, 1024),
+    ("lm_head", "w", None, False, 1024, 49408),
 )
 KERNELS = {
     "dbb_matmul": dict(
@@ -98,6 +117,10 @@ KERNELS = {
     "paged_attn_latent": dict(
         source="src/repro_torch/kernels/csrc/paged_attn.cu",
         replaces="src/repro/kernels/paged_attn.py:168",
+    ),
+    "dap_prune": dict(
+        source="src/repro_torch/kernels/csrc/dap_prune.cu",
+        replaces="src/repro/kernels/dap_prune.py:54",
     ),
 }
 
@@ -246,74 +269,130 @@ def phase_matmuls(torch, run_ms):
     return per_kernel
 
 
+def mixed_q_pos(torch, lengths, s):
+    """The q_pos of a main-path mixed step over requests that cached
+    ``lengths`` tokens: rows 0 and 2 decode (one token, then S - 1 padding
+    rows at -1), row 1 prefills a whole chunk and row 3 the chunk's tail
+    (S / 2 + 2 tokens, the rest padding)."""
+    q_pos = torch.full((len(lengths), s), -1, dtype=torch.int32, device="cuda")
+    for i, t in enumerate(lengths):
+        n = (1, s, 1, s // 2 + 2)[i]
+        q_pos[i, :n] = torch.arange(t - n, t, dtype=torch.int32, device="cuda")
+    return q_pos
+
+
 def phase_attention(torch, run_ms):
+    """Kernel #6's GQA mode at the main paths' shapes: granite-3-8b (32
+    heads over 8 KV heads of 128, int8 KV) and granite-moe-1b-a400m (16
+    over 8 of 64, native bf16 KV), S=1 and S=16, held against its plain
+    version and timed beside SDPA on the gathered window; at S=16 also
+    on a main-path mixed step, where padding rows have no valid key."""
     from repro_torch.core import quant
     from repro_torch.kernels import paged_attn, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    b, kv, g, d, ps, p_cnt = 4, 8, 4, 128, 16, 64
+    b, kv, ps, p_cnt = 4, 8, 16, 64
     n_pages = b * p_cnt + 1
-    kvd = kv * d
-    k_q, k_s = quant.quantize_rows(torch.randn((n_pages, ps, kvd), generator=gen, device="cuda"))
-    v_q, v_s = quant.quantize_rows(torch.randn((n_pages, ps, kvd), generator=gen, device="cuda"))
-    pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
     lengths = (1000, 517, 64, 250)  # tokens cached per request
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")  # null padded
-    nxt = 0
-    for i, t in enumerate(lengths):
-        used = -(-t // ps) + 1  # + one recycled page: allocated, slots scrubbed
-        pages = perm[nxt:nxt + used]
-        nxt += used
-        tables[i, :used] = pages
-        for j, page in enumerate(pages[:-1].tolist()):
-            pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
-            pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
-    valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
     stats = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
-    for s in (1, 16):
-        q = torch.randn((b, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
-        q_pos = torch.stack([torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+    # (path, query heads per KV head, head dim, KV dtype, layers)
+    for arch, g, d, kv_dtype, n_layers in (("granite-3-8b", 4, 128, "int8", 40),
+                                           ("granite-moe-1b-a400m", 2, 64, "native", 24)):
+        kvd = kv * d
+        k_f = torch.randn((n_pages, ps, kvd), generator=gen, device="cuda")
+        v_f = torch.randn((n_pages, ps, kvd), generator=gen, device="cuda")
+        if kv_dtype == "int8":
+            (k_p, k_s), (v_p, v_s) = quant.quantize_rows(k_f), quant.quantize_rows(v_f)
+            k32, v32 = k_p, v_p
+        else:
+            k_p, v_p, k_s, v_s = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16), None, None
+            k32, v32 = k_p.float(), v_p.float()
+        del k_f, v_f
+        pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+        tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")  # null padded
+        nxt = 0
+        for i, t in enumerate(lengths):
+            used = -(-t // ps) + 1  # + one recycled page: allocated, slots scrubbed
+            pages = perm[nxt:nxt + used]
+            nxt += used
+            tables[i, :used] = pages
+            for j, page in enumerate(pages[:-1].tolist()):
+                pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
+                pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
+        valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
         kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s)
-        out = paged_attn.paged_attn_cuda(q, k_q, v_q, pos_tbl, tables, q_pos, **kw)
-        want = ref.paged_attn_ref(q, k_q, v_q, pos_tbl, tables, q_pos, **kw)
-        # bf16: the sums run in another order, which can straddle a bf16
-        # rounding of a probability or of the output: two bf16 ulps at 1
-        err = (out.float() - want.float()).abs().max().item()
-        check(err <= 1.6e-2, f"paged_attn S={s} bf16: max error {err:.3g}")
-        out32 = paged_attn.paged_attn_cuda(q.float(), k_q, v_q, pos_tbl, tables, q_pos, **kw)
-        want32 = ref.paged_attn_ref(q.float(), k_q, v_q, pos_tbl, tables, q_pos, **kw)
-        err32 = (out32 - want32).abs().max().item()
-        check(err32 <= 1e-5 + 1e-5 * want32.abs().max().item(),
-              f"paged_attn S={s} f32: max error {err32:.3g}")
-        t_k = run_ms(lambda: paged_attn.paged_attn_cuda(q, k_q, v_q, pos_tbl, tables, q_pos, **kw), 20)
-        t_p = run_ms(lambda: ref.paged_attn_ref(q, k_q, v_q, pos_tbl, tables, q_pos, **kw), 2)
-        # library yardstick: SDPA over the gathered, dequantized window
-        # (the gather is set-up, outside the timed call)
-        kk = quant.dequantize_rows(k_q[tables.long()], k_s[tables.long()], torch.bfloat16)
-        vv = quant.dequantize_rows(v_q[tables.long()], v_s[tables.long()], torch.bfloat16)
+        # library yardstick: SDPA over the gathered (dequantized) window;
+        # the gather is set-up, outside the timed call
+        if kv_dtype == "int8":
+            kk = quant.dequantize_rows(k_p[tables.long()], k_s[tables.long()], torch.bfloat16)
+            vv = quant.dequantize_rows(v_p[tables.long()], v_s[tables.long()], torch.bfloat16)
+        else:
+            kk, vv = k_p[tables.long()], v_p[tables.long()]
         kk = kk.reshape(b, p_cnt * ps, kv, d).transpose(1, 2)
         vv = vv.reshape(b, p_cnt * ps, kv, d).transpose(1, 2)
         kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
-        qp = q_pos.reshape(b, 1, s, 1)
-        mask = (kpos >= 0) & (kpos <= qp)
-        qq = q.transpose(1, 2)
-        t_lib = run_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask, enable_gqa=True), 20)
-        n_valid_pages = int(valid_pages.sum())
-        page_bytes = 2 * ps * kvd + 2 * 4 * ps + 4 * ps  # k, v, scales, slot positions
-        nbytes = (2 * q.numel() * 2 + n_valid_pages * page_bytes + tables.numel() * 4
-                  + q_pos.numel() * 4)
-        nops = 4.0 * s * kv * g * d * n_valid_pages * ps  # QK^T and PV over kept pages
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations"
-        say(f"kernel paged_attn B={b} S={s} H={kv * g} KV={kv} D={d} P={p_cnt} PS={ps} "
-            f"int8-KV bf16: kernel_ms {t_k:.4f} plain_ms {t_p:.3f} library_ms {t_lib:.4f} "
-            f"bound_ms {bound:.4f} ({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
-        stats["max_abs_err"] = max(stats["max_abs_err"], err)
-        if s == 16:  # the JSON record: one mixed-step forward pass (40 layers)
-            stats.update(ms=40 * t_k, plain_ms=40 * t_p, library_ms=40 * t_lib,
-                         bytes=40 * nbytes, ops=40 * nops)
+        for s, pattern in ((1, "decode"), (16, "chunks"), (16, "mixed")):
+            q = torch.randn((b, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+            if pattern == "mixed":
+                q_pos = mixed_q_pos(torch, lengths, s)
+            else:
+                q_pos = torch.stack(
+                    [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+            out = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            want = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            # bf16: the sums run in another order, which can straddle a bf16
+            # rounding of a probability or of the output: two bf16 ulps at 1
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= 1.6e-2, f"paged_attn {arch} S={s} {pattern} bf16: max error {err:.3g}")
+            out32 = paged_attn.paged_attn_cuda(q.float(), k32, v32, pos_tbl, tables, q_pos, **kw)
+            want32 = ref.paged_attn_ref(q.float(), k32, v32, pos_tbl, tables, q_pos, **kw)
+            err32 = (out32 - want32).abs().max().item()
+            check(err32 <= 1e-5 + 1e-5 * want32.abs().max().item(),
+                  f"paged_attn {arch} S={s} {pattern} f32: max error {err32:.3g}")
+            # rows with no valid key (a padding tail, an idle row over the
+            # null page) take the uniform mean over their table, as the plain
+            # version
+            q_pad, t_pad = q_pos.clone(), tables.clone()
+            q_pad[0, s // 2 + 1:] = -1
+            q_pad[3], t_pad[3] = -1, 0
+            out32 = paged_attn.paged_attn_cuda(q.float(), k32, v32, pos_tbl, t_pad, q_pad, **kw)
+            want32 = ref.paged_attn_ref(q.float(), k32, v32, pos_tbl, t_pad, q_pad, **kw)
+            err_pad = (out32 - want32).abs().max().item()
+            check(err_pad <= 1e-5 + 1e-5 * want32.abs().max().item(),
+                  f"paged_attn {arch} S={s} {pattern} f32 with keyless rows: max error "
+                  f"{err_pad:.3g}")
+            t_k = run_ms(lambda: paged_attn.paged_attn_cuda(
+                q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 20)
+            t_p = run_ms(lambda: ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 2)
+            qp = q_pos.reshape(b, 1, s, 1)
+            mask = (kpos >= 0) & (kpos <= qp)
+            qq = q.transpose(1, 2)
+            t_lib = run_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, enable_gqa=True), 20)
+            n_valid_pages = int(valid_pages.sum())
+            # k, v rows (+ their scales), slot positions of the pages with data
+            page_bytes = 2 * ps * kvd * k_p.element_size() + 4 * ps
+            if kv_dtype == "int8":
+                page_bytes += 2 * 4 * ps
+            nbytes = (2 * q.numel() * 2 + n_valid_pages * page_bytes + tables.numel() * 4
+                      + q_pos.numel() * 4)
+            n_pairs = int(mask.sum())  # (query token, key) pairs this data attends
+            nops = 4.0 * kv * g * d * n_pairs  # QK^T and PV
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations"
+            say(f"kernel paged_attn {arch} B={b} S={s} {pattern} H={kv * g} KV={kv} D={d} "
+                f"P={p_cnt} PS={ps} {kv_dtype}-KV bf16: kernel_ms {t_k:.4f} plain_ms {t_p:.3f} "
+                f"library_ms {t_lib:.4f} bound_ms {bound:.4f} ({by}) max_abs_err {err:.3g} "
+                f"(f32 {err32:.3g}, keyless rows {err_pad:.3g})")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            if arch == "granite-3-8b" and pattern == "mixed":
+                # the JSON record: one mixed-step forward pass (40 layers)
+                stats.update(ms=n_layers * t_k, plain_ms=n_layers * t_p,
+                             library_ms=n_layers * t_lib, bytes=n_layers * nbytes,
+                             ops=n_layers * nops)
+        del k_p, v_p, k32, v32, kk, vv
+        torch.cuda.empty_cache()
     t_bytes = stats["bytes"] / HBM_BYTES_PER_S
     t_ops = stats["ops"] / BF16_OPS_PER_S
     stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -322,10 +401,11 @@ def phase_attention(torch, run_ms):
 
 
 def phase_native_matmuls(torch, run_ms):
-    """Kernels #1 and #4 at minicpm3-4b's full-width shapes, bf16 operands:
-    held against their plain versions (float64 products, rounded once)
-    within 1e-5 of the largest output in f32, a row's bits checked equal
-    at M=1, 4 and 64, and timed at M=4 and 64."""
+    """Kernels #1 and #4 at minicpm3-4b's and granite-moe-1b-a400m's
+    full-width shapes, bf16 operands: held against their plain versions
+    (float64 products, rounded once) within 1e-5 of the largest output in
+    f32, a row's bits checked equal at M=1, 4 and 64, and timed at M=4
+    and 64.  The record holds minicpm3-4b's pass."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -335,14 +415,16 @@ def phase_native_matmuls(torch, run_ms):
     bf16 = torch.bfloat16
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0,
                           ops=0.0) for k in ("dbb_matmul_aw", "dbb_matmul")}
-    for name, kind, act, dap, k, n in NATIVE_LINEARS:
+    linears = [("minicpm3-4b", 62) + row for row in NATIVE_LINEARS]
+    linears += [("granite-moe-1b-a400m", 24) + row for row in MOE_NATIVE_LINEARS]
+    for arch, n_layers, name, kind, act, dap, k, n in linears:
         w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
         wv, wm = ops.pack_weight(w, cfg)
         del w
         w_dense = ref.decode_w(wv, wm, cfg)
         w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
         kname = "dbb_matmul_aw" if kind == "aw" else "dbb_matmul"
-        count = 1 if name == "lm_head" else 62  # launches per forward pass
+        count = 1 if name == "lm_head" else n_layers  # launches per forward pass
         x = torch.randn((64, k), generator=gen, device="cuda").to(bf16)
         if dap:
             x = apply_dap(x, DAPSpec(4, 8))
@@ -364,7 +446,7 @@ def phase_native_matmuls(torch, run_ms):
         # a row's bits do not depend on M
         y = {m: kern(m, act, torch.float32) for m in (1, 4, 64)}
         check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
-              f"{name}: a row's output differs between M=1, 4 and 64")
+              f"{arch} {name}: a row's output differs between M=1, 4 and 64")
         for m in (4, 64):
             # f32 output within 1e-5 of the largest output; bf16 within that
             # plus one bf16 ulp of the larger of the two outputs (an f32
@@ -372,14 +454,14 @@ def phase_native_matmuls(torch, run_ms):
             want = plain(m, act, torch.float32)
             tol32 = 1e-5 * want.abs().max().item()
             err32 = (y[m] - want).abs().max().item()
-            check(err32 <= tol32, f"{name} M={m}: f32 output off by {err32:.3g} "
+            check(err32 <= tol32, f"{arch} {name} M={m}: f32 output off by {err32:.3g} "
                   f"(largest output {want.abs().max().item():.3g})")
             yb = kern(m, act, bf16).float()
             yb_ref = plain(m, act, bf16).float()
             errb = (yb - yb_ref).abs()
             ulp = 2.0 ** -7 * torch.maximum(yb.abs(), yb_ref.abs())
             check(bool((errb <= ulp + tol32).all()),
-                  f"{name} M={m}: bf16 output off by {errb.max().item():.3g}")
+                  f"{arch} {name} M={m}: bf16 output off by {errb.max().item():.3g}")
             err = max(err32, errb.max().item())
             t_k = run_ms(lambda: kern(m, act, bf16), iters=10)
             t_p = run_ms(lambda: plain(m, act, bf16), iters=2)
@@ -390,18 +472,18 @@ def phase_native_matmuls(torch, run_ms):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
-            say(f"kernel {kname} {name} M={m} K={k} N={n} bf16: kernel_ms {t_k:.4f} "
+            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16: kernel_ms {t_k:.4f} "
                 f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms {bound:.4f} "
                 f"({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
             agg = per_kernel[kname]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            if m == 64:  # the JSON record: one mixed-step forward pass
+            if m == 64 and arch == "minicpm3-4b":  # the JSON record: one mixed-step pass
                 agg["ms"] += count * t_k
                 agg["plain_ms"] += count * t_p
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
-        say(f"kernel {kname} {name}: rows bitwise equal at M=1, 4 and 64")
+        say(f"kernel {kname} {arch} {name}: rows bitwise equal at M=1, 4 and 64")
         del wv, wm, w_dense, x_dense, y
         torch.cuda.empty_cache()
     for agg in per_kernel.values():
@@ -498,16 +580,70 @@ def phase_latent_attention(torch, run_ms):
     return stats
 
 
+def phase_dap_prune(torch, run_ms):
+    """Kernel #5 bit for bit against its plain version at M in {4, 64}
+    rows of every dense-input width in bf16 and f32, with a NaN block,
+    +-inf, ties and -0.0 planted in the first rows, and timed (no library
+    call computes it: ``torch.topk`` breaks ties in no fixed order)."""
+    from repro_torch.kernels import dap_prune, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    special = torch.tensor([3.0, -3.0, 0.0, -0.0, float("inf"), -3.0, -float("inf"), 1.0],
+                           device="cuda")
+    stats = dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, bytes=0.0)
+    for k, what in DAP_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            for m in (4, 64):
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                x[0, :8] = special
+                x[0, 8:16] = float("nan")
+                x[0, 19] = float("nan")
+                x[1] = torch.randint(-2, 3, (k,), generator=gen, device="cuda").float()
+                x[1, :8] = -0.0
+                x = x.to(dtype)
+                got_p, got_m = dap_prune.dap_prune_cuda(x, 4)
+                want_p, want_m = ref.dap_prune_ref(x, 4)
+                check(torch.equal(got_p.view(view), want_p.view(view))
+                      and torch.equal(got_m, want_m),
+                      f"dap_prune K={k} M={m} {dtype}: differs from its plain version")
+                check(not got_p[0, 8:24].any(), f"dap_prune K={k}: a NaN block kept a value")
+                finite = torch.isfinite(got_p) & torch.isfinite(want_p)
+                err = (got_p.float() - want_p.float())[finite].abs().max().item()
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                t_k = run_ms(lambda: dap_prune.dap_prune_cuda(x, 4), iters=10)
+                t_p = run_ms(lambda: ref.dap_prune_ref(x, 4), iters=2)
+                nbytes = 2 * m * k * x.element_size() + m * k // 8
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                say(f"kernel dap_prune M={m} K={k} ({what}) {str(dtype)[6:]}: kernel_ms "
+                    f"{t_k:.4f} plain_ms {t_p:.3f} library_ms none bound_ms {bound:.5f} "
+                    f"(bytes) bit-exact, max_abs_err {err:.3g} over the finite entries")
+                if m == 64 and k == 1024 and dtype == torch.bfloat16:
+                    # the JSON record: one granite-moe mixed-step pass, 24
+                    # layers x (wo input, MoE input)
+                    stats.update(ms=48 * t_k, plain_ms=48 * t_p, bytes=48 * nbytes)
+    stats["bound_ms"] = stats["bytes"] / HBM_BYTES_PER_S * 1e3
+    stats["bound_by"] = "bytes"
+    return stats
+
+
 def expected_launches(cfg, wire):
-    """Kernel launches of one forward pass of ``cfg`` on ``wire``."""
+    """Kernel launches of one forward pass of ``cfg`` on ``wire``.  Every
+    dense-input linear but the head DAP-prunes its input (#5), and so
+    does the MoE FFN before its router."""
     n_l = cfg.n_layers
     if cfg.mla is not None:  # q_down, kv_down, gate, up, down packed; q_up, wo dense
-        packed, dense, attn = 5 * n_l, 2 * n_l + 1, ("paged_attn_latent", n_l)
+        packed, dense, attn = 5 * n_l, 2 * n_l, ("paged_attn_latent", n_l)
+        dap = dense
+    elif cfg.moe is not None:  # wq, wk, wv packed; wo dense; dense experts
+        packed, dense, attn = 3 * n_l, n_l, ("paged_attn", n_l)
+        dap = dense + n_l
     else:  # wq, wk, wv, gate, up, down packed; wo dense
-        packed, dense, attn = 6 * n_l, n_l + 1, ("paged_attn", n_l)
+        packed, dense, attn = 6 * n_l, n_l, ("paged_attn", n_l)
+        dap = dense
     names = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if wire == "int8"
              else ("dbb_matmul_aw", "dbb_matmul"))
-    return {names[0]: packed, names[1]: dense, attn[0]: attn[1]}
+    return {names[0]: packed, names[1]: dense + 1, attn[0]: attn[1], "dap_prune": dap}
 
 
 def phase_main_path(torch, np, arch, wire, kv_dtype):
@@ -585,14 +721,25 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
         f"throughput {tok_s:.2f} generated tokens/s, peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
 
-    # the same request served alone (its prompt pages now hit the prefix
-    # cache): every kernel sums a row in an order that does not depend on
-    # the batch, so it is byte-identical
     k = int(np.argmax(lens))
-    again = eng.generate_requests([prompts[k]], N_NEW)[0]
-    check(np.array_equal(again, outs[k]), f"{arch}: request {k} re-served alone diverged")
+    if cfg.moe is None:
+        # the same request served alone (its prompt pages now hit the prefix
+        # cache): every kernel sums a row in an order that does not depend
+        # on the batch, so it is byte-identical
+        again = eng.generate_requests([prompts[k]], N_NEW)[0]
+        check(np.array_equal(again, outs[k]), f"{arch}: request {k} re-served alone diverged")
+        alone = f"re-served request {k} alone byte-identical"
+    else:
+        # expert capacity couples a step's tokens, so a request served alone
+        # may differ; a fresh engine serving the same requests and arrivals
+        # must not
+        again = Engine(params, cfg, ServeConfig(**serve), device="cuda").generate_requests(
+            prompts, N_NEW, arrivals=arrivals)
+        check(all(np.array_equal(a, b) for a, b in zip(again, outs)),
+              f"{arch}: a fresh engine served different tokens")
+        alone = "a fresh engine re-served all requests byte-identically"
     # finite logits: the longest prompt's prefill logits, one solo step on
-    # a fresh cache, and its greedy token equals the served first token
+    # a fresh cache; for a dense arch its greedy token equals the served one
     s = len(prompts[k])
     n_pages = -(-s // serve["page_size"]) + 1
     cache = paged_cache.make_paged_cache(eng.cfg, n_pages, serve["page_size"], "cuda")
@@ -603,10 +750,10 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     )
     row = logits[0, -1, : cfg.vocab]
     check(bool(torch.isfinite(logits[0, :, : cfg.vocab]).all()), f"{arch}: non-finite logits")
-    check(int(row.argmax()) == int(outs[k][s]),
+    check(cfg.moe is not None or int(row.argmax()) == int(outs[k][s]),
           f"{arch}: solo prefill token differs from served token")
-    say(f"main path {arch}: re-served request {k} alone byte-identical; its prefill logits "
-        f"finite, shape {tuple(logits.shape)}")
+    say(f"main path {arch}: {alone}; request {k}'s prefill logits finite, shape "
+        f"{tuple(logits.shape)}")
     del eng, params, cache, logits
     torch.cuda.empty_cache()
     return counts
@@ -642,12 +789,14 @@ def main():
     stats["paged_attn"] = phase_attention(torch, run_ms)
     stats.update(phase_native_matmuls(torch, run_ms))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
+    stats["dap_prune"] = phase_dap_prune(torch, run_ms)
     del flush
     torch.cuda.empty_cache()
     launches = {}
     for arch, wire, kv_dtype in PATHS:
         counts = phase_main_path(torch, np, arch, wire, kv_dtype)
-        launches.update({k: v[0] for k, v in counts.items() if v[0]})
+        for name, (n, _) in counts.items():
+            launches[name] = launches.get(name, 0) + n
 
     record = []
     for name, info in KERNELS.items():
@@ -661,10 +810,11 @@ def main():
             "library_ms": st["library_ms"],
         })
     say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
-        "query tokens per request), summed over its launches, of granite-3-8b for "
+        "query tokens per request; attention on a mixed step's rows: decode rows and a "
+        "chunk tail padded to S), summed over its launches, of granite-3-8b for "
         "dbb_matmul_int8, dbb_matmul_aw_int8 and paged_attn, of minicpm3-4b for "
-        "dbb_matmul, dbb_matmul_aw and paged_attn_latent; launches over the main path "
-        "that runs each kernel")
+        "dbb_matmul, dbb_matmul_aw and paged_attn_latent, of granite-moe-1b-a400m for "
+        "dap_prune; launches summed over the main paths")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

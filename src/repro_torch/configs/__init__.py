@@ -1,17 +1,21 @@
 """Architecture registry: ``get_config(name, smoke=False)``.
 
-The port serves dense decoders only: granite-3-8b (GQA) and minicpm3-4b
-(MLA) are registered; the others follow with their families.
+The port serves granite-3-8b (dense GQA), minicpm3-4b (MLA) and
+granite-moe-1b-a400m (MoE); the others follow with their families.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b, minicpm3_4b
+from repro_torch.configs import granite_3_8b, granite_moe_1b_a400m, minicpm3_4b
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCH_IDS = ("granite_3_8b", "minicpm3_4b")
+ARCH_IDS = ("granite_3_8b", "minicpm3_4b", "granite_moe_1b_a400m")
 
-_MODULES = {"granite_3_8b": granite_3_8b, "minicpm3_4b": minicpm3_4b}
+_MODULES = {
+    "granite_3_8b": granite_3_8b,
+    "minicpm3_4b": minicpm3_4b,
+    "granite_moe_1b_a400m": granite_moe_1b_a400m,
+}
 
 
 def canon(name: str) -> str:

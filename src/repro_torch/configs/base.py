@@ -1,8 +1,8 @@
 """Model configuration (port of ``repro.configs.base``).
 
-Only the fields a dense decoder (GQA or MLA) reads are carried; each has
-the reference's name, default and meaning, and a test holds them equal
-field for field.
+Only the fields a served decoder (dense GQA, MLA or MoE) reads are
+carried; each has the reference's name, default and meaning, and a test
+holds them equal field for field.
 """
 
 from __future__ import annotations
@@ -25,9 +25,17 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"  # only dense decoders (GQA or MLA) are ported
+    family: str = "dense"  # dense | moe are ported
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -42,7 +50,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     sparsity: SparsityConfig = DENSE
+    # MoE dispatch groups: routing and capacity are local to each group
+    # of tokens (see models/moe.py)
+    moe_groups: int = 1
     # embedding / lm_head rows are padded to a multiple of this
     vocab_pad_multiple: int = 256
     dtype: str = "bfloat16"

@@ -1,8 +1,9 @@
 """Dynamic Activation Pruning forward (port of ``repro.core.dap``).
 
 Within each block of ``bz`` channels keep the ``nnz`` largest magnitudes
-(the paper's cascaded maxpool, Fig. 8).  Serving needs the forward only;
-the straight-through gradient is a later slice (training).
+(the paper's cascaded maxpool, Fig. 8): kernel #5 on a CUDA tensor, its
+plain version (``dbb.prune``) on a CPU tensor.  Serving needs the forward
+only; the straight-through gradient is a later slice (training).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import dbb
+from repro_torch.kernels import ops
 
 HW_MAX_STAGES = 5  # paper §6.2: "We cap the maxpool stages at 5"
 
@@ -40,7 +42,8 @@ class DAPSpec:
 
 
 def apply_dap(a: torch.Tensor, spec: DAPSpec | None) -> torch.Tensor:
-    """Top-NNZ-per-block pruning; identity when ``spec`` is None or dense."""
+    """Top-NNZ-per-block pruning (``ops.dap_prune``, pruned tensor only);
+    identity when ``spec`` is None or dense."""
     if spec is None or spec.is_dense:
         return a
-    return dbb.prune(a, spec.cfg)
+    return ops.dap_prune(a, spec.nnz, spec.bz)[0]

@@ -39,8 +39,20 @@
 // Pages whose slots are all -1 (the null page that pads every table,
 // scrubbed pages) are skipped after reading their slot positions; for
 // every row with a valid key this is exact (such a page rescales by
-// alpha = 1 and adds zero).  Still simple: scalar FMAs instead of tensor
-// cores and no cp.async double buffering.
+// alpha = 1 and adds zero).  A row with no valid key anywhere in its
+// table (chunk padding and idle rows at q_pos -1) has every logit at
+// NEG_INF, so the plain version and the reference give it the uniform
+// mean of v over every slot of the table, the null page's included; an
+// MoE layer routes such rows, so they must agree.  A block that holds
+// such a row takes the slot-less pages too, without any product: every
+// logit there is NEG_INF exactly, so a row that has seen a valid key
+// (m > NEG_INF) gains nothing (alpha = 1, probabilities 0) and a row that
+// has not (m == NEG_INF) gains probability 1 for each slot, l += PS and
+// acc += the sum of the page's v rows, in the order the general path
+// adds them.  Only v is read, and a run of one such page (the null page
+// that pads a table's tail) is read once and weighted by its length.
+// Still simple: scalar FMAs instead of tensor cores and no cp.async
+// double buffering.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +76,43 @@ __device__ __forceinline__ float round_c(float v, __nv_bfloat16*) {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// A slot-less page, read `reps` times in a row: every logit is NEG_INF
+// exactly, so only the rows that have seen no valid key (m == NEG_INF)
+// change: l += reps * PS and acc += reps * (the page's v rows summed in
+// slot order).  Kept out of line, so the general page walk keeps its
+// registers.
+template <typename KT, typename CT>
+__device__ __noinline__ void add_slotless_page(
+    const KT* __restrict__ k_pages, const KT* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, int pid, int reps,
+    int PS, int Dv, int kvd_k, int kvd_v, int kvh, int latent, int SG,
+    const float* __restrict__ m_s, float* __restrict__ l_s, float* __restrict__ acc_s,
+    float* __restrict__ vsum_s) {
+  const int tid = threadIdx.x;
+  CT* ctag = nullptr;
+  for (int d = tid; d < Dv; d += THREADS) {
+    float sum = 0.0f;
+    for (int sl = 0; sl < PS; ++sl) {
+      const size_t row = (size_t)pid * PS + sl;
+      float v;
+      if (latent) {  // v is the k row's prefix
+        v = to_f(k_pages[row * kvd_k + d]);
+        if (k_scale != nullptr) v = round_c(v * k_scale[row], ctag);
+      } else {
+        v = to_f(v_pages[row * kvd_v + (size_t)kvh * Dv + d]);
+        if (v_scale != nullptr) v = round_c(v * v_scale[row], ctag);
+      }
+      sum += v;
+    }
+    vsum_s[d] = reps * sum;
+  }
+  __syncthreads();
+  for (int i = tid; i < SG * Dv; i += THREADS)
+    if (m_s[i / Dv] == NEG_INF) acc_s[i] += vsum_s[i % Dv];
+  for (int r = tid; r < SG; r += THREADS)
+    if (m_s[r] == NEG_INF) l_s[r] += (float)(reps * PS);
+}
 
 // KT: page storage type (int8_t with scale planes, or CT); CT: compute
 // dtype of q and of the output.
@@ -92,6 +141,7 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
   float* l_s = m_s + SGM;                 // [SGM]
   float* a_s = l_s + SGM;                 // [SGM] alpha of this page
   int32_t* pos_s = (int32_t*)(a_s + SGM); // [PS]
+  float* vsum_s = (float*)(pos_s + PS);   // [Dv] v summed over a slot-less page
   const int tid = threadIdx.x;
   CT* ctag = nullptr;
 
@@ -105,6 +155,24 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
     l_s[r] = 0.0f;
   }
 
+  // does a query token of this block have no valid key in its whole
+  // table?  (q_pos < 0 never has one; else stop at the first valid slot)
+  __shared__ int walk_all;
+  if (tid == 0) walk_all = 0;
+  __syncthreads();
+  for (int t = tid; t < SG / G; t += THREADS) {
+    const int qp = q_pos[(size_t)b * S + s_lo + t];
+    bool live = false;
+    for (int p = 0; qp >= 0 && p < P && !live; ++p) {
+      const int pid = page_tables[(size_t)b * P + p];
+      for (int sl = 0; sl < PS && !live; ++sl) {
+        const int kp = pos_tbl[(size_t)pid * PS + sl];
+        live = kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
+      }
+    }
+    if (!live) walk_all = 1;
+  }
+
   const int kvd_k = KV * Dk, kvd_v = KV * Dv;
   const int p0 = blockIdx.y * pages_per_split;
   const int p1 = min(P, p0 + pages_per_split);
@@ -115,7 +183,16 @@ paged_attn_kernel(const CT* __restrict__ q, const KT* __restrict__ k_pages,
     __syncthreads();
     bool any_valid = false;
     for (int i = 0; i < PS; ++i) any_valid |= pos_s[i] >= 0;
-    if (!any_valid) continue;  // uniform across the block
+    if (!any_valid) {  // uniform across the block
+      if (!walk_all) continue;
+      // a run of this slot-less page is read once, weighted by its length
+      int reps = 1;
+      while (p + reps < p1 && page_tables[(size_t)b * P + p + reps] == pid) ++reps;
+      add_slotless_page<KT, CT>(k_pages, v_pages, k_scale, v_scale, pid, reps, PS, Dv, kvd_k,
+                                kvd_v, kvh, latent, SG, m_s, l_s, acc_s, vsum_s);
+      p += reps - 1;
+      continue;
+    }
 
     for (int i = tid; i < PS * Dk; i += THREADS) {
       const int sl = i / Dk, d = i % Dk;
@@ -226,7 +303,7 @@ size_t smem_bytes(int S, int G, int Dk, int Dv, int PS, int latent) {
   const size_t SG = (size_t)(S < s_block(G) ? S : s_block(G)) * G;
   const size_t v_tile = latent ? 0 : (size_t)PS * Dv;
   return sizeof(float) * (SG * (Dk + 1) + (size_t)PS * (Dk + 1) + v_tile + SG * PS +
-                          SG * Dv + 3 * SG) +
+                          SG * Dv + 3 * SG + Dv) +
          sizeof(int32_t) * PS;
 }
 

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("dbb_matmul_int8", "dbb_matmul_native", "paged_attn")
+SOURCES = ("dbb_matmul_int8", "dbb_matmul_native", "paged_attn", "dap_prune")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

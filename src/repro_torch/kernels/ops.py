@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import dbb
+from repro_torch.kernels import dap_prune as dap_mod
 from repro_torch.kernels import dbb_matmul as dbb_mm
 from repro_torch.kernels import native, paged_attn, ref
 
@@ -28,6 +29,7 @@ def counters() -> Dict[str, native.Counter]:
         "dbb_matmul_aw": dbb_mm.AW_NATIVE,
         "paged_attn": paged_attn.PAGED_ATTN,
         "paged_attn_latent": paged_attn.PAGED_ATTN_LATENT,
+        "dap_prune": dap_mod.DAP_PRUNE,
     }
 
 
@@ -170,6 +172,19 @@ def paged_attention(q, k_pages, v_pages, pos_tbl, page_tables, q_pos, *,
     counter = paged_attn.PAGED_ATTN if latent_dv is None else paged_attn.PAGED_ATTN_LATENT
     counter.plain += 1
     return ref.paged_attn_ref(q, k_pages, v_pages, pos_tbl, page_tables, q_pos, **kw)
+
+
+def dap_prune(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
+    """DAP (kernel #5): ``(pruned [..., K], mask [..., K//bz] uint8)``.
+    Accepts any ``[..., K]``; the kernel sees it as 2-D."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _on_cuda(x2):
+        pruned, mask = dap_mod.dap_prune_cuda(x2.contiguous(), nnz, bz)
+    else:
+        dap_mod.DAP_PRUNE.plain += 1
+        pruned, mask = ref.dap_prune_ref(x2, nnz, bz)
+    return pruned.reshape(shape), mask.reshape(*shape[:-1], shape[-1] // bz)
 
 
 def dap_pack_int8(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ,

@@ -146,6 +146,19 @@ def quantize_act_int8(x: torch.Tensor, per_row: bool = False):
     return quant.quantize(x)
 
 
+def dap_prune_ref(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
+    """Plain version of kernel #5 (DAP): ``(pruned [..., K], bitmask
+    [..., K//bz] uint8)``.  ``pruned`` is :func:`dbb.prune` (a selected
+    ``-0.0`` stays ``-0.0``; a block holding a NaN keeps nothing), and bit
+    ``b`` of the mask marks a non-zero kept at block position ``b``."""
+    cfg = dbb.DBBConfig(nnz, bz)
+    pruned = dbb.prune(x, cfg)
+    kept = dbb._to_blocks(pruned != 0, bz)
+    weights = (2 ** torch.arange(bz, device=x.device)).to(torch.int32)
+    bitmask = (kept.to(torch.int32) * weights).sum(dim=-1).to(torch.uint8)
+    return pruned, bitmask
+
+
 def paged_attn_ref(
     q: torch.Tensor,  # [B, S, H, Dk]
     k_pages: torch.Tensor,  # [N, PS, KV*Dk] (latent: [N, PS, Dk], KV == 1)

@@ -47,16 +47,27 @@ def _paged_flat_idx(positions, page_tables, page_size: int):
 def paged_update(cache_layer, new_k, new_v, positions, page_tables) -> None:
     """Scatter a ``[B, S, D]`` chunk of new K/V into its pages, in place.
     Int8 caches quantize each token row here (write time) and store its
-    scale in the same flat slot."""
+    scale in the same flat slot.
+
+    Every padding token writes (null page, slot 0), and rows with no
+    valid key read that slot (kernel #6's uniform mean).  A sequential
+    scatter, as the reference's on the CPU, leaves the last padding
+    token's row there; CUDA scatters duplicates in no fixed order, so
+    every padding token writes the last one's row, and the slot's bytes
+    never depend on the order."""
     ps = cache_layer["k"].shape[1]
-    flat, _ = _paged_flat_idx(positions, page_tables, ps)
+    flat, valid = _paged_flat_idx(positions, page_tables, ps)
+    valid = valid.reshape(-1)
+    order = torch.arange(valid.numel(), device=valid.device)
+    last_pad = torch.where(valid, -1, order).amax().clamp_min(0)
+    src = torch.where(valid, order, last_pad)
     for name, new in (("k", new_k), ("v", new_v)):
         c = cache_layer[name]
         sname = name + "_scale"
         if sname in cache_layer:
             new, sc = quant.quantize_rows(new)
-            cache_layer[sname].view(-1)[flat] = sc.reshape(-1)
-        c.view(-1, c.shape[-1])[flat] = new.reshape(-1, new.shape[-1]).to(c.dtype)
+            cache_layer[sname].view(-1)[flat] = sc.reshape(-1)[src]
+        c.view(-1, c.shape[-1])[flat] = new.reshape(-1, new.shape[-1])[src].to(c.dtype)
 
 
 def paged_update_pos(pos_tbl, positions, page_tables) -> None:

@@ -1,9 +1,11 @@
-"""Pre-norm decoder block (port of ``repro.models.blocks.decoder_block``),
-dense GQA or MLA over the paged cache."""
+"""Pre-norm decoder block (port of ``repro.models.blocks.decoder_block``):
+GQA or MLA attention over the paged cache, then a dense MLP or, under
+``cfg.moe``, the MoE FFN."""
 
 from __future__ import annotations
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import mlp_forward, rmsnorm
 
 
@@ -11,7 +13,8 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
                   rope_cs=None, page_tables=None):
     """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``.  ``cache_layer`` holds
     this layer's page pools and the already-updated shared slot table; the
-    pools are written in place."""
+    pools are written in place.  The MoE load-balance loss is dropped:
+    serving has no use for it."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a_out = attn.mla_forward(
@@ -25,7 +28,12 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
         )
     x = x + a_out
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    m_out = mlp_forward(
-        p["mlp"], h2, act=cfg.mlp_act, sparsity=cfg.sparsity, layer_idx=layer_idx
-    )
+    if cfg.moe is not None:
+        m_out, _ = moe_mod.moe_forward(
+            p["moe"], h2, cfg, layer_idx=layer_idx, n_groups=cfg.moe_groups
+        )
+    else:
+        m_out = mlp_forward(
+            p["mlp"], h2, act=cfg.mlp_act, sparsity=cfg.sparsity, layer_idx=layer_idx
+        )
     return x + m_out

@@ -1,5 +1,5 @@
 """Decoder-only LM over the paged KV cache (port of the serving half of
-``repro.models.lm``), dense GQA or MLA.
+``repro.models.lm``): dense GQA or MLA, with a dense MLP or an MoE FFN.
 
 Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sampling import sample_tokens
-from repro_torch.models import attention, blocks, rope
+from repro_torch.models import attention, blocks, moe, rope
 from repro_torch.models.common import (
     dtype_of,
     linear,
@@ -28,10 +28,10 @@ from repro_torch.models.common import (
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the port serves dense GQA "
-            "and MLA decoders only (ROADMAP queue 1)"
+            f"family {cfg.family!r} is not ported; the port serves dense (GQA "
+            "or MLA) and MoE decoders only (ROADMAP queue 1)"
         )
 
 
@@ -42,8 +42,8 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
     With ``wire_dtype="int8"`` or ``"native"`` every DBB-eligible linear
     is packed to that wire as soon as it is drawn, layer by layer, so the
     dense model never sits on the device whole (16.7 GB in bf16 for
-    granite-3-8b); MLA's ``kv_up`` stays dense, as serving needs it.
-    ``None`` returns the dense parameters."""
+    granite-3-8b); MLA's ``kv_up``, the MoE router and the experts stay
+    dense, as serving needs them.  ``None`` returns the dense parameters."""
     _check_family(cfg)
     dtype = dtype_of(cfg.dtype)
     sp = cfg.sparsity
@@ -69,15 +69,16 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
                 "wv": lin(d, kvh * dh, cfg.qkv_bias),
                 "wo": lin(h * dh, d),
             }
-        if cfg.mlp_act == "swiglu":
-            mlp = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff)}
+        layer = {"ln1": make_norm(d, device=device), "ln2": make_norm(d, device=device),
+                 "attn": attn}
+        if cfg.moe is not None:
+            layer["moe"] = moe.make_moe(generator, cfg, dtype=dtype, device=device)
         else:
-            mlp = {"up": lin(d, cfg.d_ff)}
-        mlp["down"] = lin(cfg.d_ff, d)
-        params["layers"].append({
-            "ln1": make_norm(d, device=device), "ln2": make_norm(d, device=device),
-            "attn": attn, "mlp": mlp,
-        })
+            mlp = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff)} \
+                if cfg.mlp_act == "swiglu" else {"up": lin(d, cfg.d_ff)}
+            mlp["down"] = lin(cfg.d_ff, d)
+            layer["mlp"] = mlp
+        params["layers"].append(layer)
     params["final_norm"] = make_norm(d, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = lin(d, cfg.padded_vocab)

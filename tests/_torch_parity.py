@@ -1,8 +1,8 @@
 """Shared set-up of the ``test_torch_*`` parity suite: the same small
-configuration (granite-3-8b, or minicpm3-4b for MLA) for the JAX
-reference and the PyTorch port, weights drawn once by the reference and
-converted bit for bit, and the engine's effective sparsity settings on
-both sides."""
+configuration (granite-3-8b, minicpm3-4b for MLA, granite-moe-1b-a400m
+for MoE) for the JAX reference and the PyTorch port, weights drawn once
+by the reference and converted bit for bit, and the engine's effective
+sparsity settings on both sides."""
 
 import dataclasses
 
@@ -31,6 +31,31 @@ def small_cfgs(arch="granite_3_8b", **over):
     jcfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True), **kw)
     tcfg = dataclasses.replace(tconfigs.get_config(arch, smoke=True), **kw)
     return jcfg, tcfg
+
+
+def check_config_fields(arch, smoke):
+    """Every field of the port's config equals the reference's, the
+    nested sparsity, MLA and MoE configs field for field."""
+    jcfg = jconfigs.get_config(arch, smoke=smoke)
+    tcfg = tconfigs.get_config(arch, smoke=smoke)
+    for f in dataclasses.fields(tcfg):
+        if f.name in ("sparsity", "mla", "moe"):
+            continue
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    for f in dataclasses.fields(tcfg.sparsity):
+        assert getattr(tcfg.sparsity, f.name) == getattr(jcfg.sparsity, f.name), f.name
+    for sub in ("mla", "moe"):
+        tsub, jsub = getattr(tcfg, sub), getattr(jcfg, sub)
+        assert (tsub is None) == (jsub is None), sub
+        if tsub is not None:
+            assert [f.name for f in dataclasses.fields(tsub)] == [
+                f.name for f in dataclasses.fields(jsub)
+            ]
+            for f in dataclasses.fields(tsub):
+                assert getattr(tsub, f.name) == getattr(jsub, f.name), f"{sub}.{f.name}"
+    assert (tcfg.head_dim(), tcfg.padded_vocab, tcfg.kv_dim()) == (
+        jcfg.head_dim(), jcfg.padded_vocab, jcfg.kv_dim()
+    )
 
 
 def effective(jcfg, tcfg, kv_dtype="native", wire="int8"):
@@ -86,7 +111,10 @@ def replay_logits(jeng, teng, jcfg, tcfg, outs, n_new):
     """Both engines' packed weights replay every request's fed stream in
     one paged step (one row per request, padded with position -1);
     asserts each served token is its row's argmax and returns the logits
-    of the positions that chose a token, ``(port, reference)``."""
+    of the positions that chose a token, ``(port, reference)``.  Under
+    MoE a token's output depends on its co-batch (expert capacity), so
+    the replay, batched unlike the served steps, is compared only port
+    against reference at its own shapes."""
     fed = [w[:-1] for w in outs]
     s = max(len(f) for f in fed)
     b, ps = len(fed), jeng.scfg.page_size
@@ -111,11 +139,12 @@ def replay_logits(jeng, teng, jcfg, tcfg, outs, n_new):
         chose = slice(len(w) - n_new - 1, len(w) - 1)
         got.append(tl[i, chose, : tcfg.vocab])
         want.append(jl[i, chose, : jcfg.vocab])
-        np.testing.assert_array_equal(got[-1].argmax(-1), w[len(w) - n_new:])
+        if jcfg.moe is None:
+            np.testing.assert_array_equal(got[-1].argmax(-1), w[len(w) - n_new:])
     return np.concatenate(got), np.concatenate(want)
 
 
-def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype):
+def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype, serve=SERVE):
     """The port's engine (on the CPU) vs the reference's continuous engine
     (gather path) on the same prompts: greedy tokens equal on this pinned
     seed, logits within 1e-4 at every position that chose a token (ULP
@@ -124,11 +153,11 @@ def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype):
     prompts = prompts_for(jcfg.vocab)
     jeng = jengine.Engine(params, jcfg, jengine.ServeConfig(
         prefill_mode="continuous", pack_weights=True, wire_dtype=wire,
-        kv_dtype=kv_dtype, paged_attn="gather", **SERVE,
+        kv_dtype=kv_dtype, paged_attn="gather", **serve,
     ))
     want = jeng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-        wire_dtype=wire, kv_dtype=kv_dtype, **SERVE), device="cpu")
+        wire_dtype=wire, kv_dtype=kv_dtype, **serve), device="cpu")
     ops.reset_counters()
     got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
@@ -142,7 +171,7 @@ def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype):
     return counts
 
 
-def invariants_byte_exact(tcfg, tparams, wire, kv_dtype):
+def invariants_byte_exact(tcfg, tparams, wire, kv_dtype, serve=SERVE):
     """The port's own invariants, byte for byte: continuous == each
     request served alone, ``decode_block=1`` == 16, and a call that
     reuses cached prompt pages == the cold call.  Returns the kernel
@@ -150,7 +179,7 @@ def invariants_byte_exact(tcfg, tparams, wire, kv_dtype):
     prompts = prompts_for(tcfg.vocab)
 
     def eng(**kw):
-        scfg = tengine.ServeConfig(**{**SERVE, "wire_dtype": wire, "kv_dtype": kv_dtype, **kw})
+        scfg = tengine.ServeConfig(**{**serve, "wire_dtype": wire, "kv_dtype": kv_dtype, **kw})
         return tengine.Engine(tparams, tcfg, scfg, device="cpu")
 
     ops.reset_counters()

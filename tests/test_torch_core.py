@@ -9,7 +9,6 @@ ATen (rtol/atol 1e-6).  Also here: the guard that the port imports
 nothing of JAX, and the configuration field check."""
 
 import ast
-import dataclasses
 import pathlib
 
 import jax.numpy as jnp
@@ -17,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
+from _torch_parity import check_config_fields
 from repro.core import dbb as jdbb
 from repro.core import quant as jquant
 from repro.kernels import epilogue as jepi
@@ -184,41 +183,18 @@ def test_port_imports_no_jax(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
-def _check_config_fields(arch, smoke):
-    """Every field of the port's config equals the reference's, the
-    nested sparsity and MLA configs field for field."""
-    jcfg = jconfigs.get_config(arch, smoke=smoke)
-    tcfg = tconfigs.get_config(arch, smoke=smoke)
-    for f in dataclasses.fields(tcfg):
-        if f.name in ("sparsity", "mla"):
-            continue
-        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    for f in dataclasses.fields(tcfg.sparsity):
-        assert getattr(tcfg.sparsity, f.name) == getattr(jcfg.sparsity, f.name), f.name
-    assert (tcfg.mla is None) == (jcfg.mla is None)
-    if tcfg.mla is not None:
-        assert [f.name for f in dataclasses.fields(tcfg.mla)] == [
-            f.name for f in dataclasses.fields(jcfg.mla)
-        ]
-        for f in dataclasses.fields(tcfg.mla):
-            assert getattr(tcfg.mla, f.name) == getattr(jcfg.mla, f.name), f.name
-    assert (tcfg.head_dim(), tcfg.padded_vocab, tcfg.kv_dim()) == (
-        jcfg.head_dim(), jcfg.padded_vocab, jcfg.kv_dim()
-    )
-
-
 @pytest.mark.parametrize("smoke", [False, True])
 def test_granite_config_matches_reference(smoke):
-    _check_config_fields("granite_3_8b", smoke)
+    check_config_fields("granite_3_8b", smoke)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_minicpm3_config_matches_reference(smoke):
     """MLA: the ranks of ``MLAConfig`` and the latent ``kv_dim`` too."""
-    _check_config_fields("minicpm3_4b", smoke)
+    check_config_fields("minicpm3_4b", smoke)
     assert tconfigs.get_config("minicpm3_4b").kv_dim() == 256 + 32
 
 
 def test_unported_architecture_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("granite_moe_1b_a400m")
+        tconfigs.get_config("qwen2_vl_72b")

@@ -13,7 +13,8 @@ the native-wire matmuls are held to 1e-5 of the largest output in f32
 (f32 sums in another order than the plain version's float64), and in
 bf16 to that plus one bf16 ulp of the larger output (an f32 difference
 can straddle a bf16 rounding); paged attention in f32 is held to 1e-5, the reference's
-kernel-vs-oracle bound."""
+kernel-vs-oracle bound, on every row (rows with no valid key included);
+DAP (#5) is selection and is held bit for bit."""
 
 import math
 
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core import dbb, quant
-from repro_torch.kernels import dbb_matmul, ops, paged_attn, ref
+from repro_torch.kernels import dap_prune, dbb_matmul, ops, paged_attn, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -55,27 +56,36 @@ def test_int8_matmul_kernels_exact(cuda, m, k, n, kind):
     assert torch.equal(y, want)
 
 
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [3, 70], ids=["chunk", "long_chunk"])
-def test_paged_attn_kernel_f32(cuda, s):
-    """A long chunk (70 tokens x 2 heads > 64 rows) spans row blocks."""
-    n_pages, ps, kv, d, b = 12, 8, 2, 32, 2
-    k_q, k_s = quant.quantize_rows(torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda"))
-    v_q, v_s = quant.quantize_rows(torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda"))
+def test_paged_attn_kernel_f32(cuda, s, int8):
+    """A long chunk (70 tokens x 2 heads > 64 rows) spans row blocks; KV
+    pages int8 with scales, or native f32."""
+    n_pages, ps, kv, d, b = 12, 8, 2, 32, 3
+    k_q = torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda")
+    v_q = torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda")
+    k_s = v_s = None
+    if int8:
+        (k_q, k_s), (v_q, v_s) = quant.quantize_rows(k_q), quant.quantize_rows(v_q)
     pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
     pos[3] = torch.arange(ps, dtype=torch.int32)
     pos[7, :5] = torch.arange(ps, ps + 5, dtype=torch.int32)
     pos[5, :6] = torch.arange(6, dtype=torch.int32)
-    tables = torch.tensor([[3, 7, 9], [5, 0, 0]], dtype=torch.int32, device="cuda")
+    # null-padded to 6 pages: runs of the null page inside the first split
+    # of 4 pages and across the second
+    tables = torch.tensor([[3, 7, 9, 0, 0, 0], [5, 0, 0, 0, 0, 0], [0] * 6], dtype=torch.int32,
+                          device="cuda")
     q = torch.randn((b, s, 2 * kv, d), generator=cuda, device="cuda")
-    # the last s positions of each request; negative ones are padding rows
-    q_pos = torch.stack([torch.arange(13 - s, 13), torch.arange(6 - s, 6)]).to(
-        device="cuda", dtype=torch.int32)
-    rows = q_pos >= 0  # padding rows attend to nothing: their output is garbage
+    # the last s positions of each request; negative ones are padding rows,
+    # and request 2 is an idle row over the null page: rows with no valid
+    # key take the uniform mean over their table, as in the plain version
+    q_pos = torch.stack([torch.arange(13 - s, 13), torch.arange(6 - s, 6),
+                         torch.full((s,), -1)]).to(device="cuda", dtype=torch.int32)
     for window in (None, 4):
         kw = dict(kv_heads=kv, window=window, k_scale=k_s, v_scale=v_s)
         got = paged_attn.paged_attn_cuda(q, k_q, v_q, pos, tables, q_pos, **kw)
         want = ref.paged_attn_ref(q, k_q, v_q, pos, tables, q_pos, **kw)
-        torch.testing.assert_close(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def _native_operands(gen, m, k, n, dtype):
@@ -143,7 +153,7 @@ def test_native_matmul_rows_bitwise_independent_of_m(cuda, dtype, kind):
 def test_paged_attn_latent_kernel(cuda, int8, s):
     """#6 in MLA's latent mode: kv_heads=1, v the first Dv features of the
     dequantized k row, no v pages or v scale, an explicit softmax scale."""
-    n_pages, ps, lora, rope_d, h, b = 12, 8, 40, 8, 6, 2
+    n_pages, ps, lora, rope_d, h, b = 12, 8, 40, 8, 6, 3
     lat = torch.randn((n_pages, ps, lora + rope_d), generator=cuda, device="cuda")
     k_scale = None
     if int8:
@@ -152,13 +162,37 @@ def test_paged_attn_latent_kernel(cuda, int8, s):
     pos[3] = torch.arange(ps, dtype=torch.int32)
     pos[7, :5] = torch.arange(ps, ps + 5, dtype=torch.int32)
     pos[5, :6] = torch.arange(6, dtype=torch.int32)
-    tables = torch.tensor([[3, 7, 9], [5, 0, 0]], dtype=torch.int32, device="cuda")
+    tables = torch.tensor([[3, 7, 9], [5, 0, 0], [0, 0, 0]], dtype=torch.int32, device="cuda")
     q = torch.randn((b, s, h, lora + rope_d), generator=cuda, device="cuda")
-    q_pos = torch.stack([torch.arange(13 - s, 13), torch.arange(6 - s, 6)]).to(
-        device="cuda", dtype=torch.int32)
-    rows = q_pos >= 0
+    q_pos = torch.stack([torch.arange(13 - s, 13), torch.arange(6 - s, 6),
+                         torch.full((s,), -1)]).to(device="cuda", dtype=torch.int32)
     kw = dict(kv_heads=1, softmax_scale=0.21, k_scale=k_scale, latent_dv=lora)
     got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
     want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
-    torch.testing.assert_close(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert paged_attn.PAGED_ATTN_LATENT.launches > 0
+
+
+@pytest.mark.parametrize("m,k", [(4, 768), (64, 4096), (3, 40), (1, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nnz", [1, 2, 3, 4, 5, 8])
+def test_dap_prune_kernel_bit_exact(cuda, m, k, dtype, nnz):
+    """#5 vs its plain version, bit for bit: ties (small integers), zeros
+    of both signs, +-inf and a NaN in the first row; a misaligned input
+    (an offset view) goes through an aligned copy."""
+    x = torch.randn((m, k), generator=cuda, device="cuda")
+    x[0, : min(k, 8)] = torch.tensor([3.0, -3.0, 0.0, -0.0, float("inf"), -3.0, float("nan"),
+                                      1.0], device="cuda")[: min(k, 8)]
+    if m > 1:
+        x[1] = torch.randint(-2, 3, (k,), generator=cuda, device="cuda").float()
+        x[1, :8] = -0.0
+    x = x.to(dtype)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    buf = torch.empty(m * k + 4, dtype=dtype, device="cuda")
+    buf[4:] = x.reshape(-1)
+    for xin in (x, buf[4:].view(m, k)):
+        got_p, got_m = dap_prune.dap_prune_cuda(xin, nnz)
+        want_p, want_m = ref.dap_prune_ref(x, nnz)
+        assert torch.equal(got_p.view(view), want_p.view(view))
+        assert torch.equal(got_m, want_m)
+    assert dap_prune.DAP_PRUNE.launches > 0

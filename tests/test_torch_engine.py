@@ -49,10 +49,11 @@ def test_engine_tokens_match_reference(weights, kv_dtype):
 def test_engine_invariants_byte_exact(weights):
     _, tcfg, _, tparams = weights
     counts, eng = invariants_byte_exact(tcfg, tparams, "int8", "int8")
-    # the int8 wire's kernels, their plain versions on the CPU
+    # the int8 wire's kernels and DAP (wo's input), their plain versions
+    # on the CPU
     assert all(launches == 0 for launches, _ in counts.values())
     assert {k for k, (_, plain) in counts.items() if plain > 0} == {
-        "dbb_matmul_int8", "dbb_matmul_aw_int8", "paged_attn"}
+        "dbb_matmul_int8", "dbb_matmul_aw_int8", "paged_attn", "dap_prune"}
     # every page is back in the pool (no prefix cache holds any), and every
     # dirty page is a free one
     alloc = eng._cont["allocator"]
@@ -83,8 +84,8 @@ def test_slice_limits_raise(name):
 
 def test_non_dense_family_and_sampling_raise(weights):
     _, tcfg, _, tparams = weights
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        tengine.Engine(tparams, dataclasses.replace(tcfg, family="moe"),
+    with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
+        tengine.Engine(tparams, dataclasses.replace(tcfg, family="ssm"),
                        tengine.ServeConfig(**SERVE), device="cpu")
     with pytest.raises(NotImplementedError, match="threefry"):
         SamplingParams(temperature=0.5)

@@ -231,10 +231,12 @@ def test_cpu_dispatch_counts_plain_calls_only():
         _t(q).reshape(q.shape[0], q.shape[1], -1, 32), _t(cache["k"]), None, _t(pos_tbl),
         _t(tables), _t(q_pos), kv_heads=1, k_scale=_t(cache["k_scale"]), latent_dv=8, softmax_scale=0.3,
     )
+    ops.dap_prune(_t(o["x"]), 4, 8)
     counts = ops.counters()
     assert {k: (c.launches, c.plain) for k, c in counts.items()} == {
         "dbb_matmul": (0, 1), "dbb_matmul_int8": (0, 1), "dbb_matmul_aw_int8": (0, 1),
         "dbb_matmul_aw": (0, 1), "paged_attn": (0, 1), "paged_attn_latent": (0, 1),
+        "dap_prune": (0, 1),
     }
     ops.reset_counters()
     assert all(c.launches == 0 and c.plain == 0 for c in ops.counters().values())

@@ -162,5 +162,5 @@ def test_paged_step_logits_vs_reference(setup, kv_dtype):
 
 def test_unported_family_raises():
     _, tcfg = small_cfgs()
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        tlm.init_params(dataclasses.replace(tcfg, family="moe"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
+        tlm.init_params(dataclasses.replace(tcfg, family="ssm"), torch.Generator(), "cpu")
