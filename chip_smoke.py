@@ -16,7 +16,8 @@ non-zero and prints no result:
    (bytes over 3.35 TB/s or operations over the peak rate): the int8
    matmuls (#2, #3) at granite-3-8b's shapes; GQA paged attention (#6)
    at granite-3-8b's (int8 KV) and granite-moe-1b-a400m's (native KV),
-   with the padding and idle rows of a mixed step; the native-wire
+   with the padding and idle rows of a mixed step, in bf16 through the
+   tensor-core kernel and in f32 through the scalar one; the native-wire
    matmuls (#1, #4), with a check that a row's bits do not depend on M,
    at minicpm3-4b's and granite-moe-1b-a400m's; latent paged attention
    (#6, MLA) at minicpm3-4b's; DAP (#5) bit for bit at every
@@ -29,7 +30,8 @@ non-zero and prints no result:
    experts top-8, native wire and KV: the reference's default), seeded
    random weights in bf16, each serving 8 requests continuously through
    ``Engine.generate_requests``; the counters show every packed linear,
-   every attention call and every DAP went through the kernels.  A dense
+   every attention call and every DAP went through the kernels, every
+   bf16 GQA attention call through the tensor-core kernel.  A dense
    arch's request re-served alone is byte-identical; an MoE token
    depends on its co-batch (expert capacity), so there a fresh engine
    re-serves the same requests and arrivals byte-identically.
@@ -286,7 +288,9 @@ def phase_attention(torch, run_ms):
     heads over 8 KV heads of 128, int8 KV) and granite-moe-1b-a400m (16
     over 8 of 64, native bf16 KV), S=1 and S=16, held against its plain
     version and timed beside SDPA on the gathered window; at S=16 also
-    on a main-path mixed step, where padding rows have no valid key."""
+    on a main-path mixed step, where padding rows have no valid key.  bf16
+    calls must run the tensor-core kernel; f32 calls (the scalar kernel)
+    are held too, and both on rows with no valid key."""
     from repro_torch.core import quant
     from repro_torch.kernels import paged_attn, ref
 
@@ -339,7 +343,10 @@ def phase_attention(torch, run_ms):
             else:
                 q_pos = torch.stack(
                     [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+            tc_before = paged_attn.PAGED_ATTN_TC.launches
             out = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            check(paged_attn.PAGED_ATTN_TC.launches == tc_before + 1,
+                  f"paged_attn {arch} S={s} {pattern} bf16: not the tensor-core kernel")
             want = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
             # bf16: the sums run in another order, which can straddle a bf16
             # rounding of a probability or of the output: two bf16 ulps at 1
@@ -362,6 +369,13 @@ def phase_attention(torch, run_ms):
             check(err_pad <= 1e-5 + 1e-5 * want32.abs().max().item(),
                   f"paged_attn {arch} S={s} {pattern} f32 with keyless rows: max error "
                   f"{err_pad:.3g}")
+            # the same keyless rows in bf16, through the tensor-core kernel
+            out16 = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, t_pad, q_pad, **kw)
+            want16 = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, t_pad, q_pad, **kw)
+            err_pad16 = (out16.float() - want16.float()).abs().max().item()
+            check(err_pad16 <= 1.6e-2,
+                  f"paged_attn {arch} S={s} {pattern} bf16 with keyless rows: max error "
+                  f"{err_pad16:.3g}")
             t_k = run_ms(lambda: paged_attn.paged_attn_cuda(
                 q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 20)
             t_p = run_ms(lambda: ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 2)
@@ -382,10 +396,12 @@ def phase_attention(torch, run_ms):
             bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations"
             say(f"kernel paged_attn {arch} B={b} S={s} {pattern} H={kv * g} KV={kv} D={d} "
-                f"P={p_cnt} PS={ps} {kv_dtype}-KV bf16: kernel_ms {t_k:.4f} plain_ms {t_p:.3f} "
-                f"library_ms {t_lib:.4f} bound_ms {bound:.4f} ({by}) max_abs_err {err:.3g} "
-                f"(f32 {err32:.3g}, keyless rows {err_pad:.3g})")
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                f"P={p_cnt} PS={ps} {kv_dtype}-KV bf16 (path: tensor cores, "
+                f"{paged_attn.TC_PAGES_PER_SPLIT} pages per split): kernel_ms {t_k:.4f} "
+                f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} bound_ms {bound:.4f} ({by}) "
+                f"max_abs_err {err:.3g} (keyless rows {err_pad16:.3g}; f32 path: scalar, "
+                f"{err32:.3g}, keyless rows {err_pad:.3g})")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err, err_pad16)
             if arch == "granite-3-8b" and pattern == "mixed":
                 # the JSON record: one mixed-step forward pass (40 layers)
                 stats.update(ms=n_layers * t_k, plain_ms=n_layers * t_p,
@@ -650,7 +666,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     """One main path: a full-width engine serves 8 requests; the launch
     counters are set to 0 just before and read just after."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, paged_attn
     from repro_torch.models import lm
     from repro_torch.serve import paged_cache
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -690,11 +706,13 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     lm.paged_step = counting_step
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counters()
+    paged_attn.PAGED_ATTN_TC.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
+    tc_launches = paged_attn.PAGED_ATTN_TC.launches
     lm.paged_step = inner
     passes = steps["n"]
     results = eng.last_results
@@ -712,7 +730,12 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
         per_pass = expect.get(name, 0)
         check(launches == per_pass * passes,
               f"{arch} {name}: {launches} launches, expected {per_pass} x {passes} passes")
-    say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})}, "
+    # every bf16 GQA call went through the tensor-core kernel
+    check(tc_launches == counts["paged_attn"][0],
+          f"{arch}: {tc_launches} of {counts['paged_attn'][0]} GQA attention launches "
+          f"on the tensor-core kernel")
+    say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})} "
+        f"(paged_attn on the tensor-core kernel: {tc_launches}), "
         f"plain-version calls {json.dumps({k: v[1] for k, v in counts.items()})}")
     ttft = sorted(r.time_to_first_token for r in results)
     tok_s = N_REQUESTS * N_NEW / wall

@@ -3,6 +3,7 @@
 a serving step gives it, for one checkout of the port.
 
     python3 scripts/bench_paged_attn.py [--root DIR] [--label NAME] [--iters 50]
+        [--pages-per-split N]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts compare in one call: run it once per checkout, in turns.  At
@@ -19,6 +20,10 @@ times, cold L2) of four patterns:
   tokens: the padding rows have no valid key;
 - ``idle``: ``mixed`` with the last request idle (positions -1, a table
   of null pages only).
+
+``--pages-per-split`` sets the tensor-core kernel's split width
+(``paged_attn.TC_PAGES_PER_SPLIT``) for this run, to measure the choice;
+a checkout without that kernel refuses it.
 """
 
 import argparse
@@ -32,6 +37,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--pages-per-split", type=int, default=None)
     args = ap.parse_args()
     import torch
 
@@ -42,6 +48,11 @@ def main():
     from repro_torch.core import quant
     from repro_torch.kernels import paged_attn
 
+    if args.pages_per_split is not None:
+        if not hasattr(paged_attn, "TC_PAGES_PER_SPLIT"):
+            print("bench_paged_attn: this checkout has no tensor-core kernel", file=sys.stderr)
+            return 2
+        paged_attn.TC_PAGES_PER_SPLIT = args.pages_per_split
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn):

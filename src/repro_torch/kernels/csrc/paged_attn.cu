@@ -1,5 +1,9 @@
 // Fused paged attention for Hopper (sm_90a): GQA mode and MLA's latent mode.
 //
+// Two kernels.  Every bf16 GQA call (bf16 q and output, int8 or bf16
+// pages) runs paged_attn_tc_kernel on the tensor cores; MLA's latent mode
+// and f32 calls run the scalar paged_attn_kernel until their own redesign.
+//
 // Replaces the Pallas TPU kernel
 //   repro/kernels/paged_attn.py::paged_attn_fused  (_paged_attn_kernel)
 // and computes its plain version kernels/ref.py::paged_attn_ref: for each
@@ -25,9 +29,38 @@
 // window of its request once, and at serving shapes (S * G <= 64 rows per
 // KV head, head_dim 128) that is about 2 * S * G operations per KV byte:
 // far below the card's operations-per-byte balance, so the bound is the
-// bytes of the int8 pages, scales and slot positions (3.35 TB/s).
+// bytes of the int8 pages, scales and slot positions (3.35 TB/s).  At
+// serving sizes those bytes are a few MB a call, microseconds at that
+// rate; what a block waits on in practice is the latency of each page's
+// load, page after page, and the launch.
 //
-// What the design does about it.  The dense window is never materialized:
+// The tensor-core kernel (bf16 GQA).  One block per (request, KV head,
+// page split, up to 64 query rows); one warp per 16-row m-tile (a decode
+// step's G rows pad one tile: padding rows compute and are never
+// written).  S = Q K^T and acc += P V are mma.sync.m16n8k16 bf16 products
+// with f32 accumulators; q comes once into shared memory, K's B fragments
+// by ldmatrix and V's by ldmatrix.trans out of bf16 tiles whose rows are
+// padded by 16 bytes (conflict-free ldmatrix).  The statistics (m, l) and
+// acc stay in registers, row max and row sum by quad shuffles, and the
+// f32 S fragment, exponentiated and rounded to bf16, is the A operand of
+// the P V product as it stands: the plain version's "probabilities cast to
+// the value dtype before P @ V".  Pages come through a two-stage cp.async
+// ring: the next page's K/V rows (16-byte copies; int8 V rows of a width
+// that is not a multiple of 16 in 8-byte ones) and scales are in flight
+// while the current page is dequantized and multiplied.  int8 pages land
+// raw and dequantize from shared memory into the bf16 tile exactly as the
+// scalar kernel does, round_bf16(f32(q) * scale).  The slot positions of
+// the block's whole page split are read first, so only pages with a
+// valid slot enter the ring.  Slot-less pages add their summed v to the
+// rows that have seen no valid key (m == NEG_INF) after the ring, in the
+// thread's own register fragments; for every other row they add exactly
+// nothing, in whatever order.  Splits have a fixed width of pages, so a
+// row's bits never depend on B, S, q_pos or its co-batch; a call with one
+// split writes the output itself, with no workspace and no combine
+// launch.  Shapes: Dk % 16 == 0, Dv % 8 == 0 and <= 128, PS % 8 == 0 and
+// <= 64, G <= 64; the C entry refuses others.
+//
+// The scalar kernel (latent mode, f32).  The dense window is never materialized:
 // a block loads each page of its share once into shared memory and serves
 // up to 64 query rows of one (request, KV head) from it (a third grid
 // dimension takes longer chunks, so shared memory stays bounded).  The
@@ -51,12 +84,14 @@
 // acc += the sum of the page's v rows, in the order the general path
 // adds them.  Only v is read, and a run of one such page (the null page
 // that pads a table's tail) is read once and weighted by its length.
-// Still simple: scalar FMAs instead of tensor cores and no cp.async
-// double buffering.
+// The scalar kernel is thread-per-output FMAs out of f32 shared memory,
+// with synchronous loads: latent mode and f32 stay on it until their PR.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -332,20 +367,551 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel: bf16 GQA.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_NS_MAX = 8;    // PS <= 64: n-tiles of 8 slots in the S fragment
+constexpr int TC_MAX_PPS = 32;  // pages of a split: one warp ballots them
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Byte offsets of the tensor-core kernel's dynamic shared memory.  bf16
+// pages: two stages of K and V tiles.  int8 pages: two stages of raw rows
+// and scales, dequantized into one K and one V tile.  Tile rows are padded
+// by 8 bf16 (16 bytes); V tiles have PS rounded up to 16 rows, the extra
+// rows zero.
+struct TcLayout {
+  size_t q, kt, vt, kraw, vraw, ks, vs, pos, pid, flag, vlist, vsum, total;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int rows16, int Dk, int Dv, int PS, int pps,
+                                              bool int8) {
+  TcLayout L;
+  const size_t ps16 = (size_t)(PS + 15) / 16 * 16, tiles = int8 ? 1 : 2;
+  size_t o = 0;
+  L.q = o;     o = align16(o + (size_t)rows16 * (Dk + 8) * sizeof(bf16));
+  L.kt = o;    o = align16(o + tiles * PS * (Dk + 8) * sizeof(bf16));
+  L.vt = o;    o = align16(o + tiles * ps16 * (Dv + 8) * sizeof(bf16));
+  L.kraw = o;  o = align16(o + (int8 ? 2 * (size_t)PS * Dk : 0));
+  L.vraw = o;  o = align16(o + (int8 ? 2 * (size_t)PS * Dv : 0));
+  L.ks = o;    o = align16(o + (int8 ? 2 * (size_t)PS * sizeof(float) : 0));
+  L.vs = o;    o = align16(o + (int8 ? 2 * (size_t)PS * sizeof(float) : 0));
+  L.pos = o;   o = align16(o + (size_t)pps * PS * sizeof(int32_t));
+  L.pid = o;   o = align16(o + (size_t)pps * sizeof(int32_t));
+  L.flag = o;  o = align16(o + (size_t)pps * sizeof(int32_t));
+  L.vlist = o; o = align16(o + (size_t)pps * sizeof(int32_t));
+  L.vsum = o;  o = align16(o + (size_t)Dv * sizeof(float));
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
+  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
+}
+
+// Issue the copies of one page's K/V rows (and, for int8, its scales)
+// into ring stage `st`.  bf16 rows go straight into the padded tiles;
+// int8 rows land raw.
+template <typename KT>
+__device__ __forceinline__ void tc_issue_page(
+    const KT* __restrict__ k_pages, const KT* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, int pid, int st,
+    int PS, int Dk, int Dv, int kvd_k, int kvd_v, int kvh, bf16* kt_s, bf16* vt_s,
+    int8_t* kraw_s, int8_t* vraw_s, float* ks_s, float* vs_s) {
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)pid * PS;
+  if constexpr (std::is_same<KT, int8_t>::value) {
+    const int kc = Dk / 16;
+    int8_t* kr = kraw_s + (size_t)st * PS * Dk;
+    for (int i = tid; i < PS * kc; i += THREADS) {
+      const int sl = i / kc, c = i % kc;
+      cp_async16(kr + sl * Dk + c * 16, k_pages + (row0 + sl) * kvd_k + (size_t)kvh * Dk + c * 16);
+    }
+    int8_t* vr = vraw_s + (size_t)st * PS * Dv;
+    if (Dv % 16 == 0) {
+      const int vc = Dv / 16;
+      for (int i = tid; i < PS * vc; i += THREADS) {
+        const int sl = i / vc, c = i % vc;
+        cp_async16(vr + sl * Dv + c * 16, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 16);
+      }
+    } else {
+      const int vc = Dv / 8;
+      for (int i = tid; i < PS * vc; i += THREADS) {
+        const int sl = i / vc, c = i % vc;
+        cp_async8(vr + sl * Dv + c * 8, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 8);
+      }
+    }
+    for (int i = tid; i < PS / 4; i += THREADS) {
+      cp_async16(ks_s + st * PS + i * 4, k_scale + row0 + i * 4);
+      cp_async16(vs_s + st * PS + i * 4, v_scale + row0 + i * 4);
+    }
+  } else {
+    const int DkP = Dk + 8, DvP = Dv + 8, ps16 = (PS + 15) / 16 * 16;
+    const int kc = Dk / 8, vc = Dv / 8;
+    bf16* kt = kt_s + (size_t)st * PS * DkP;
+    bf16* vt = vt_s + (size_t)st * ps16 * DvP;
+    for (int i = tid; i < PS * kc; i += THREADS) {
+      const int sl = i / kc, c = i % kc;
+      cp_async16(kt + sl * DkP + c * 8, k_pages + (row0 + sl) * kvd_k + (size_t)kvh * Dk + c * 8);
+    }
+    for (int i = tid; i < PS * vc; i += THREADS) {
+      const int sl = i / vc, c = i % vc;
+      cp_async16(vt + sl * DvP + c * 8, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 8);
+    }
+  }
+  cp_commit();
+}
+
+// int8 rows of ring stage `st` -> bf16 tile rows: round_bf16(f32(q) * scale),
+// the scalar kernel's dequantization, 8 values a thread at a time.
+__device__ __forceinline__ void tc_dequant(const int8_t* raw, const float* scl, bf16* tile,
+                                           int PS, int D) {
+  const int c8 = D / 8, DP = D + 8;
+  for (int i = threadIdx.x; i < PS * c8; i += THREADS) {
+    const int sl = i / c8, c = i % c8;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + sl * D + c * 8);
+    const float s = scl[sl];
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t word = j < 2 ? w.x : w.y;
+      const int sh = (j % 2) * 16;
+      const float lo = (float)(int8_t)(word >> sh) * s;
+      const float hi = (float)(int8_t)(word >> (sh + 8)) * s;
+      o[j] = pack_bf16(lo, hi);
+    }
+    *reinterpret_cast<uint4*>(tile + sl * DP + c * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// KT: page storage (int8_t with scale planes, or bf16); NVT: n-tiles of 8
+// output features the accumulator holds (Dv <= 8 * NVT).
+template <typename KT, int NVT>
+__global__ void __launch_bounds__(THREADS)
+paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
+                     const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int32_t* __restrict__ pos_tbl,
+                     const int32_t* __restrict__ page_tables, const int32_t* __restrict__ q_pos,
+                     float* __restrict__ ws, bf16* __restrict__ out, int S, int H, int KV,
+                     int Dk, int Dv, int PS, int P, int pps, int s_blk, int window,
+                     float scale) {
+  constexpr bool INT8 = std::is_same<KT, int8_t>::value;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int G = H / KV, SGALL = S * G;
+  const int s_lo = blockIdx.z * s_blk;
+  const int SG = (min(S, s_lo + s_blk) - s_lo) * G;
+  const int rows16 = (min(S, s_blk) * G + 15) / 16 * 16;
+  const int p0 = blockIdx.y * pps, np = min(P, p0 + pps) - p0;
+  const int DkP = Dk + 8, DvP = Dv + 8, ps16 = (PS + 15) / 16 * 16;
+  const int kvd_k = KV * Dk, kvd_v = KV * Dv;
+  const TcLayout L = tc_layout(rows16, Dk, Dv, PS, pps, INT8);
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem + L.q);
+  bf16* kt_s = reinterpret_cast<bf16*>(tc_smem + L.kt);
+  bf16* vt_s = reinterpret_cast<bf16*>(tc_smem + L.vt);
+  int8_t* kraw_s = reinterpret_cast<int8_t*>(tc_smem + L.kraw);
+  int8_t* vraw_s = reinterpret_cast<int8_t*>(tc_smem + L.vraw);
+  float* ks_s = reinterpret_cast<float*>(tc_smem + L.ks);
+  float* vs_s = reinterpret_cast<float*>(tc_smem + L.vs);
+  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);      // [pps][PS]
+  int32_t* pid_s = reinterpret_cast<int32_t*>(tc_smem + L.pid);      // [pps]
+  int32_t* flag_s = reinterpret_cast<int32_t*>(tc_smem + L.flag);    // [pps] page has a slot
+  int32_t* vlist_s = reinterpret_cast<int32_t*>(tc_smem + L.vlist);  // pages with a slot
+  float* vsum_s = reinterpret_cast<float*>(tc_smem + L.vsum);        // [Dv]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  __shared__ int walk_all, n_valid;
+
+  // q rows -> shared memory (one cp.async group); rows past SG are zero
+  const int qc = Dk / 8;
+  for (int i = tid; i < rows16 * qc; i += THREADS) {
+    const int r = i / qc, c = i % qc;
+    bf16* dst = q_s + r * DkP + c * 8;
+    if (r < SG) {
+      const int s = s_lo + r / G, g = r % G;
+      cp_async16(dst, q + (((size_t)b * S + s) * H + kvh * G + g) * Dk + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  cp_commit();
+  // the V tiles' rows past PS stay zero: a half-filled 16-slot chunk adds 0
+  for (int t = 0; t < (INT8 ? 1 : 2); ++t)
+    for (int i = tid; i < (ps16 - PS) * DvP; i += THREADS)
+      vt_s[(size_t)t * ps16 * DvP + PS * DvP + i] = __float2bfloat16_rn(0.0f);
+  // the split's page ids and slot positions, read ahead of the ring
+  for (int i = tid; i < np * PS; i += THREADS) {
+    const int p = i / PS, sl = i % PS;
+    const int pid = page_tables[(size_t)b * P + p0 + p];
+    pos_s[i] = pos_tbl[(size_t)pid * PS + sl];
+    if (sl == 0) pid_s[p] = pid;
+  }
+  // does a query token of this block have no valid key in its whole
+  // table?  (the scalar kernel's scan)
+  if (tid == 0) walk_all = 0;
+  __syncthreads();
+  for (int t = tid; t < SG / G; t += THREADS) {
+    const int qp = q_pos[(size_t)b * S + s_lo + t];
+    bool live = false;
+    for (int p = 0; qp >= 0 && p < P && !live; ++p) {
+      const int pid = page_tables[(size_t)b * P + p];
+      for (int sl = 0; sl < PS && !live; ++sl)
+        live = key_valid(pos_tbl[(size_t)pid * PS + sl], qp, window);
+    }
+    if (!live) walk_all = 1;
+  }
+  if (warp == 0) {  // compact the pages with a slot, in table order
+    bool any = false;
+    if (lane < np)
+      for (int sl = 0; sl < PS; ++sl) any |= pos_s[lane * PS + sl] >= 0;
+    const unsigned m = __ballot_sync(0xffffffffu, any);
+    if (lane < np) flag_s[lane] = any;
+    if (any) vlist_s[__popc(m & ((1u << lane) - 1u))] = lane;
+    if (lane == 0) n_valid = __popc(m);
+  }
+  __syncthreads();
+  const int nv = n_valid;
+
+  // this thread's rows of its warp's m-tile: g and g + 8
+  const int gq = lane / 4, tig = lane % 4;
+  const int r0 = warp * 16 + gq, r1 = r0 + 8;
+  const bool active = warp * 16 < SG;
+  const int qp0 = r0 < SG ? q_pos[(size_t)b * S + s_lo + r0 / G] : -1;
+  const int qp1 = r1 < SG ? q_pos[(size_t)b * S + s_lo + r1 / G] : -1;
+  const int ns = PS / 8, nvt = Dv / 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  float acc[NVT][4];
+#pragma unroll
+  for (int j = 0; j < NVT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  if (nv > 0)
+    tc_issue_page<KT>(k_pages, v_pages, k_scale, v_scale, pid_s[vlist_s[0]], 0, PS, Dk, Dv,
+                      kvd_k, kvd_v, kvh, kt_s, vt_s, kraw_s, vraw_s, ks_s, vs_s);
+  for (int i = 0; i < nv; ++i) {
+    const int st = i & 1;
+    cp_wait_all();    // page i (and, first, q) landed
+    __syncthreads();  // ... for every thread; page i - 1 fully consumed
+    if (i + 1 < nv)
+      tc_issue_page<KT>(k_pages, v_pages, k_scale, v_scale, pid_s[vlist_s[i + 1]], st ^ 1, PS,
+                        Dk, Dv, kvd_k, kvd_v, kvh, kt_s, vt_s, kraw_s, vraw_s, ks_s, vs_s);
+    const bf16* kt;
+    const bf16* vt;
+    if constexpr (INT8) {
+      tc_dequant(kraw_s + (size_t)st * PS * Dk, ks_s + st * PS, kt_s, PS, Dk);
+      tc_dequant(vraw_s + (size_t)st * PS * Dv, vs_s + st * PS, vt_s, PS, Dv);
+      __syncthreads();
+      kt = kt_s;
+      vt = vt_s;
+    } else {
+      kt = kt_s + (size_t)st * PS * DkP;
+      vt = vt_s + (size_t)st * ps16 * DvP;
+    }
+    if (!active) continue;
+    const int32_t* pos = pos_s + vlist_s[i] * PS;
+
+    // S = Q K^T: A from q's rows, B = K rows (ldmatrix: K^T's columns)
+    float sc[TC_NS_MAX][4];
+#pragma unroll
+    for (int j = 0; j < TC_NS_MAX; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    const bf16* qa = q_s + (warp * 16 + lane % 8 + ((lane / 8) % 2) * 8) * DkP + (lane / 16) * 8;
+    const bf16* kb = kt + (lane % 8 + (lane / 16) * 8) * DkP + ((lane / 8) % 2) * 8;
+    for (int kk = 0; kk < Dk; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, qa + kk);
+#pragma unroll
+      for (int j = 0; j < TC_NS_MAX; j += 2) {
+        uint32_t bb[4];
+        if (j + 1 < ns) {
+          ldsm_x4(bb, kb + j * 8 * DkP + kk);
+          mma_bf16(sc[j], a, bb[0], bb[1]);
+          mma_bf16(sc[j + 1], a, bb[2], bb[3]);
+        } else if (j < ns) {
+          ldsm_x2(bb, kb + j * 8 * DkP + kk);
+          mma_bf16(sc[j], a, bb[0], bb[1]);
+        }
+      }
+    }
+
+    // logits = dot * scale + bias; online softmax over the page, per row
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < TC_NS_MAX; ++j) {
+      if (j < ns) {
+        const int ka = pos[j * 8 + 2 * tig], kb2 = pos[j * 8 + 2 * tig + 1];
+        sc[j][0] = sc[j][0] * scale + (key_valid(ka, qp0, window) ? 0.0f : NEG_INF);
+        sc[j][1] = sc[j][1] * scale + (key_valid(kb2, qp0, window) ? 0.0f : NEG_INF);
+        sc[j][2] = sc[j][2] * scale + (key_valid(ka, qp1, window) ? 0.0f : NEG_INF);
+        sc[j][3] = sc[j][3] * scale + (key_valid(kb2, qp1, window) ? 0.0f : NEG_INF);
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < TC_NS_MAX; ++j) {
+      if (j < ns) {
+        sc[j][0] = expf(sc[j][0] - mn0);
+        sc[j][1] = expf(sc[j][1] - mn0);
+        sc[j][2] = expf(sc[j][2] - mn1);
+        sc[j][3] = expf(sc[j][3] - mn1);
+        sum0 += sc[j][0] + sc[j][1];
+        sum1 += sc[j][2] + sc[j][3];
+      }
+    }
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    l0 = al0 * l0 + sum0;
+    l1 = al1 * l1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < NVT; ++j) {
+      acc[j][0] *= al0;
+      acc[j][1] *= al0;
+      acc[j][2] *= al1;
+      acc[j][3] *= al1;
+    }
+
+    // acc += P V: the bf16-rounded S fragment is P's A fragment as it stands
+    const bf16* vb = vt + (lane % 8 + ((lane / 8) % 2) * 8) * DvP + (lane / 16) * 8;
+#pragma unroll
+    for (int kc = 0; kc < TC_NS_MAX / 2; ++kc) {
+      if (2 * kc < ns) {
+        uint32_t a[4];
+        a[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+        a[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+        a[2] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]) : 0u;
+        a[3] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]) : 0u;
+#pragma unroll
+        for (int j = 0; j < NVT; j += 2) {
+          uint32_t bb[4];
+          if (j + 1 < nvt) {
+            ldsm_x4_t(bb, vb + kc * 16 * DvP + j * 8);
+            mma_bf16(acc[j], a, bb[0], bb[1]);
+            mma_bf16(acc[j + 1], a, bb[2], bb[3]);
+          } else if (j < nvt) {
+            ldsm_x2_t(bb, vb + kc * 16 * DvP + j * 8);
+            mma_bf16(acc[j], a, bb[0], bb[1]);
+          }
+        }
+      }
+    }
+  }
+  cp_wait_all();  // nothing in flight at exit (q's group when no page has a slot)
+
+  // slot-less pages: every logit NEG_INF exactly, so only rows that have
+  // seen no valid key gain: l += PS and acc += the page's v rows summed in
+  // slot order, per page; a run of one page is read once
+  if (walk_all && nv < np) {  // uniform across the block
+    const size_t voff = (size_t)kvh * Dv;
+    for (int d = tid; d < Dv; d += THREADS) {
+      float tot = 0.0f;
+      for (int p = 0; p < np;) {
+        if (flag_s[p]) {
+          ++p;
+          continue;
+        }
+        const int pid = pid_s[p];
+        int reps = 1;
+        while (p + reps < np && pid_s[p + reps] == pid) ++reps;
+        float sum = 0.0f;
+        for (int sl = 0; sl < PS; ++sl) {
+          const size_t row = (size_t)pid * PS + sl;
+          float v = to_f(v_pages[row * kvd_v + voff + d]);
+          if constexpr (INT8) v = round_c(v * v_scale[row], (bf16*)nullptr);
+          sum += v;
+        }
+        tot += reps * sum;
+        p += reps;
+      }
+      vsum_s[d] = tot;
+    }
+    __syncthreads();
+    const float add_l = (float)((np - nv) * PS);
+#pragma unroll
+    for (int j = 0; j < NVT; ++j) {
+      if (j < nvt && active) {
+        const float v0 = vsum_s[j * 8 + 2 * tig], v1 = vsum_s[j * 8 + 2 * tig + 1];
+        if (m0 == NEG_INF) {
+          acc[j][0] += v0;
+          acc[j][1] += v1;
+        }
+        if (m1 == NEG_INF) {
+          acc[j][2] += v0;
+          acc[j][3] += v1;
+        }
+      }
+    }
+    if (m0 == NEG_INF) l0 += add_l;
+    if (m1 == NEG_INF) l1 += add_l;
+  }
+  if (!active) return;
+
+  // one split: the output itself, acc / max(l, 1e-30) as the combine
+  // kernel computes it; else this split's partial (acc [S*G][Dv], then m
+  // [S*G], then l [S*G]) for the combine kernel
+  const int rows[2] = {r0, r1};
+  const float ls[2] = {l0, l1}, ms[2] = {m0, m1};
+  float* w = ws + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * SGALL * (Dv + 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rows[h];
+    if (r >= SG) continue;
+    const int rr = s_lo * G + r;  // row among the (request, KV head)'s S * G
+    if (gridDim.y == 1) {
+      const int s = s_lo + r / G, g = r % G;
+      bf16* o = out + (((size_t)b * S + s) * H + kvh * G + g) * Dv;
+      const float lden = fmaxf(ls[h], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < NVT; ++j)
+        if (j < nvt)
+          *reinterpret_cast<uint32_t*>(o + j * 8 + 2 * tig) =
+              pack_bf16(acc[j][2 * h] / lden, acc[j][2 * h + 1] / lden);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NVT; ++j)
+        if (j < nvt)
+          *reinterpret_cast<float2*>(w + (size_t)rr * Dv + j * 8 + 2 * tig) =
+              make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (tig == 0) {
+        w[(size_t)SGALL * Dv + rr] = ms[h];
+        w[(size_t)SGALL * Dv + SGALL + rr] = ls[h];
+      }
+    }
+  }
+}
+
+size_t tc_smem_bytes(int S, int G, int Dk, int Dv, int PS, int pps, int kv_int8) {
+  const int rows16 = ((S < s_block(G) ? S : s_block(G)) * G + 15) / 16 * 16;
+  return tc_layout(rows16, Dk, Dv, PS, pps, kv_int8 != 0).total;
+}
+
+bool tc_shape_ok(int G, int Dk, int Dv, int PS, int pps) {
+  return Dk > 0 && Dk % 16 == 0 && Dv > 0 && Dv % 8 == 0 && Dv <= 128 && PS % 8 == 0 &&
+         PS <= 8 * TC_NS_MAX && G <= ROWS && pps <= TC_MAX_PPS;
+}
+
+template <typename KT, int NVT>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int32_t* pos, const int32_t* tables,
+                      const int32_t* qpos, float* ws, void* out, int B, int S, int H, int KV,
+                      int Dk, int Dv, int PS, int P, int pps, int window, float scale,
+                      cudaStream_t stream) {
+  const int G = H / KV;
+  const size_t smem = tc_smem_bytes(S, G, Dk, Dv, PS, pps, std::is_same<KT, int8_t>::value);
+  cudaError_t err = cudaFuncSetAttribute(paged_attn_tc_kernel<KT, NVT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nsplit = (P + pps - 1) / pps;
+  const int s_blk = s_block(G);
+  const int nrow = (S + s_blk - 1) / s_blk;
+  paged_attn_tc_kernel<KT, NVT><<<dim3(B * KV, nsplit, nrow), THREADS, smem, stream>>>(
+      (const bf16*)q, (const KT*)k, (const KT*)v, ks, vs, pos, tables, qpos, ws, (bf16*)out,
+      S, H, KV, Dk, Dv, PS, P, pps, s_blk, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  const size_t total = (size_t)B * KV * S * G * Dv;
+  paged_attn_combine<bf16><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      ws, (bf16*)out, B, S, H, KV, Dv, nsplit);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory the kernel needs for these shapes: at most ROWS
-// query rows per block (the wrapper refuses shapes above 227 KB).
+// Dynamic shared memory the scalar kernel needs for these shapes: at most
+// ROWS query rows per block (the wrapper refuses shapes above 227 KB).
 extern "C" size_t paged_attn_smem_bytes(int S, int G, int Dk, int Dv, int PS, int latent) {
   return smem_bytes(S, G, Dk, Dv, PS, latent);
+}
+
+// The tensor-core kernel's dynamic shared memory for these shapes, or 0
+// for a shape it does not take (see paged_attn).
+extern "C" size_t paged_attn_tc_smem_bytes(int S, int G, int Dk, int Dv, int PS,
+                                           int pages_per_split, int kv_int8) {
+  if (!tc_shape_ok(G, Dk, Dv, PS, pages_per_split)) return 0;
+  return tc_smem_bytes(S, G, Dk, Dv, PS, pages_per_split, kv_int8);
 }
 
 // C entry point, bound with ctypes (kernels/paged_attn.py).  kv_int8
 // selects int8 pages with k_scale/v_scale planes (latent: k_scale only);
 // c_bf16 selects bf16 (else f32) for q, native pages and the output.
 // window <= 0 means no sliding window.  latent != 0 is MLA's latent mode:
-// KV == 1, Dv <= Dk, v_pages and v_scale unread (may be NULL).  ws is f32 scratch of B*KV*ceil(P/pages_per_split)*S*G*(Dv+2)
-// floats for the splits' partial statistics.  Returns cudaGetLastError().
+// KV == 1, Dv <= Dk, v_pages and v_scale unread (may be NULL).
+// bf16 GQA (c_bf16 && !latent) runs the tensor-core kernel, which takes
+// Dk % 16 == 0, Dv % 8 == 0 with Dv <= 128, PS % 8 == 0 with PS <= 64,
+// G = H / KV <= 64 and pages_per_split <= 32, and 16-byte aligned
+// operands; other bf16 GQA shapes return cudaErrorInvalidValue.  Latent
+// and f32 calls run the scalar kernel.  ws is f32 scratch of
+// B*KV*ceil(P/pages_per_split)*S*G*(Dv+2) floats for the splits' partial
+// statistics (NULL is allowed for a tensor-core call with one split).
+// Returns cudaGetLastError().
 extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_pages,
                           const void* k_scale, const void* v_scale, const void* pos_tbl,
                           const void* page_tables, const void* q_pos, void* ws, void* out,
@@ -362,6 +928,22 @@ extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_page
   const int32_t* pos = (const int32_t*)pos_tbl;
   const int32_t* tab = (const int32_t*)page_tables;
   const int32_t* qp = (const int32_t*)q_pos;
+  if (c_bf16 && !latent) {
+    if (!tc_shape_ok(H / KV, Dk, Dv, PS, pages_per_split)) return (int)cudaErrorInvalidValue;
+#define TC_ARGS(KS, VS)                                                          \
+  q, k_pages, v_pages, KS, VS, pos, tab, qp, w, out, B, S, H, KV, Dk, Dv, PS, P, \
+      pages_per_split, window, scale, st
+    cudaError_t err;
+    if (kv_int8) {
+      err = Dv <= 64 ? launch_tc<int8_t, 8>(TC_ARGS(ks, vs))
+                     : launch_tc<int8_t, 16>(TC_ARGS(ks, vs));
+    } else {
+      err = Dv <= 64 ? launch_tc<bf16, 8>(TC_ARGS(nullptr, nullptr))
+                     : launch_tc<bf16, 16>(TC_ARGS(nullptr, nullptr));
+    }
+#undef TC_ARGS
+    return (int)err;
+  }
 #define PA_ARGS(KS, VS)                                                            \
   q, k_pages, v_pages, KS, VS, pos, tab, qp, w, out, B, S, H, KV, Dk, Dv, PS, P,   \
       pages_per_split, window, latent, scale, st

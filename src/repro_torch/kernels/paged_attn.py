@@ -8,6 +8,13 @@ latent mode (``PAGED_ATTN_LATENT``: ``kv_heads=1``, the page holds the
 ``(c_kv ‖ k_rope)`` latent and v is its first ``latent_dv`` features, so
 the v pages are never read).  The plain version is
 ``kernels/ref.py::paged_attn_ref``.
+
+Every bf16 GQA call runs the tensor-core kernel (``mma.sync`` bf16 for
+Q K^T and P V, a two-stage ``cp.async`` page ring), counted in
+``PAGED_ATTN`` and also in ``PAGED_ATTN_TC``; it takes ``Dk % 16 == 0``,
+``Dv % 8 == 0`` (at most 128), ``PS % 8 == 0`` (at most 64) and at most
+64 query heads per KV head, and raises on other bf16 GQA shapes.  The
+latent mode and f32 calls run the scalar kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +29,13 @@ from repro_torch.kernels import native
 
 PAGED_ATTN = native.Counter()  # kernel #6, GQA mode
 PAGED_ATTN_LATENT = native.Counter()  # kernel #6, MLA latent mode
+PAGED_ATTN_TC = native.Counter()  # the tensor-core kernel's share of PAGED_ATTN
 
 # pages one block walks; the rest of a request's table goes to more blocks
-# whose partial softmax statistics a second kernel merges
-PAGES_PER_SPLIT = 4
+# whose partial softmax statistics a second kernel merges.  A fixed width,
+# so a row's bits never depend on the batch, its length or the co-batch.
+PAGES_PER_SPLIT = 4  # the scalar kernel (latent mode, f32)
+TC_PAGES_PER_SPLIT = 8  # the tensor-core kernel (bf16 GQA); at most 32
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
@@ -42,8 +52,25 @@ def _entries():
         smem = lib.paged_attn_smem_bytes
         smem.argtypes = [I] * 6
         smem.restype = ctypes.c_size_t
-        _fns = (fn, smem)
+        tc_smem = lib.paged_attn_tc_smem_bytes
+        tc_smem.argtypes = [I] * 7
+        tc_smem.restype = ctypes.c_size_t
+        _fns = (fn, smem, tc_smem)
     return _fns
+
+
+def tc_shape_error(g: int, dk: int, dv: int, ps: int) -> Optional[str]:
+    """Why the tensor-core kernel does not take a bf16 GQA call of these
+    shapes (``g`` query heads per KV head), or None when it does."""
+    if dk % 16:
+        return f"head dim Dk={dk} is not a multiple of 16"
+    if dv % 8 or dv > 128:
+        return f"value dim Dv={dv} is not a multiple of 8 up to 128"
+    if ps % 8 or ps > 64:
+        return f"page size PS={ps} is not a multiple of 8 up to 64"
+    if g > 64:
+        return f"{g} query heads per KV head exceed 64"
+    return None
 
 
 def paged_attn_cuda(
@@ -106,23 +133,39 @@ def paged_attn_cuda(
         native.cuda_arg(q_pos, "q_pos", torch.int32, (b, s)),
     ]
     g = h // kv_heads
-    fn, smem = _entries()
-    need = smem(s, g, dk, dv, ps, int(latent))
+    tc = q.dtype == torch.bfloat16 and not latent
+    if tc:
+        why = tc_shape_error(g, dk, dv, ps)
+        if why is None and any(a % 16 for a in args[:5] if a is not None):  # cp.async sources
+            why = "q, a page pool or a scale plane is not 16-byte aligned"
+        if why is not None:
+            raise ValueError(f"bf16 GQA paged attention (tensor-core kernel): {why}")
+    fn, smem, tc_smem = _entries()
+    if tc:
+        pps = TC_PAGES_PER_SPLIT
+        need = tc_smem(s, g, dk, dv, ps, pps, int(kv_int8))
+    else:
+        pps = PAGES_PER_SPLIT
+        need = smem(s, g, dk, dv, ps, int(latent))
     if need > SMEM_LIMIT:
         raise ValueError(
             f"paged attention needs {need} B of shared memory for S={s}, G={g}, "
             f"Dk={dk}, Dv={dv}, PS={ps}; one block has {SMEM_LIMIT}"
         )
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
-    n_split = -(-p_cnt // PAGES_PER_SPLIT)
-    ws = torch.empty((b * kv_heads * n_split * s * g * (dv + 2),), dtype=torch.float32,
-                     device=q.device)
+    n_split = -(-p_cnt // pps)
+    ws = None
+    if n_split > 1 or not tc:  # one tensor-core split writes the output itself
+        ws = torch.empty((b * kv_heads * n_split * s * g * (dv + 2),), dtype=torch.float32,
+                         device=q.device)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dk)
     err = fn(
-        *args, ws.data_ptr(), out.data_ptr(), b, s, h, kv_heads, dk, dv, ps, p_cnt,
-        PAGES_PER_SPLIT, -1 if window is None else int(window), int(latent), float(scale),
+        *args, None if ws is None else ws.data_ptr(), out.data_ptr(), b, s, h, kv_heads, dk,
+        dv, ps, p_cnt, pps, -1 if window is None else int(window), int(latent), float(scale),
         int(kv_int8), _COMPUTE[q.dtype], native.stream_ptr(q.device),
     )
     native.check(err, "paged_attn")
     (PAGED_ATTN_LATENT if latent else PAGED_ATTN).launches += 1
+    if tc:
+        PAGED_ATTN_TC.launches += 1
     return out

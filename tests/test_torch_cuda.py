@@ -13,8 +13,11 @@ the native-wire matmuls are held to 1e-5 of the largest output in f32
 (f32 sums in another order than the plain version's float64), and in
 bf16 to that plus one bf16 ulp of the larger output (an f32 difference
 can straddle a bf16 rounding); paged attention in f32 is held to 1e-5, the reference's
-kernel-vs-oracle bound, on every row (rows with no valid key included);
-DAP (#5) is selection and is held bit for bit."""
+kernel-vs-oracle bound, on every row (rows with no valid key included),
+and in bf16 (the tensor-core kernel) to 1.6e-2 absolute, two bf16 ulps
+at 1, as ``chip_smoke.py`` holds it: the sums run in another order than
+the plain version's, which can straddle a bf16 rounding of a probability
+or of the output; DAP (#5) is selection and is held bit for bit."""
 
 import math
 
@@ -86,6 +89,97 @@ def test_paged_attn_kernel_f32(cuda, s, int8):
         got = paged_attn.paged_attn_cuda(q, k_q, v_q, pos, tables, q_pos, **kw)
         want = ref.paged_attn_ref(q, k_q, v_q, pos, tables, q_pos, **kw)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _tc_case(gen, b, s, g, d, kv, int8, p_cnt, ps=16):
+    """bf16 GQA operands at a serving head shape: request 0 cached 70
+    tokens over pages 1..5 (its last page half full), request 1 cached 9
+    over page 6 plus a scrubbed page 7, request 2 is idle (positions -1
+    over the null page 0) and request 3 cached 40 over pages 8..10; every
+    table is null-padded to ``p_cnt`` pages, so a null run crosses split
+    boundaries.  Query rows are the last ``s`` tokens, those before the
+    first cached one padding (-1); request 1 also pads its last rows."""
+    n_pages = 12
+    k_f = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
+    v_f = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
+    kw = dict(kv_heads=kv)
+    if int8:
+        (k, k_s), (v, v_s) = quant.quantize_rows(k_f), quant.quantize_rows(v_f)
+        kw.update(k_scale=k_s, v_scale=v_s)
+    else:
+        k, v = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
+    pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((4, p_cnt), dtype=torch.int32, device="cuda")
+    for i, (t, pages) in enumerate(((70, [1, 2, 3, 4, 5]), (9, [6, 7]), (0, []),
+                                    (40, [8, 9, 10]))):
+        for j, page in enumerate(pages):
+            p = torch.arange(j * ps, (j + 1) * ps, device="cuda")
+            pos[page] = torch.where(p < t, p, -1).to(torch.int32)
+        if pages:
+            tables[i, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    q_pos = torch.full((4, s), -1, dtype=torch.int32, device="cuda")
+    for i, t in enumerate((70, 9, 0, 40)):
+        n = min(s, t) if i != 1 else min(s, t, max(1, s - 2))
+        q_pos[i, :n] = torch.arange(t - n, t, dtype=torch.int32, device="cuda")
+    q = torch.randn((4, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    return q[:b], k, v, pos, tables[:b], q_pos[:b], kw
+
+
+@pytest.mark.parametrize("g,d", [(4, 128), (2, 64)], ids=["granite", "granite_moe"])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16, 20])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_paged_attn_tc_kernel_bf16(cuda, g, d, int8, s, splits):
+    """#6's tensor-core kernel (bf16 GQA) against the plain version at
+    granite-3-8b's and granite-moe-1b-a400m's head shapes: decode, a whole
+    chunk and a chunk over 64 rows (two row blocks), padding rows, an idle
+    row over the null page, a scrubbed page, window None and 4, with one
+    split (the output written directly) and with three (the combine)."""
+    pps = paged_attn.TC_PAGES_PER_SPLIT
+    p_cnt = max(6, pps) if splits == 1 else 2 * pps + 3
+    q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, g, d, 8, int8, p_cnt)
+    for window in (None, 4):
+        before = paged_attn.PAGED_ATTN_TC.launches
+        got = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, window=window, **kw)
+        assert paged_attn.PAGED_ATTN_TC.launches == before + 1
+        want = ref.paged_attn_ref(q, k, v, pos, tables, q_pos, window=window, **kw)
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1.6e-2, (window, err)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16])
+def test_paged_attn_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
+    """A request's output rows are the same bits served alone (B=1) and
+    inside a B=4 call: the page splits have a fixed width and nothing is
+    reduced across requests."""
+    p_cnt = 2 * paged_attn.TC_PAGES_PER_SPLIT + 3
+    q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, 4, 128, 8, int8, p_cnt)
+    full = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, **kw)
+    for i in range(4):
+        alone = paged_attn.paged_attn_cuda(q[i:i + 1].contiguous(), k, v, pos,
+                                           tables[i:i + 1].contiguous(),
+                                           q_pos[i:i + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], full[i]), i
+
+
+@pytest.mark.parametrize("g,dk,dv,ps", [(4, 40, 40, 16), (4, 64, 60, 16), (4, 64, 136, 16),
+                                        (4, 64, 64, 12), (4, 64, 64, 72), (80, 64, 64, 16)])
+def test_paged_attn_tc_unsupported_shapes_raise(cuda, g, dk, dv, ps):
+    """bf16 GQA shapes the tensor-core kernel does not take raise; nothing
+    falls back to the scalar kernel or the plain version."""
+    kv, n_pages = 2, 3
+    q = torch.zeros((1, 1, kv * g, dk), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((n_pages, ps, kv * dk), dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros((n_pages, ps, kv * dv), dtype=torch.bfloat16, device="cuda")
+    pos = torch.zeros((n_pages, ps), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    q_pos = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    before = (paged_attn.PAGED_ATTN.launches, paged_attn.PAGED_ATTN_TC.launches)
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, kv_heads=kv)
+    assert (paged_attn.PAGED_ATTN.launches, paged_attn.PAGED_ATTN_TC.launches) == before
 
 
 def _native_operands(gen, m, k, n, dtype):

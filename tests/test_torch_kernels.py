@@ -207,6 +207,52 @@ def test_paged_attn_recycled_page_scrub():
     _close(want, jref.paged_attn_ref(q, cache["k"], cache["v"], pos_tbl, tables, q_pos, kv_heads=kvh))
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["native_kv", "int8_kv"])
+def test_paged_attn_plain_bf16_vs_interpret_kernel(int8):
+    """The call the tensor-core kernel takes on the card, bf16 GQA at
+    granite-moe-1b-a400m's head shape (2 query heads per KV head of 64),
+    PS 8, with padding rows (no valid key): the plain version vs the
+    interpret-mode Pallas kernel, both in bf16.  Within 1.6e-2, two bf16
+    ulps at 1: the two round probabilities and the output to bf16, and a
+    sum in another order can land either side of a rounding."""
+    kvh, dh, s = 2, 64, 3
+    cache, pos_tbl, tables = make_paged_state(31, n_tokens=(13, 6), ps=8, kvd=kvh * dh,
+                                              int8=int8, garbage_scale=1.0)
+    if not int8:
+        cache = {k: v.astype(jnp.bfloat16) for k, v in cache.items()}
+    rng = np.random.default_rng(131)
+    q = jnp.asarray(rng.normal(size=(2, s, 2 * kvh, dh)), jnp.bfloat16)
+    q_pos = jnp.asarray([[10, 11, 12], [5, -1, -1]], jnp.int32)
+    kw = dict(kv_heads=kvh, k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    want = paged_attn_fused(q, cache["k"], cache["v"], pos_tbl, tables, q_pos, interpret=True,
+                            **kw)
+
+    def bf16(x):
+        return _t(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    page = (lambda x: _t(x)) if int8 else bf16
+    got = tref.paged_attn_ref(
+        bf16(q), page(cache["k"]), page(cache["v"]), _t(pos_tbl), _t(tables), _t(q_pos),
+        kv_heads=kvh, k_scale=_t(cache["k_scale"]) if int8 else None,
+        v_scale=_t(cache["v_scale"]) if int8 else None,
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1.6e-2,
+                               rtol=0)
+
+
+def test_tc_shape_rule():
+    """The shapes the tensor-core kernel takes: the main paths' head
+    shapes do, the rest name what they break."""
+    assert paged_attn.tc_shape_error(4, 128, 128, 16) is None  # granite-3-8b
+    assert paged_attn.tc_shape_error(2, 64, 64, 16) is None  # granite-moe-1b-a400m
+    assert paged_attn.tc_shape_error(64, 16, 8, 8) is None
+    for args, word in (((4, 40, 40, 16), "Dk=40"), ((4, 64, 60, 16), "Dv=60"),
+                       ((4, 64, 136, 16), "Dv=136"), ((4, 64, 64, 12), "PS=12"),
+                       ((4, 64, 64, 72), "PS=72"), ((65, 64, 64, 16), "65 query heads")):
+        assert word in paged_attn.tc_shape_error(*args)
+
+
 # ------------------------------------------------------------- dispatch
 
 
