@@ -373,35 +373,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
 typedef __nv_bfloat16 bf16;
 
 constexpr int TC_NS_MAX = 8;    // PS <= 64: n-tiles of 8 slots in the S fragment
-constexpr int TC_MAX_PPS = 32;  // pages of a split: one warp ballots them
+constexpr int TC_MAX_PPS = 32;  // pages of a split: one ballot covers them
+constexpr int TC_STAGES = 2;    // pages of the ring: one in use, one in flight
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 // Byte offsets of the tensor-core kernel's dynamic shared memory.  bf16
-// pages: two stages of K and V tiles.  int8 pages: two stages of raw rows
-// and scales, dequantized into one K and one V tile.  Tile rows are padded
-// by 8 bf16 (16 bytes); V tiles have PS rounded up to 16 rows, the extra
-// rows zero.
+// pages: a K and a V tile per stage of the ring.  int8 pages: raw rows and
+// scales per stage, dequantized into one K and one V tile.  Tile rows are
+// padded by 8 bf16 (16 bytes); V tiles have PS rounded up to 16 rows, the
+// extra rows zero.
 struct TcLayout {
-  size_t q, kt, vt, kraw, vraw, ks, vs, pos, pid, flag, vlist, vsum, total;
+  size_t q, kt, vt, kraw, vraw, ks, vs, pos, pid, vsum, total;
 };
 
 __host__ __device__ inline TcLayout tc_layout(int rows16, int Dk, int Dv, int PS, int pps,
                                               bool int8) {
   TcLayout L;
-  const size_t ps16 = (size_t)(PS + 15) / 16 * 16, tiles = int8 ? 1 : 2;
+  const size_t ps16 = (size_t)(PS + 15) / 16 * 16;
+  const size_t tiles = int8 ? 1 : TC_STAGES, raw = int8 ? TC_STAGES : 0;
   size_t o = 0;
   L.q = o;     o = align16(o + (size_t)rows16 * (Dk + 8) * sizeof(bf16));
   L.kt = o;    o = align16(o + tiles * PS * (Dk + 8) * sizeof(bf16));
   L.vt = o;    o = align16(o + tiles * ps16 * (Dv + 8) * sizeof(bf16));
-  L.kraw = o;  o = align16(o + (int8 ? 2 * (size_t)PS * Dk : 0));
-  L.vraw = o;  o = align16(o + (int8 ? 2 * (size_t)PS * Dv : 0));
-  L.ks = o;    o = align16(o + (int8 ? 2 * (size_t)PS * sizeof(float) : 0));
-  L.vs = o;    o = align16(o + (int8 ? 2 * (size_t)PS * sizeof(float) : 0));
+  L.kraw = o;  o = align16(o + raw * PS * Dk);
+  L.vraw = o;  o = align16(o + raw * PS * Dv);
+  L.ks = o;    o = align16(o + raw * PS * sizeof(float));
+  L.vs = o;    o = align16(o + raw * PS * sizeof(float));
   L.pos = o;   o = align16(o + (size_t)pps * PS * sizeof(int32_t));
   L.pid = o;   o = align16(o + (size_t)pps * sizeof(int32_t));
-  L.flag = o;  o = align16(o + (size_t)pps * sizeof(int32_t));
-  L.vlist = o; o = align16(o + (size_t)pps * sizeof(int32_t));
   L.vsum = o;  o = align16(o + (size_t)Dv * sizeof(float));
   L.total = o;
   return L;
@@ -423,7 +423,11 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -468,84 +472,36 @@ __device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
   return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
 }
 
-// Issue the copies of one page's K/V rows (and, for int8, its scales)
-// into ring stage `st`.  bf16 rows go straight into the padded tiles;
-// int8 rows land raw.
-template <typename KT>
-__device__ __forceinline__ void tc_issue_page(
-    const KT* __restrict__ k_pages, const KT* __restrict__ v_pages,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale, int pid, int st,
-    int PS, int Dk, int Dv, int kvd_k, int kvd_v, int kvh, bf16* kt_s, bf16* vt_s,
-    int8_t* kraw_s, int8_t* vraw_s, float* ks_s, float* vs_s) {
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)pid * PS;
-  if constexpr (std::is_same<KT, int8_t>::value) {
-    const int kc = Dk / 16;
-    int8_t* kr = kraw_s + (size_t)st * PS * Dk;
-    for (int i = tid; i < PS * kc; i += THREADS) {
-      const int sl = i / kc, c = i % kc;
-      cp_async16(kr + sl * Dk + c * 16, k_pages + (row0 + sl) * kvd_k + (size_t)kvh * Dk + c * 16);
-    }
-    int8_t* vr = vraw_s + (size_t)st * PS * Dv;
-    if (Dv % 16 == 0) {
-      const int vc = Dv / 16;
-      for (int i = tid; i < PS * vc; i += THREADS) {
-        const int sl = i / vc, c = i % vc;
-        cp_async16(vr + sl * Dv + c * 16, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 16);
-      }
-    } else {
-      const int vc = Dv / 8;
-      for (int i = tid; i < PS * vc; i += THREADS) {
-        const int sl = i / vc, c = i % vc;
-        cp_async8(vr + sl * Dv + c * 8, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 8);
-      }
-    }
-    for (int i = tid; i < PS / 4; i += THREADS) {
-      cp_async16(ks_s + st * PS + i * 4, k_scale + row0 + i * 4);
-      cp_async16(vs_s + st * PS + i * 4, v_scale + row0 + i * 4);
-    }
-  } else {
-    const int DkP = Dk + 8, DvP = Dv + 8, ps16 = (PS + 15) / 16 * 16;
-    const int kc = Dk / 8, vc = Dv / 8;
-    bf16* kt = kt_s + (size_t)st * PS * DkP;
-    bf16* vt = vt_s + (size_t)st * ps16 * DvP;
-    for (int i = tid; i < PS * kc; i += THREADS) {
-      const int sl = i / kc, c = i % kc;
-      cp_async16(kt + sl * DkP + c * 8, k_pages + (row0 + sl) * kvd_k + (size_t)kvh * Dk + c * 8);
-    }
-    for (int i = tid; i < PS * vc; i += THREADS) {
-      const int sl = i / vc, c = i % vc;
-      cp_async16(vt + sl * DvP + c * 8, v_pages + (row0 + sl) * kvd_v + (size_t)kvh * Dv + c * 8);
-    }
-  }
-  cp_commit();
+// A [rows][n] grid of 16- or 8-byte chunks dealt to the block's threads
+// once: thread t takes chunk c = t % n of rows t / n, t / n + step, ...
+// with step = THREADS / n (threads from step * n on take none), so no
+// page's copy or dequantization divides.  n <= THREADS.
+struct Grid {
+  int c, r0, step;
+};
+
+__device__ __forceinline__ Grid make_grid(int n) {
+  const int t = threadIdx.x, step = THREADS / n;
+  return Grid{t % n, t < step * n ? t / n : 1 << 30, step};
 }
 
-// int8 rows of ring stage `st` -> bf16 tile rows: round_bf16(f32(q) * scale),
-// the scalar kernel's dequantization, 8 values a thread at a time.
-__device__ __forceinline__ void tc_dequant(const int8_t* raw, const float* scl, bf16* tile,
-                                           int PS, int D) {
-  const int c8 = D / 8, DP = D + 8;
-  for (int i = threadIdx.x; i < PS * c8; i += THREADS) {
-    const int sl = i / c8, c = i % c8;
-    const uint2 w = *reinterpret_cast<const uint2*>(raw + sl * D + c * 8);
-    const float s = scl[sl];
-    uint32_t o[4];
+// 8 int8 (two words, lowest byte first) -> 8 bf16: round_bf16(f32(q) * s),
+// the scalar kernel's dequantization
+__device__ __forceinline__ uint4 dequant8(uint32_t lo, uint32_t hi, float s) {
+  uint32_t o[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t word = j < 2 ? w.x : w.y;
-      const int sh = (j % 2) * 16;
-      const float lo = (float)(int8_t)(word >> sh) * s;
-      const float hi = (float)(int8_t)(word >> (sh + 8)) * s;
-      o[j] = pack_bf16(lo, hi);
-    }
-    *reinterpret_cast<uint4*>(tile + sl * DP + c * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t word = j < 2 ? lo : hi;
+    const int sh = (j % 2) * 16;
+    o[j] = pack_bf16((float)(int8_t)(word >> sh) * s, (float)(int8_t)(word >> (sh + 8)) * s);
   }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// KT: page storage (int8_t with scale planes, or bf16); NVT: n-tiles of 8
-// output features the accumulator holds (Dv <= 8 * NVT).
-template <typename KT, int NVT>
+// KT: page storage (int8_t with scale planes, or bf16).  NVT: n-tiles of
+// 8 output features the accumulator holds (Dv <= 8 * NVT).  NS: n-tiles of
+// 8 slots a page's S fragment holds (PS <= 8 * NS).
+template <typename KT, int NVT, int NS>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
                      const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -572,13 +528,10 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   int8_t* vraw_s = reinterpret_cast<int8_t*>(tc_smem + L.vraw);
   float* ks_s = reinterpret_cast<float*>(tc_smem + L.ks);
   float* vs_s = reinterpret_cast<float*>(tc_smem + L.vs);
-  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);      // [pps][PS]
-  int32_t* pid_s = reinterpret_cast<int32_t*>(tc_smem + L.pid);      // [pps]
-  int32_t* flag_s = reinterpret_cast<int32_t*>(tc_smem + L.flag);    // [pps] page has a slot
-  int32_t* vlist_s = reinterpret_cast<int32_t*>(tc_smem + L.vlist);  // pages with a slot
-  float* vsum_s = reinterpret_cast<float*>(tc_smem + L.vsum);        // [Dv]
+  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);  // [pps][PS]
+  int32_t* pid_s = reinterpret_cast<int32_t*>(tc_smem + L.pid);  // [pps]
+  float* vsum_s = reinterpret_cast<float*>(tc_smem + L.vsum);    // [Dv]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  __shared__ int walk_all, n_valid;
 
   // q rows -> shared memory (one cp.async group); rows past SG are zero
   const int qc = Dk / 8;
@@ -594,7 +547,7 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   }
   cp_commit();
   // the V tiles' rows past PS stay zero: a half-filled 16-slot chunk adds 0
-  for (int t = 0; t < (INT8 ? 1 : 2); ++t)
+  for (int t = 0; t < (INT8 ? 1 : TC_STAGES); ++t)
     for (int i = tid; i < (ps16 - PS) * DvP; i += THREADS)
       vt_s[(size_t)t * ps16 * DvP + PS * DvP + i] = __float2bfloat16_rn(0.0f);
   // the split's page ids and slot positions, read ahead of the ring
@@ -605,9 +558,8 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
     if (sl == 0) pid_s[p] = pid;
   }
   // does a query token of this block have no valid key in its whole
-  // table?  (the scalar kernel's scan)
-  if (tid == 0) walk_all = 0;
-  __syncthreads();
+  // table?  (the scalar kernel's scan, reduced by the barrier)
+  bool keyless = false;
   for (int t = tid; t < SG / G; t += THREADS) {
     const int qp = q_pos[(size_t)b * S + s_lo + t];
     bool live = false;
@@ -616,19 +568,16 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
       for (int sl = 0; sl < PS && !live; ++sl)
         live = key_valid(pos_tbl[(size_t)pid * PS + sl], qp, window);
     }
-    if (!live) walk_all = 1;
+    keyless |= !live;
   }
-  if (warp == 0) {  // compact the pages with a slot, in table order
-    bool any = false;
-    if (lane < np)
-      for (int sl = 0; sl < PS; ++sl) any |= pos_s[lane * PS + sl] >= 0;
-    const unsigned m = __ballot_sync(0xffffffffu, any);
-    if (lane < np) flag_s[lane] = any;
-    if (any) vlist_s[__popc(m & ((1u << lane) - 1u))] = lane;
-    if (lane == 0) n_valid = __popc(m);
-  }
-  __syncthreads();
-  const int nv = n_valid;
+  const bool walk_all = __syncthreads_or(keyless);
+  // the pages with a slot, in table order: bit p of `valid` (every warp
+  // computes the same mask); the ring takes them lowest bit first
+  bool any = false;
+  if (lane < np)
+    for (int sl = 0; sl < PS; ++sl) any |= pos_s[lane * PS + sl] >= 0;
+  const unsigned valid = __ballot_sync(0xffffffffu, any);
+  const int nv = __popc(valid);
 
   // this thread's rows of its warp's m-tile: g and g + 8
   const int gq = lane / 4, tig = lane % 4;
@@ -642,21 +591,76 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
 #pragma unroll
   for (int j = 0; j < NVT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
-  if (nv > 0)
-    tc_issue_page<KT>(k_pages, v_pages, k_scale, v_scale, pid_s[vlist_s[0]], 0, PS, Dk, Dv,
-                      kvd_k, kvd_v, kvh, kt_s, vt_s, kraw_s, vraw_s, ks_s, vs_s);
+  // The ring: TC_STAGES - 1 pages in flight ahead of the one in use, one
+  // cp.async group per page (empty past the last, so the count is
+  // uniform).  K rows go in 16-byte chunks; V rows too, or in 8-byte ones
+  // for int8 rows whose width is not a multiple of 16.
+  constexpr int KB = sizeof(KT);
+  const int vbytes = (Dv * KB) % 16 == 0 ? 16 : 8;
+  const Grid kg = make_grid(Dk * KB / 16), vg = make_grid(Dv * KB / vbytes);
+  const KT* kbase = k_pages + (size_t)kvh * Dk + kg.c * (16 / KB);
+  const KT* vbase = v_pages + (size_t)kvh * Dv + vg.c * (vbytes / KB);
+  unsigned ahead = valid, cur = valid;
+  auto issue_next = [&](int st) {  // the next page with a slot into stage st
+    if (ahead) {
+      const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS;
+      ahead &= ahead - 1;
+      const KT* ksrc = kbase + row0 * kvd_k;
+      const KT* vsrc = vbase + row0 * kvd_v;
+      if constexpr (INT8) {
+        int8_t* kd = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
+        int8_t* vd = vraw_s + (size_t)st * PS * Dv + vg.c * vbytes;
+        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * Dk, ksrc + (size_t)r * kvd_k);
+        for (int r = vg.r0; r < PS; r += vg.step) {
+          if (vbytes == 16) cp_async16(vd + r * Dv, vsrc + (size_t)r * kvd_v);
+          else cp_async8(vd + r * Dv, vsrc + (size_t)r * kvd_v);
+        }
+        if (tid < PS / 4) {
+          cp_async16(ks_s + st * PS + tid * 4, k_scale + row0 + tid * 4);
+          cp_async16(vs_s + st * PS + tid * 4, v_scale + row0 + tid * 4);
+        }
+      } else {
+        bf16* kd = kt_s + (size_t)st * PS * DkP + kg.c * 8;
+        bf16* vd = vt_s + (size_t)st * ps16 * DvP + vg.c * 8;
+        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * DkP, ksrc + (size_t)r * kvd_k);
+        for (int r = vg.r0; r < PS; r += vg.step) cp_async16(vd + r * DvP, vsrc + (size_t)r * kvd_v);
+      }
+    }
+    cp_commit();
+  };
+  for (int j = 0; j < TC_STAGES - 1; ++j) issue_next(j);
+
   for (int i = 0; i < nv; ++i) {
-    const int st = i & 1;
-    cp_wait_all();    // page i (and, first, q) landed
-    __syncthreads();  // ... for every thread; page i - 1 fully consumed
-    if (i + 1 < nv)
-      tc_issue_page<KT>(k_pages, v_pages, k_scale, v_scale, pid_s[vlist_s[i + 1]], st ^ 1, PS,
-                        Dk, Dv, kvd_k, kvd_v, kvh, kt_s, vt_s, kraw_s, vraw_s, ks_s, vs_s);
+    const int st = i % TC_STAGES;
+    const int page = __ffs(cur) - 1;
+    cur &= cur - 1;
+    cp_wait<TC_STAGES - 2>();  // page i (and, first, q) landed
+    __syncthreads();           // ... for every thread; page i - 1 fully consumed
+    issue_next((i + TC_STAGES - 1) % TC_STAGES);
     const bf16* kt;
     const bf16* vt;
-    if constexpr (INT8) {
-      tc_dequant(kraw_s + (size_t)st * PS * Dk, ks_s + st * PS, kt_s, PS, Dk);
-      tc_dequant(vraw_s + (size_t)st * PS * Dv, vs_s + st * PS, vt_s, PS, Dv);
+    if constexpr (INT8) {  // the thread's own grid chunks, into the bf16 tiles
+      const int8_t* kr = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
+      const int8_t* vr = vraw_s + (size_t)st * PS * Dv + vg.c * vbytes;
+      const float* ks = ks_s + st * PS;
+      const float* vs = vs_s + st * PS;
+      for (int r = kg.r0; r < PS; r += kg.step) {
+        const uint4 w = *reinterpret_cast<const uint4*>(kr + r * Dk);
+        bf16* o = kt_s + r * DkP + kg.c * 16;
+        *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, ks[r]);
+        *reinterpret_cast<uint4*>(o + 8) = dequant8(w.z, w.w, ks[r]);
+      }
+      for (int r = vg.r0; r < PS; r += vg.step) {
+        bf16* o = vt_s + r * DvP + vg.c * vbytes;
+        if (vbytes == 16) {
+          const uint4 w = *reinterpret_cast<const uint4*>(vr + r * Dv);
+          *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, vs[r]);
+          *reinterpret_cast<uint4*>(o + 8) = dequant8(w.z, w.w, vs[r]);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(vr + r * Dv);
+          *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, vs[r]);
+        }
+      }
       __syncthreads();
       kt = kt_s;
       vt = vt_s;
@@ -665,19 +669,19 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
       vt = vt_s + (size_t)st * ps16 * DvP;
     }
     if (!active) continue;
-    const int32_t* pos = pos_s + vlist_s[i] * PS;
+    const int32_t* pos = pos_s + page * PS;
 
     // S = Q K^T: A from q's rows, B = K rows (ldmatrix: K^T's columns)
-    float sc[TC_NS_MAX][4];
+    float sc[NS][4];
 #pragma unroll
-    for (int j = 0; j < TC_NS_MAX; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
     const bf16* qa = q_s + (warp * 16 + lane % 8 + ((lane / 8) % 2) * 8) * DkP + (lane / 16) * 8;
     const bf16* kb = kt + (lane % 8 + (lane / 16) * 8) * DkP + ((lane / 8) % 2) * 8;
     for (int kk = 0; kk < Dk; kk += 16) {
       uint32_t a[4];
       ldsm_x4(a, qa + kk);
 #pragma unroll
-      for (int j = 0; j < TC_NS_MAX; j += 2) {
+      for (int j = 0; j < NS; j += 2) {
         uint32_t bb[4];
         if (j + 1 < ns) {
           ldsm_x4(bb, kb + j * 8 * DkP + kk);
@@ -693,34 +697,32 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
     // logits = dot * scale + bias; online softmax over the page, per row
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < TC_NS_MAX; ++j) {
-      if (j < ns) {
-        const int ka = pos[j * 8 + 2 * tig], kb2 = pos[j * 8 + 2 * tig + 1];
-        sc[j][0] = sc[j][0] * scale + (key_valid(ka, qp0, window) ? 0.0f : NEG_INF);
-        sc[j][1] = sc[j][1] * scale + (key_valid(kb2, qp0, window) ? 0.0f : NEG_INF);
-        sc[j][2] = sc[j][2] * scale + (key_valid(ka, qp1, window) ? 0.0f : NEG_INF);
-        sc[j][3] = sc[j][3] * scale + (key_valid(kb2, qp1, window) ? 0.0f : NEG_INF);
-        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-      }
+    for (int j = 0; j < NS; ++j) {
+      if (j >= ns) continue;
+      const int2 kp = *reinterpret_cast<const int2*>(pos + j * 8 + 2 * tig);
+      sc[j][0] = sc[j][0] * scale + (key_valid(kp.x, qp0, window) ? 0.0f : NEG_INF);
+      sc[j][1] = sc[j][1] * scale + (key_valid(kp.y, qp0, window) ? 0.0f : NEG_INF);
+      sc[j][2] = sc[j][2] * scale + (key_valid(kp.x, qp1, window) ? 0.0f : NEG_INF);
+      sc[j][3] = sc[j][3] * scale + (key_valid(kp.y, qp1, window) ? 0.0f : NEG_INF);
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < TC_NS_MAX; ++j) {
-      if (j < ns) {
-        sc[j][0] = expf(sc[j][0] - mn0);
-        sc[j][1] = expf(sc[j][1] - mn0);
-        sc[j][2] = expf(sc[j][2] - mn1);
-        sc[j][3] = expf(sc[j][3] - mn1);
-        sum0 += sc[j][0] + sc[j][1];
-        sum1 += sc[j][2] + sc[j][3];
-      }
+    for (int j = 0; j < NS; ++j) {
+      if (j >= ns) continue;
+      sc[j][0] = __expf(sc[j][0] - mn0);
+      sc[j][1] = __expf(sc[j][1] - mn0);
+      sc[j][2] = __expf(sc[j][2] - mn1);
+      sc[j][3] = __expf(sc[j][3] - mn1);
+      sum0 += sc[j][0] + sc[j][1];
+      sum1 += sc[j][2] + sc[j][3];
     }
     sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
     sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
@@ -730,40 +732,41 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
     l1 = al1 * l1 + sum1;
     m0 = mn0;
     m1 = mn1;
+    if (__any_sync(0xffffffffu, al0 != 1.0f || al1 != 1.0f)) {  // else x 1 changes nothing
 #pragma unroll
-    for (int j = 0; j < NVT; ++j) {
-      acc[j][0] *= al0;
-      acc[j][1] *= al0;
-      acc[j][2] *= al1;
-      acc[j][3] *= al1;
+      for (int j = 0; j < NVT; ++j) {
+        acc[j][0] *= al0;
+        acc[j][1] *= al0;
+        acc[j][2] *= al1;
+        acc[j][3] *= al1;
+      }
     }
 
     // acc += P V: the bf16-rounded S fragment is P's A fragment as it stands
     const bf16* vb = vt + (lane % 8 + ((lane / 8) % 2) * 8) * DvP + (lane / 16) * 8;
 #pragma unroll
-    for (int kc = 0; kc < TC_NS_MAX / 2; ++kc) {
-      if (2 * kc < ns) {
-        uint32_t a[4];
-        a[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
-        a[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
-        a[2] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]) : 0u;
-        a[3] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]) : 0u;
+    for (int kc = 0; kc < NS / 2; ++kc) {
+      if (2 * kc >= ns) continue;
+      uint32_t a[4];
+      a[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+      a[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+      a[2] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]) : 0u;
+      a[3] = 2 * kc + 1 < ns ? pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]) : 0u;
 #pragma unroll
-        for (int j = 0; j < NVT; j += 2) {
-          uint32_t bb[4];
-          if (j + 1 < nvt) {
-            ldsm_x4_t(bb, vb + kc * 16 * DvP + j * 8);
-            mma_bf16(acc[j], a, bb[0], bb[1]);
-            mma_bf16(acc[j + 1], a, bb[2], bb[3]);
-          } else if (j < nvt) {
-            ldsm_x2_t(bb, vb + kc * 16 * DvP + j * 8);
-            mma_bf16(acc[j], a, bb[0], bb[1]);
-          }
+      for (int j = 0; j < NVT; j += 2) {
+        uint32_t bb[4];
+        if (j + 1 < nvt) {
+          ldsm_x4_t(bb, vb + kc * 16 * DvP + j * 8);
+          mma_bf16(acc[j], a, bb[0], bb[1]);
+          mma_bf16(acc[j + 1], a, bb[2], bb[3]);
+        } else if (j < nvt) {
+          ldsm_x2_t(bb, vb + kc * 16 * DvP + j * 8);
+          mma_bf16(acc[j], a, bb[0], bb[1]);
         }
       }
     }
   }
-  cp_wait_all();  // nothing in flight at exit (q's group when no page has a slot)
+  cp_wait<0>();  // nothing in flight at exit (q's group when no page has a slot)
 
   // slot-less pages: every logit NEG_INF exactly, so only rows that have
   // seen no valid key gain: l += PS and acc += the page's v rows summed in
@@ -773,7 +776,7 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
     for (int d = tid; d < Dv; d += THREADS) {
       float tot = 0.0f;
       for (int p = 0; p < np;) {
-        if (flag_s[p]) {
+        if (valid >> p & 1u) {
           ++p;
           continue;
         }
@@ -853,11 +856,11 @@ size_t tc_smem_bytes(int S, int G, int Dk, int Dv, int PS, int pps, int kv_int8)
 }
 
 bool tc_shape_ok(int G, int Dk, int Dv, int PS, int pps) {
-  return Dk > 0 && Dk % 16 == 0 && Dv > 0 && Dv % 8 == 0 && Dv <= 128 && PS % 8 == 0 &&
-         PS <= 8 * TC_NS_MAX && G <= ROWS && pps <= TC_MAX_PPS;
+  return Dk > 0 && Dk % 16 == 0 && Dk <= 1024 && Dv > 0 && Dv % 8 == 0 && Dv <= 128 &&
+         PS > 0 && PS % 8 == 0 && PS <= 8 * TC_NS_MAX && G <= ROWS && pps <= TC_MAX_PPS;
 }
 
-template <typename KT, int NVT>
+template <typename KT, int NVT, int NS>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
                       const float* vs, const int32_t* pos, const int32_t* tables,
                       const int32_t* qpos, float* ws, void* out, int B, int S, int H, int KV,
@@ -865,14 +868,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
                       cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = tc_smem_bytes(S, G, Dk, Dv, PS, pps, std::is_same<KT, int8_t>::value);
-  cudaError_t err = cudaFuncSetAttribute(paged_attn_tc_kernel<KT, NVT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  auto kernel = paged_attn_tc_kernel<KT, NVT, NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nsplit = (P + pps - 1) / pps;
   const int s_blk = s_block(G);
   const int nrow = (S + s_blk - 1) / s_blk;
-  paged_attn_tc_kernel<KT, NVT><<<dim3(B * KV, nsplit, nrow), THREADS, smem, stream>>>(
+  kernel<<<dim3(B * KV, nsplit, nrow), THREADS, smem, stream>>>(
       (const bf16*)q, (const KT*)k, (const KT*)v, ks, vs, pos, tables, qpos, ws, (bf16*)out,
       S, H, KV, Dk, Dv, PS, P, pps, s_blk, window, scale);
   err = cudaGetLastError();
@@ -881,6 +884,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   paged_attn_combine<bf16><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       ws, (bf16*)out, B, S, H, KV, Dv, nsplit);
   return cudaGetLastError();
+}
+
+// the instance for Dv and PS: the accumulator covers Dv, the S fragment
+// PS (registers sized for 16-slot pages unless the pages are larger)
+template <typename KT, typename... A>
+cudaError_t launch_tc_for(int Dv, int PS, A... args) {
+  if (PS <= 16)
+    return Dv <= 64 ? launch_tc<KT, 8, 2>(args...) : launch_tc<KT, 16, 2>(args...);
+  return Dv <= 64 ? launch_tc<KT, 8, TC_NS_MAX>(args...) : launch_tc<KT, 16, TC_NS_MAX>(args...);
 }
 
 }  // namespace
@@ -933,14 +945,8 @@ extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_page
 #define TC_ARGS(KS, VS)                                                          \
   q, k_pages, v_pages, KS, VS, pos, tab, qp, w, out, B, S, H, KV, Dk, Dv, PS, P, \
       pages_per_split, window, scale, st
-    cudaError_t err;
-    if (kv_int8) {
-      err = Dv <= 64 ? launch_tc<int8_t, 8>(TC_ARGS(ks, vs))
-                     : launch_tc<int8_t, 16>(TC_ARGS(ks, vs));
-    } else {
-      err = Dv <= 64 ? launch_tc<bf16, 8>(TC_ARGS(nullptr, nullptr))
-                     : launch_tc<bf16, 16>(TC_ARGS(nullptr, nullptr));
-    }
+    const cudaError_t err = kv_int8 ? launch_tc_for<int8_t>(Dv, PS, TC_ARGS(ks, vs))
+                                    : launch_tc_for<bf16>(Dv, PS, TC_ARGS(nullptr, nullptr));
 #undef TC_ARGS
     return (int)err;
   }

@@ -35,7 +35,7 @@ PAGED_ATTN_TC = native.Counter()  # the tensor-core kernel's share of PAGED_ATTN
 # whose partial softmax statistics a second kernel merges.  A fixed width,
 # so a row's bits never depend on the batch, its length or the co-batch.
 PAGES_PER_SPLIT = 4  # the scalar kernel (latent mode, f32)
-TC_PAGES_PER_SPLIT = 8  # the tensor-core kernel (bf16 GQA); at most 32
+TC_PAGES_PER_SPLIT = 4  # the tensor-core kernel (bf16 GQA); at most 32
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None

@@ -93,9 +93,10 @@ def test_paged_attn_kernel_f32(cuda, s, int8):
 
 def _tc_case(gen, b, s, g, d, kv, int8, p_cnt, ps=16):
     """bf16 GQA operands at a serving head shape: request 0 cached 70
-    tokens over pages 1..5 (its last page half full), request 1 cached 9
-    over page 6 plus a scrubbed page 7, request 2 is idle (positions -1
-    over the null page 0) and request 3 cached 40 over pages 8..10; every
+    tokens over pages 1..5, request 1 cached 9 over pages 6 and 7 (page 7
+    scrubbed, all slots -1, when page 6 holds the 9), request 2 is idle
+    (positions -1 over the null page 0) and request 3 cached 40 over pages
+    8..10; every
     table is null-padded to ``p_cnt`` pages, so a null run crosses split
     boundaries.  Query rows are the last ``s`` tokens, those before the
     first cached one padding (-1); request 1 also pads its last rows."""
@@ -129,15 +130,21 @@ def _tc_case(gen, b, s, g, d, kv, int8, p_cnt, ps=16):
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [1, 16, 20])
 @pytest.mark.parametrize("splits", [1, 3])
-def test_paged_attn_tc_kernel_bf16(cuda, g, d, int8, s, splits):
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_attn_tc_kernel_bf16(cuda, monkeypatch, g, d, int8, s, splits, ps):
     """#6's tensor-core kernel (bf16 GQA) against the plain version at
     granite-3-8b's and granite-moe-1b-a400m's head shapes: decode, a whole
     chunk and a chunk over 64 rows (two row blocks), padding rows, an idle
     row over the null page, a scrubbed page, window None and 4, with one
-    split (the output written directly) and with three (the combine)."""
-    pps = paged_attn.TC_PAGES_PER_SPLIT
-    p_cnt = max(6, pps) if splits == 1 else 2 * pps + 3
-    q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, g, d, 8, int8, p_cnt)
+    split (the output written directly) and with three (the combine);
+    pages of 8 slots (a half-filled 16-slot chunk), 16 and 32 (the larger
+    S fragment)."""
+    if splits == 1:  # a table no wider than one split
+        monkeypatch.setattr(paged_attn, "TC_PAGES_PER_SPLIT", 8)
+        p_cnt = 8
+    else:
+        p_cnt = 2 * paged_attn.TC_PAGES_PER_SPLIT + 3
+    q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, g, d, 8, int8, p_cnt, ps)
     for window in (None, 4):
         before = paged_attn.PAGED_ATTN_TC.launches
         got = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, window=window, **kw)
