@@ -397,7 +397,7 @@ def phase_attention(torch, run_ms):
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations"
             say(f"kernel paged_attn {arch} B={b} S={s} {pattern} H={kv * g} KV={kv} D={d} "
                 f"P={p_cnt} PS={ps} {kv_dtype}-KV bf16 (path: tensor cores, "
-                f"{paged_attn.TC_PAGES_PER_SPLIT} pages per split): kernel_ms {t_k:.4f} "
+                f"{paged_attn.PAGES_PER_SPLIT} pages per split): kernel_ms {t_k:.4f} "
                 f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} bound_ms {bound:.4f} ({by}) "
                 f"max_abs_err {err:.3g} (keyless rows {err_pad16:.3g}; f32 path: scalar, "
                 f"{err32:.3g}, keyless rows {err_pad:.3g})")

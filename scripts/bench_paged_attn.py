@@ -21,9 +21,8 @@ times, cold L2) of four patterns:
 - ``idle``: ``mixed`` with the last request idle (positions -1, a table
   of null pages only).
 
-``--pages-per-split`` sets the tensor-core kernel's split width
-(``paged_attn.TC_PAGES_PER_SPLIT``) for this run, to measure the choice;
-a checkout without that kernel refuses it.
+``--pages-per-split`` sets the split width (``paged_attn.PAGES_PER_SPLIT``)
+for this run, to measure the choice.
 """
 
 import argparse
@@ -49,10 +48,7 @@ def main():
     from repro_torch.kernels import paged_attn
 
     if args.pages_per_split is not None:
-        if not hasattr(paged_attn, "TC_PAGES_PER_SPLIT"):
-            print("bench_paged_attn: this checkout has no tensor-core kernel", file=sys.stderr)
-            return 2
-        paged_attn.TC_PAGES_PER_SPLIT = args.pages_per_split
+        paged_attn.PAGES_PER_SPLIT = args.pages_per_split
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn):

@@ -29,10 +29,12 @@
 // window of its request once, and at serving shapes (S * G <= 64 rows per
 // KV head, head_dim 128) that is about 2 * S * G operations per KV byte:
 // far below the card's operations-per-byte balance, so the bound is the
-// bytes of the int8 pages, scales and slot positions (3.35 TB/s).  At
-// serving sizes those bytes are a few MB a call, microseconds at that
-// rate; what a block waits on in practice is the latency of each page's
-// load, page after page, and the launch.
+// bytes of the int8 pages, scales and slot positions (3.35 TB/s), a few
+// microseconds a call at serving sizes.  What a block of the tensor-core
+// kernel waits on in practice is its page walk: each page is a short
+// chain of dependent steps (barrier, dequantization, ldmatrix, mma,
+// shuffles, exp), one page after another, so the split width sets the
+// kernel's time, against the workspace the combine reads.
 //
 // The tensor-core kernel (bf16 GQA).  One block per (request, KV head,
 // page split, up to 64 query rows); one warp per 16-row m-tile (a decode
@@ -45,23 +47,24 @@
 // f32 S fragment, exponentiated and rounded to bf16, is the A operand of
 // the P V product as it stands: the plain version's "probabilities cast to
 // the value dtype before P @ V".  Pages come through a two-stage cp.async
-// ring: the next page's K/V rows (16-byte copies; int8 V rows of a width
-// that is not a multiple of 16 in 8-byte ones) and scales are in flight
-// while the current page is dequantized and multiplied.  int8 pages land
-// raw and dequantize from shared memory into the bf16 tile exactly as the
-// scalar kernel does, round_bf16(f32(q) * scale).  The slot positions of
-// the block's whole page split are read first, so only pages with a
-// valid slot enter the ring.  Slot-less pages add their summed v to the
-// rows that have seen no valid key (m == NEG_INF) after the ring, in the
-// thread's own register fragments; for every other row they add exactly
-// nothing, in whatever order.  Splits have a fixed width of pages, so a
-// row's bits never depend on B, S, q_pos or its co-batch; a call with one
-// split writes the output itself, with no workspace and no combine
-// launch.  Shapes: Dk % 16 == 0, Dv % 8 == 0 and <= 128, PS % 8 == 0 and
-// <= 64, G <= 64; the C entry refuses others.
+// ring: the next page's K/V rows and scales are in flight while the
+// current page is dequantized and multiplied; each thread copies, and for
+// int8 dequantizes, a fixed set of 16-byte row chunks worked out once, so
+// no page costs an integer division.  int8 pages land raw and dequantize
+// from shared memory into the bf16 tiles exactly as the scalar kernel
+// does, round_bf16(f32(q) * scale).  The slot positions of the block's
+// whole page split are read first, so only pages with a valid slot enter
+// the ring.  Slot-less pages add their summed v to the rows that have seen
+// no valid key (m == NEG_INF) after the ring, in the thread's own register
+// fragments; for every other row they add exactly nothing, in whatever
+// order.  Splits have a fixed width of pages, so a row's bits never depend
+// on B, S, q_pos or its co-batch; a call with one split writes the output
+// itself, with no workspace and no combine launch.  Shapes: Dk % 16 == 0,
+// Dv % 8 == 0 and <= 128, PS % 8 == 0 and <= 64, G <= 64; the C entry
+// refuses others.
 //
-// The scalar kernel (latent mode, f32).  The dense window is never materialized:
-// a block loads each page of its share once into shared memory and serves
+// The scalar kernel (latent mode, f32).  The dense window is never
+// materialized: a block loads each page of its share once into shared memory and serves
 // up to 64 query rows of one (request, KV head) from it (a third grid
 // dimension takes longer chunks, so shared memory stays bounded).  The
 // page walk is split across blocks (flash-decoding): block (b*KV + h, j)
@@ -85,7 +88,8 @@
 // adds them.  Only v is read, and a run of one such page (the null page
 // that pads a table's tail) is read once and weighted by its length.
 // The scalar kernel is thread-per-output FMAs out of f32 shared memory,
-// with synchronous loads: latent mode and f32 stay on it until their PR.
+// with synchronous loads: latent mode and f32 stay on it until their own
+// redesign.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

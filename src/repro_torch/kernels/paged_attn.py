@@ -31,11 +31,11 @@ PAGED_ATTN = native.Counter()  # kernel #6, GQA mode
 PAGED_ATTN_LATENT = native.Counter()  # kernel #6, MLA latent mode
 PAGED_ATTN_TC = native.Counter()  # the tensor-core kernel's share of PAGED_ATTN
 
-# pages one block walks; the rest of a request's table goes to more blocks
-# whose partial softmax statistics a second kernel merges.  A fixed width,
-# so a row's bits never depend on the batch, its length or the co-batch.
-PAGES_PER_SPLIT = 4  # the scalar kernel (latent mode, f32)
-TC_PAGES_PER_SPLIT = 4  # the tensor-core kernel (bf16 GQA); at most 32
+# pages one block walks (at most 32); the rest of a request's table goes
+# to more blocks whose partial softmax statistics a second kernel merges.
+# A fixed width, so a row's bits never depend on the batch, its length or
+# the co-batch.
+PAGES_PER_SPLIT = 4
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
@@ -141,11 +141,10 @@ def paged_attn_cuda(
         if why is not None:
             raise ValueError(f"bf16 GQA paged attention (tensor-core kernel): {why}")
     fn, smem, tc_smem = _entries()
+    pps = PAGES_PER_SPLIT
     if tc:
-        pps = TC_PAGES_PER_SPLIT
         need = tc_smem(s, g, dk, dv, ps, pps, int(kv_int8))
     else:
-        pps = PAGES_PER_SPLIT
         need = smem(s, g, dk, dv, ps, int(latent))
     if need > SMEM_LIMIT:
         raise ValueError(

@@ -140,10 +140,10 @@ def test_paged_attn_tc_kernel_bf16(cuda, monkeypatch, g, d, int8, s, splits, ps)
     pages of 8 slots (a half-filled 16-slot chunk), 16 and 32 (the larger
     S fragment)."""
     if splits == 1:  # a table no wider than one split
-        monkeypatch.setattr(paged_attn, "TC_PAGES_PER_SPLIT", 8)
+        monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 8)
         p_cnt = 8
     else:
-        p_cnt = 2 * paged_attn.TC_PAGES_PER_SPLIT + 3
+        p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
     q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, g, d, 8, int8, p_cnt, ps)
     for window in (None, 4):
         before = paged_attn.PAGED_ATTN_TC.launches
@@ -161,7 +161,7 @@ def test_paged_attn_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
     """A request's output rows are the same bits served alone (B=1) and
     inside a B=4 call: the page splits have a fixed width and nothing is
     reduced across requests."""
-    p_cnt = 2 * paged_attn.TC_PAGES_PER_SPLIT + 3
+    p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
     q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, s, 4, 128, 8, int8, p_cnt)
     full = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, **kw)
     for i in range(4):
