@@ -17,10 +17,13 @@ non-zero and prints no result:
    matmuls (#2, #3) at granite-3-8b's shapes; GQA paged attention (#6)
    at granite-3-8b's (int8 KV) and granite-moe-1b-a400m's (native KV),
    with the padding and idle rows of a mixed step, in bf16 through the
-   tensor-core kernel and in f32 through the scalar one; the native-wire
+   tensor-core kernel and in f32 through the scalar one, and bf16 calls at
+   pages of 4 and 2 slots; the native-wire
    matmuls (#1, #4), with a check that a row's bits do not depend on M,
    at minicpm3-4b's and granite-moe-1b-a400m's; latent paged attention
-   (#6, MLA) at minicpm3-4b's; DAP (#5) bit for bit at every
+   (#6, MLA) at minicpm3-4b's on decode, whole-chunk and mixed steps,
+   keyless rows included, in bf16 through the latent tensor-core kernel
+   and in f32 through the scalar one; DAP (#5) bit for bit at every
    dense-input width of the three paths, NaN, infinities, ties and -0.0
    included;
 4. the main paths, each driven with the launch counters set to 0 just
@@ -31,7 +34,8 @@ non-zero and prints no result:
    random weights in bf16, each serving 8 requests continuously through
    ``Engine.generate_requests``; the counters show every packed linear,
    every attention call and every DAP went through the kernels, every
-   bf16 GQA attention call through the tensor-core kernel.  A dense
+   bf16 GQA attention call through the tensor-core kernel and every bf16
+   latent call through the latent tensor-core kernel.  A dense
    arch's request re-served alone is byte-identical; an MoE token
    depends on its co-batch (expert capacity), so there a fresh engine
    re-serves the same requests and arrivals byte-identically.
@@ -409,11 +413,60 @@ def phase_attention(torch, run_ms):
                              ops=n_layers * nops)
         del k_p, v_p, k32, v32, kk, vv
         torch.cuda.empty_cache()
+    stats["max_abs_err"] = max(stats["max_abs_err"], small_page_gqa(torch, gen))
     t_bytes = stats["bytes"] / HBM_BYTES_PER_S
     t_ops = stats["ops"] / BF16_OPS_PER_S
     stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
     stats["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return stats
+
+
+def small_page_gqa(torch, gen):
+    """bf16 GQA calls at pages of 4 and 2 slots (pad slots fill the S
+    fragment's 8-slot n-tile) at granite-3-8b's head shape, int8 and
+    native KV, a mixed step with an idle row: through the tensor-core
+    kernel, within 1.6e-2 of the plain version.  Returns the max error."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import paged_attn, ref
+
+    b, kv, g, d, s = 4, 8, 4, 128, 16
+    lengths = (300, 117, 64, 50)
+    worst = 0.0
+    for ps in (4, 2):
+        p_cnt = -(-max(lengths) // ps) + 1
+        n_pages = b * p_cnt + 1
+        k_f = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
+        v_f = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
+        pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+        tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
+        nxt = 1
+        for i, t in enumerate(lengths):
+            used = -(-t // ps)
+            tables[i, :used] = torch.arange(nxt, nxt + used, device="cuda")
+            pos = torch.arange(used * ps, device="cuda")
+            pos_tbl[nxt:nxt + used] = torch.where(pos < t, pos, -1).reshape(used, ps).int()
+            nxt += used
+        q_pos = mixed_q_pos(torch, lengths, s)
+        q_pos[3], tables[3] = -1, 0  # an idle row over the null page
+        q = torch.randn((b, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+        for kv_name in ("int8", "native"):
+            if kv_name == "int8":
+                (k_p, k_s), (v_p, v_s) = quant.quantize_rows(k_f), quant.quantize_rows(v_f)
+            else:
+                k_p, v_p, k_s, v_s = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16), None, None
+            kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s)
+            tc_before = paged_attn.PAGED_ATTN_TC.launches
+            out = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            check(paged_attn.PAGED_ATTN_TC.launches == tc_before + 1,
+                  f"paged_attn PS={ps} {kv_name} KV bf16: not the tensor-core kernel")
+            want = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= 1.6e-2, f"paged_attn PS={ps} {kv_name} KV bf16: max error {err:.3g}")
+            say(f"kernel paged_attn granite-3-8b B={b} S={s} mixed with an idle row H={kv * g} "
+                f"KV={kv} D={d} P={p_cnt} PS={ps} {kv_name}-KV bf16 (path: tensor cores): "
+                f"max_abs_err {err:.3g}")
+            worst = max(worst, err)
+    return worst
 
 
 def phase_native_matmuls(torch, run_ms):
@@ -513,8 +566,12 @@ def phase_native_matmuls(torch, run_ms):
 def phase_latent_attention(torch, run_ms):
     """Kernel #6's latent mode at minicpm3-4b's shapes (40 heads over one
     288-wide latent, v its first 256 features, softmax scale 1/sqrt(96)),
-    native bf16 and int8 KV, held against its plain version and timed
-    beside SDPA on the gathered latent window."""
+    native bf16 and int8 KV, on a decode step, whole chunks (the record)
+    and a mixed step (decode rows, a whole chunk, a chunk tail: padding
+    rows with no valid key): bf16 calls must run the latent tensor-core
+    kernel, held against the plain version with and without keyless rows
+    (an idle request over the null page, a padding tail); f32 calls (the
+    scalar kernel) too; timed beside SDPA on the gathered latent window."""
     from repro_torch.core import quant
     from repro_torch.kernels import paged_attn, ref
 
@@ -542,34 +599,55 @@ def phase_latent_attention(torch, run_ms):
     n_valid = int(valid_pages.sum())
     stats = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
     for kv_name, pages, k_scale in (("native", lat, None), ("int8", lat_q, lat_s)):
-        for s in (1, 16):
+        kw = dict(kv_heads=1, softmax_scale=scale, k_scale=k_scale, latent_dv=dv)
+        pages32 = pages if k_scale is not None else pages.float()
+        # library yardstick: SDPA over the gathered, dequantized latent
+        # window, shared by the 40 heads (the gather is set-up)
+        win = pages[tables.long()].reshape(b, p_cnt * ps, dk)
+        if k_scale is not None:
+            win = quant.dequantize_rows(win, k_scale[tables.long()].reshape(b, -1),
+                                        torch.bfloat16)
+        kk = win[:, None].expand(b, h, p_cnt * ps, dk)
+        vv = win[:, None, :, :dv].expand(b, h, p_cnt * ps, dv)
+        kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
+        for s, pattern in ((1, "decode"), (16, "chunks"), (16, "mixed")):
             q = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
-            q_pos = torch.stack(
-                [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
-            kw = dict(kv_heads=1, softmax_scale=scale, k_scale=k_scale, latent_dv=dv)
+            if pattern == "mixed":
+                q_pos = mixed_q_pos(torch, lengths, s)
+            else:
+                q_pos = torch.stack(
+                    [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+            tc_before = paged_attn.PAGED_ATTN_LATENT_TC.launches
             out = paged_attn.paged_attn_cuda(q, pages, None, pos_tbl, tables, q_pos, **kw)
+            check(paged_attn.PAGED_ATTN_LATENT_TC.launches == tc_before + 1,
+                  f"paged_attn_latent S={s} {pattern} {kv_name} KV bf16: not the latent "
+                  f"tensor-core kernel")
             want = ref.paged_attn_ref(q, pages, None, pos_tbl, tables, q_pos, **kw)
             # bf16: two bf16 ulps at 1, as for the GQA mode
             err = (out.float() - want.float()).abs().max().item()
-            check(err <= 1.6e-2, f"paged_attn_latent S={s} {kv_name} KV bf16: max error {err:.3g}")
-            pages32 = pages if k_scale is not None else pages.float()
-            out32 = paged_attn.paged_attn_cuda(q.float(), pages32, None, pos_tbl, tables, q_pos, **kw)
+            check(err <= 1.6e-2,
+                  f"paged_attn_latent S={s} {pattern} {kv_name} KV bf16: max error {err:.3g}")
+            out32 = paged_attn.paged_attn_cuda(q.float(), pages32, None, pos_tbl, tables, q_pos,
+                                               **kw)
             want32 = ref.paged_attn_ref(q.float(), pages32, None, pos_tbl, tables, q_pos, **kw)
             err32 = (out32 - want32).abs().max().item()
             check(err32 <= 1e-5 + 1e-5 * want32.abs().max().item(),
-                  f"paged_attn_latent S={s} {kv_name} KV f32: max error {err32:.3g}")
+                  f"paged_attn_latent S={s} {pattern} {kv_name} KV f32: max error {err32:.3g}")
+            # rows with no valid key (a padding tail, an idle request over the
+            # null page) take the uniform mean over their table, as the plain
+            # version
+            q_pad, t_pad = q_pos.clone(), tables.clone()
+            q_pad[0, s // 2 + 1:] = -1
+            q_pad[3], t_pad[3] = -1, 0
+            out16 = paged_attn.paged_attn_cuda(q, pages, None, pos_tbl, t_pad, q_pad, **kw)
+            want16 = ref.paged_attn_ref(q, pages, None, pos_tbl, t_pad, q_pad, **kw)
+            err_pad = (out16.float() - want16.float()).abs().max().item()
+            check(err_pad <= 1.6e-2,
+                  f"paged_attn_latent S={s} {pattern} {kv_name} KV bf16 with keyless rows: "
+                  f"max error {err_pad:.3g}")
             t_k = run_ms(lambda: paged_attn.paged_attn_cuda(
                 q, pages, None, pos_tbl, tables, q_pos, **kw), 20)
             t_p = run_ms(lambda: ref.paged_attn_ref(q, pages, None, pos_tbl, tables, q_pos, **kw), 2)
-            # library yardstick: SDPA over the gathered, dequantized latent
-            # window, shared by the 40 heads (the gather is set-up)
-            win = pages[tables.long()].reshape(b, p_cnt * ps, dk)
-            if k_scale is not None:
-                win = quant.dequantize_rows(win, k_scale[tables.long()].reshape(b, -1),
-                                            torch.bfloat16)
-            kk = win[:, None].expand(b, h, p_cnt * ps, dk)
-            vv = win[:, None, :, :dv].expand(b, h, p_cnt * ps, dv)
-            kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
             mask = (kpos >= 0) & (kpos <= q_pos.reshape(b, 1, s, 1))
             qq = q.transpose(1, 2)
             t_lib = run_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -581,14 +659,17 @@ def phase_latent_attention(torch, run_ms):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
-            say(f"kernel paged_attn_latent B={b} S={s} H={h} Dk={dk} Dv={dv} P={p_cnt} "
-                f"PS={ps} {kv_name}-KV bf16: kernel_ms {t_k:.4f} plain_ms {t_p:.3f} "
-                f"library_ms {t_lib:.4f} (SDPA) bound_ms {bound:.4f} ({by}) "
-                f"max_abs_err {err:.3g} (f32 {err32:.3g})")
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
-            if s == 16 and kv_name == "native":  # the JSON record: one mixed-step pass
+            say(f"kernel paged_attn_latent B={b} S={s} {pattern} H={h} Dk={dk} Dv={dv} "
+                f"P={p_cnt} PS={ps} {kv_name}-KV bf16 (path: latent tensor cores, "
+                f"{paged_attn.PAGES_PER_SPLIT} pages per split): kernel_ms {t_k:.4f} "
+                f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} (SDPA) bound_ms {bound:.4f} ({by}) "
+                f"max_abs_err {err:.3g} (keyless rows {err_pad:.3g}; f32 path: scalar, "
+                f"{err32:.3g})")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err, err_pad)
+            if pattern == "chunks" and kv_name == "native":  # the JSON record: one mixed-step pass
                 stats.update(ms=62 * t_k, plain_ms=62 * t_p, library_ms=62 * t_lib,
                              bytes=62 * nbytes, ops=62 * nops)
+        del win, kk, vv
     t_bytes = stats["bytes"] / HBM_BYTES_PER_S
     t_ops = stats["ops"] / BF16_OPS_PER_S
     stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -707,12 +788,14 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counters()
     paged_attn.PAGED_ATTN_TC.launches = 0
+    paged_attn.PAGED_ATTN_LATENT_TC.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
     tc_launches = paged_attn.PAGED_ATTN_TC.launches
+    latent_tc_launches = paged_attn.PAGED_ATTN_LATENT_TC.launches
     lm.paged_step = inner
     passes = steps["n"]
     results = eng.last_results
@@ -734,8 +817,13 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     check(tc_launches == counts["paged_attn"][0],
           f"{arch}: {tc_launches} of {counts['paged_attn'][0]} GQA attention launches "
           f"on the tensor-core kernel")
+    # every bf16 latent call went through the latent tensor-core kernel
+    check(latent_tc_launches == counts["paged_attn_latent"][0],
+          f"{arch}: {latent_tc_launches} of {counts['paged_attn_latent'][0]} latent attention "
+          f"launches on the latent tensor-core kernel")
     say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})} "
-        f"(paged_attn on the tensor-core kernel: {tc_launches}), "
+        f"(paged_attn on the tensor-core kernel: {tc_launches}, paged_attn_latent on the "
+        f"latent tensor-core kernel: {latent_tc_launches}), "
         f"plain-version calls {json.dumps({k: v[1] for k, v in counts.items()})}")
     ttft = sorted(r.time_to_first_token for r in results)
     tok_s = N_REQUESTS * N_NEW / wall

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Device time of paged attention's GQA mode (kernel #6) on the patterns
-a serving step gives it, for one checkout of the port.
+"""Device time of paged attention (kernel #6) on the patterns a serving
+step gives it, for one checkout of the port.
 
     python3 scripts/bench_paged_attn.py [--root DIR] [--label NAME] [--iters 50]
-        [--pages-per-split N]
+        [--mode gqa|latent] [--pages-per-split N]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
-checkouts compare in one call: run it once per checkout, in turns.  At
-granite-3-8b's shapes (32 heads over 8 KV heads of 128, int8 KV) and
-granite-moe-1b-a400m's (16 over 8 of 64, native bf16 KV), B=4 requests
-that cached 1000, 517, 64 and 250 tokens in 16-slot pages, tables of 64
-pages padded with the null page, it times one call (median of CUDA-event
-times, cold L2) of four patterns:
+checkouts compare in one call: run it once per checkout, in turns.  B=4
+requests that cached 1000, 517, 64 and 250 tokens in 16-slot pages,
+tables of 64 pages padded with the null page.  ``--mode gqa`` (the
+default) runs the GQA mode at granite-3-8b's shapes (32 heads over 8 KV
+heads of 128, int8 KV) and granite-moe-1b-a400m's (16 over 8 of 64,
+native bf16 KV); ``--mode latent`` the MLA latent mode at minicpm3-4b's
+(40 heads over one 288-wide latent, v its first 256 features, softmax
+scale 1/sqrt(96)), native bf16 KV (its main path) and int8 KV.  It times
+one call (median of CUDA-event times, cold L2) of four patterns:
 
 - ``decode``: S=1, every row live;
 - ``chunks``: S=16, every row a whole chunk;
@@ -36,6 +39,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--mode", default="gqa", choices=("gqa", "latent"))
     ap.add_argument("--pages-per-split", type=int, default=None)
     args = ap.parse_args()
     import torch
@@ -67,28 +71,41 @@ def main():
         return statistics.median(times)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, kv, ps, p_cnt = 4, 8, 16, 64
+    b, ps, p_cnt = 4, 16, 64
     n_pages = b * p_cnt + 1
     lengths = (1000, 517, 64, 250)
-    for arch, g, d, kv_dtype in (("granite-3-8b", 4, 128, "int8"),
-                                 ("granite-moe-1b-a400m", 2, 64, "native")):
+    pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
+    nxt = 1
+    for i, t in enumerate(lengths):
+        used = -(-t // ps)
+        tables[i, :used] = torch.arange(nxt, nxt + used, device="cuda")
+        pos = torch.arange(used * ps, device="cuda")
+        pos_tbl[nxt:nxt + used] = torch.where(pos < t, pos, -1).reshape(used, ps).int()
+        nxt += used
+    if args.mode == "gqa":
+        # (name, KV heads, query heads per KV head, head dim, KV dtype)
+        shapes = (("granite-3-8b", 8, 4, 128, "int8"), ("granite-moe-1b-a400m", 8, 2, 64, "native"))
+    else:
+        shapes = (("minicpm3-4b", 1, 40, 288, "native"), ("minicpm3-4b", 1, 40, 288, "int8"))
+    for arch, kv, g, d, kv_dtype in shapes:
         k = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
-        v = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
-        kw = dict(kv_heads=kv)
-        if kv_dtype == "int8":
-            (k, k_s), (v, v_s) = quant.quantize_rows(k), quant.quantize_rows(v)
-            kw.update(k_scale=k_s, v_scale=v_s)
+        if args.mode == "latent":
+            v = None
+            kw = dict(kv_heads=1, softmax_scale=1.0 / (96 ** 0.5), latent_dv=256)
+            if kv_dtype == "int8":
+                k, k_s = quant.quantize_rows(k)
+                kw.update(k_scale=k_s)
+            else:
+                k = k.to(torch.bfloat16)
         else:
-            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
-        tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
-        nxt = 1
-        for i, t in enumerate(lengths):
-            used = -(-t // ps)
-            tables[i, :used] = torch.arange(nxt, nxt + used, device="cuda")
-            pos = torch.arange(used * ps, device="cuda")
-            pos_tbl[nxt:nxt + used] = torch.where(pos < t, pos, -1).reshape(used, ps).int()
-            nxt += used
+            v = torch.randn((n_pages, ps, kv * d), generator=gen, device="cuda")
+            kw = dict(kv_heads=kv)
+            if kv_dtype == "int8":
+                (k, k_s), (v, v_s) = quant.quantize_rows(k), quant.quantize_rows(v)
+                kw.update(k_scale=k_s, v_scale=v_s)
+            else:
+                k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
         for pattern in ("decode", "chunks", "mixed", "idle"):
             s = 1 if pattern == "decode" else 16
             q_pos = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
@@ -100,8 +117,8 @@ def main():
                 q_pos[3], tbl[3] = -1, 0
             q = torch.randn((b, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
             ms = time_ms(lambda: paged_attn.paged_attn_cuda(q, k, v, pos_tbl, tbl, q_pos, **kw))
-            print(f"{args.label}: paged_attn {arch} {kv_dtype}-KV {pattern} B={b} S={s} "
-                  f"H={kv * g} KV={kv} D={d} P={p_cnt} PS={ps}: {ms:.4f} ms", flush=True)
+            print(f"{args.label}: paged_attn {args.mode} {arch} {kv_dtype}-KV {pattern} B={b} "
+                  f"S={s} H={kv * g} KV={kv} D={d} P={p_cnt} PS={ps}: {ms:.4f} ms", flush=True)
     return 0
 
 

@@ -9,12 +9,16 @@ latent mode (``PAGED_ATTN_LATENT``: ``kv_heads=1``, the page holds the
 the v pages are never read).  The plain version is
 ``kernels/ref.py::paged_attn_ref``.
 
-Every bf16 GQA call runs the tensor-core kernel (``mma.sync`` bf16 for
-Q K^T and P V, a two-stage ``cp.async`` page ring), counted in
-``PAGED_ATTN`` and also in ``PAGED_ATTN_TC``; it takes ``Dk % 16 == 0``,
-``Dv % 8 == 0`` (at most 128), ``PS % 8 == 0`` (at most 64) and at most
-64 query heads per KV head, and raises on other bf16 GQA shapes.  The
-latent mode and f32 calls run the scalar kernel.
+Every bf16 call runs on the tensor cores (``mma.sync`` bf16 for Q K^T and
+P V, a two-stage ``cp.async`` page ring): GQA calls in
+``paged_attn_tc_kernel``, counted in ``PAGED_ATTN`` and ``PAGED_ATTN_TC``;
+latent calls in ``paged_attn_latent_tc_kernel`` (query rows tiled across
+token boundaries, one k tile for both products), counted in
+``PAGED_ATTN_LATENT`` and ``PAGED_ATTN_LATENT_TC``.  Both take any page
+size from 1 to ``MAX_PAGE_SIZE`` slots and ``Dk % 16 == 0``,
+``Dv % 8 == 0``; GQA also ``Dv <= 128`` and at most 64 query heads per KV
+head, latent ``Dv <= 256``.  They raise on other bf16 shapes: nothing
+falls back.  f32 calls run the scalar kernel.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ from repro_torch.kernels import native
 PAGED_ATTN = native.Counter()  # kernel #6, GQA mode
 PAGED_ATTN_LATENT = native.Counter()  # kernel #6, MLA latent mode
 PAGED_ATTN_TC = native.Counter()  # the tensor-core kernel's share of PAGED_ATTN
+PAGED_ATTN_LATENT_TC = native.Counter()  # the latent tensor-core kernel's share
 
-# pages one block walks (at most 32); the rest of a request's table goes
-# to more blocks whose partial softmax statistics a second kernel merges.
-# A fixed width, so a row's bits never depend on the batch, its length or
-# the co-batch.
+# pages one block walks (at most 32), in both modes; the rest of a
+# request's table goes to more blocks whose partial softmax statistics a
+# second kernel merges.  A fixed width, so a row's bits never depend on
+# the batch, its length or the co-batch.
 PAGES_PER_SPLIT = 4
+MAX_PAGE_SIZE = 64  # slots of a page the tensor-core kernels take, at most
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
@@ -53,22 +59,24 @@ def _entries():
         smem.argtypes = [I] * 6
         smem.restype = ctypes.c_size_t
         tc_smem = lib.paged_attn_tc_smem_bytes
-        tc_smem.argtypes = [I] * 7
+        tc_smem.argtypes = [I] * 8
         tc_smem.restype = ctypes.c_size_t
         _fns = (fn, smem, tc_smem)
     return _fns
 
 
-def tc_shape_error(g: int, dk: int, dv: int, ps: int) -> Optional[str]:
-    """Why the tensor-core kernel does not take a bf16 GQA call of these
-    shapes (``g`` query heads per KV head), or None when it does."""
+def tc_shape_error(g: int, dk: int, dv: int, ps: int, latent: bool = False) -> Optional[str]:
+    """Why the tensor-core kernel does not take a bf16 call of these shapes
+    (GQA: ``g`` query heads per KV head; ``latent``: MLA's latent mode, any
+    ``g``), or None when it does."""
     if dk % 16:
         return f"head dim Dk={dk} is not a multiple of 16"
-    if dv % 8 or dv > 128:
-        return f"value dim Dv={dv} is not a multiple of 8 up to 128"
-    if ps % 8 or ps > 64:
-        return f"page size PS={ps} is not a multiple of 8 up to 64"
-    if g > 64:
+    max_dv = 256 if latent else 128
+    if dv % 8 or dv > max_dv:
+        return f"value dim Dv={dv} is not a multiple of 8 up to {max_dv}"
+    if not 1 <= ps <= MAX_PAGE_SIZE:
+        return f"page size PS={ps} is not between 1 and {MAX_PAGE_SIZE}"
+    if not latent and g > 64:
         return f"{g} query heads per KV head exceed 64"
     return None
 
@@ -133,17 +141,22 @@ def paged_attn_cuda(
         native.cuda_arg(q_pos, "q_pos", torch.int32, (b, s)),
     ]
     g = h // kv_heads
-    tc = q.dtype == torch.bfloat16 and not latent
+    tc = q.dtype == torch.bfloat16
     if tc:
-        why = tc_shape_error(g, dk, dv, ps)
-        if why is None and any(a % 16 for a in args[:5] if a is not None):  # cp.async sources
-            why = "q, a page pool or a scale plane is not 16-byte aligned"
+        why = tc_shape_error(g, dk, dv, ps, latent)
+        # cp.async sources: q and the pages by 16 bytes, the scale planes by
+        # 16 bytes when a page's scales are (PS % 4 == 0), else by 4
+        scale_align = 16 if ps % 4 == 0 else 4
+        if why is None and (any(a % 16 for a in args[:3] if a is not None)
+                            or any(a % scale_align for a in args[3:5] if a is not None)):
+            why = "q, a page pool or a scale plane is not aligned for cp.async"
         if why is not None:
-            raise ValueError(f"bf16 GQA paged attention (tensor-core kernel): {why}")
+            mode = "latent" if latent else "GQA"
+            raise ValueError(f"bf16 {mode} paged attention (tensor-core kernel): {why}")
     fn, smem, tc_smem = _entries()
     pps = PAGES_PER_SPLIT
     if tc:
-        need = tc_smem(s, g, dk, dv, ps, pps, int(kv_int8))
+        need = tc_smem(s, g, dk, dv, ps, pps, int(kv_int8), int(latent))
     else:
         need = smem(s, g, dk, dv, ps, int(latent))
     if need > SMEM_LIMIT:
@@ -166,5 +179,5 @@ def paged_attn_cuda(
     native.check(err, "paged_attn")
     (PAGED_ATTN_LATENT if latent else PAGED_ATTN).launches += 1
     if tc:
-        PAGED_ATTN_TC.launches += 1
+        (PAGED_ATTN_LATENT_TC if latent else PAGED_ATTN_TC).launches += 1
     return out

@@ -16,8 +16,9 @@ decoders with GQA or MLA attention are served.
 This is the continuous path only.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that will lift it:
 other prefill modes, unpacked weights, sampled decoding, speculative
-decoding, snapshots and non-dense families.  A kernel failure raises;
-there is no fallback path.
+decoding, the gather attention path, snapshots, non-dense families and,
+on CUDA, pages of more than 64 slots.  A kernel failure raises; there
+is no fallback path.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sampling import SamplingParams, sample_tokens, validate_sampling
+from repro_torch.kernels.paged_attn import MAX_PAGE_SIZE
 from repro_torch.models import common, lm
 from repro_torch.serve import paged_cache
 from repro_torch.serve.scheduler import FINISH_LENGTH, DecodeRun, Request, Scheduler
@@ -47,6 +49,15 @@ class ServeConfig:
     decode-only run emits per dispatch; ``prefix_cache`` keeps computed
     prompt pages for reuse across calls; ``max_queue``/``backpressure``/
     ``preempt_after`` bound overload (see ``serve/scheduler.py``).
+
+    Every field of the reference is here, with its default and its
+    validation: a config the reference refuses raises ``ValueError``
+    here too.  ``paged_attn``: ``"auto"`` and ``"fused"`` both run the
+    fused kernel (#6), ``"gather"`` is not ported.  ``snapshot_dir``/
+    ``snapshot_every``/``snapshot_keep`` are checked as the reference
+    checks them, and ``snapshot_every > 0`` is not ported.
+    ``hang_threshold`` is checked (> 1) and kept; the watchdog that
+    reads it comes with the rest of the engine (ROADMAP queue 1, item 8).
     """
 
     max_seq: int = 512
@@ -62,32 +73,31 @@ class ServeConfig:
     max_pages: Optional[int] = None
     max_batch: int = 4
     prefill_chunk: int = 8
+    paged_attn: str = "auto"
     decode_block: int = 16
     prefix_cache: bool = True
     max_queue: Optional[int] = None
     backpressure: str = "reject"
     preempt_after: Optional[int] = None
     spec: Optional[object] = None
+    snapshot_dir: Optional[str] = None
     snapshot_every: int = 0
+    snapshot_keep: int = 3
+    hang_threshold: float = 10.0
 
     def __post_init__(self):
+        # the reference's checks first, then the limits of this port
         validate_sampling(
             self.temperature, self.top_k, self.top_p, self.seed, where="ServeConfig"
         )
-        if self.prefill_mode != "continuous":
-            raise _not_ported(f"prefill_mode={self.prefill_mode!r}", "queue 1, item 8")
-        if not self.pack_weights:
-            raise _not_ported("serving unpacked (dense) weights", "queue 1, item 7")
         if self.wire_dtype not in ("native", "int8"):
             raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}; native|int8")
-        if self.spec is not None:
-            raise _not_ported("speculative decoding (spec)", "queue 1, item 8")
-        if self.snapshot_every:
-            raise _not_ported("snapshots (snapshot_every)", "queue 1, item 8")
         if self.kv_dtype not in ("native", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}; native|int8")
         if self.backpressure not in ("reject", "block"):
             raise ValueError(f"unknown backpressure {self.backpressure!r}; reject|block")
+        if self.paged_attn not in ("auto", "gather", "fused"):
+            raise ValueError(f"unknown paged_attn {self.paged_attn!r}; auto|gather|fused")
         for name in ("max_seq", "page_size", "max_batch", "prefill_chunk", "decode_block"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -95,11 +105,30 @@ class ServeConfig:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
         if self.preempt_after is not None and self.preempt_after < 1:
             raise ValueError(f"preempt_after must be >= 1, got {self.preempt_after}")
+        if self.snapshot_every < 0:
+            raise ValueError(f"snapshot_every must be >= 0, got {self.snapshot_every}")
+        if self.snapshot_every and self.snapshot_dir is None:
+            raise ValueError("snapshot_every > 0 requires snapshot_dir")
+        if self.snapshot_keep < 1:
+            raise ValueError(f"snapshot_keep must be >= 1, got {self.snapshot_keep}")
+        if self.hang_threshold <= 1.0:
+            raise ValueError(f"hang_threshold must be > 1, got {self.hang_threshold}")
         if self.max_pages is not None and self.max_pages < self.pages_per_request + 1:
             raise ValueError(
                 f"max_pages={self.max_pages} cannot hold one max_seq={self.max_seq} "
                 f"request: need >= {self.pages_per_request} data pages + 1 null page"
             )
+        if self.prefill_mode != "continuous":
+            raise _not_ported(f"prefill_mode={self.prefill_mode!r}", "queue 1, item 8")
+        if not self.pack_weights:
+            raise _not_ported("serving unpacked (dense) weights", "queue 1, item 7")
+        if self.spec is not None:
+            raise _not_ported("speculative decoding (spec)", "queue 1, item 8")
+        if self.paged_attn == "gather":
+            raise _not_ported("the gather paged-attention path (paged_attn='gather')",
+                              "queue 1, item 8")
+        if self.snapshot_every:
+            raise _not_ported("snapshots (snapshot_every)", "queue 1, item 8")
 
     @property
     def pages_per_request(self) -> int:
@@ -188,6 +217,12 @@ class Engine:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and scfg.page_size > MAX_PAGE_SIZE:
+            raise NotImplementedError(
+                f"page_size={scfg.page_size}: the tensor-core paged-attention kernels take "
+                f"pages of at most {MAX_PAGE_SIZE} slots (ROADMAP queue 3, "
+                f"page sizes above {MAX_PAGE_SIZE})"
+            )
         lm._check_family(cfg)
         if cfg.sparsity.mode not in ("wdbb", "awdbb"):
             raise ValueError(

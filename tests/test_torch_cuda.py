@@ -156,6 +156,22 @@ def test_paged_attn_tc_kernel_bf16(cuda, monkeypatch, g, d, int8, s, splits, ps)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("ps", [1, 2, 3, 4, 5, 12, 24, 64])
+def test_paged_attn_tc_kernel_bf16_page_sizes(cuda, int8, ps):
+    """Page sizes that are not a multiple of 8 (pad slots at position -1
+    with a zero K row and a -inf logit) and the largest, 64, at
+    granite-3-8b's head shape: mixed and keyless rows within 1.6e-2."""
+    p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, 16, 4, 128, 8, int8, p_cnt, ps)
+    before = paged_attn.PAGED_ATTN_TC.launches
+    got = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, **kw)
+    assert paged_attn.PAGED_ATTN_TC.launches == before + 1
+    want = ref.paged_attn_ref(q, k, v, pos, tables, q_pos, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2, err
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [1, 16])
 def test_paged_attn_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
     """A request's output rows are the same bits served alone (B=1) and
@@ -172,7 +188,7 @@ def test_paged_attn_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
 
 
 @pytest.mark.parametrize("g,dk,dv,ps", [(4, 40, 40, 16), (4, 64, 60, 16), (4, 64, 136, 16),
-                                        (4, 64, 64, 12), (4, 64, 64, 72), (80, 64, 64, 16)])
+                                        (4, 64, 64, 72), (80, 64, 64, 16)])
 def test_paged_attn_tc_unsupported_shapes_raise(cuda, g, dk, dv, ps):
     """bf16 GQA shapes the tensor-core kernel does not take raise; nothing
     falls back to the scalar kernel or the plain version."""
@@ -272,6 +288,142 @@ def test_paged_attn_latent_kernel(cuda, int8, s):
     want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert paged_attn.PAGED_ATTN_LATENT.launches > 0
+
+
+def _latent_case(gen, s, int8, p_cnt, ps, h=40, dk=288, dv=256):
+    """bf16 latent operands at minicpm3-4b's head shape (40 query heads
+    over one 288-wide latent, v its first 256 features): the requests of
+    ``_tc_case`` (a long one, a short one whose second page is scrubbed
+    when the first holds its 9 tokens, an idle one over the null page, and
+    a third), each as many tokens as its pages hold, padding rows before a
+    request's first cached token and at the end of request 1, tables
+    null-padded to ``p_cnt`` pages."""
+    n_pages = 12
+    lat = torch.randn((n_pages, ps, dk), generator=gen, device="cuda")
+    k_scale = None
+    if int8:
+        lat, k_scale = quant.quantize_rows(lat)
+    else:
+        lat = lat.to(torch.bfloat16)
+    pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((4, p_cnt), dtype=torch.int32, device="cuda")
+    lengths = []
+    for i, (t, pages) in enumerate(zip((70, 9, 0, 40), ([1, 2, 3, 4, 5], [6, 7], [], [8, 9, 10]))):
+        t = min(t, len(pages) * ps)  # tokens the pages hold
+        lengths.append(t)
+        for j, page in enumerate(pages):
+            p = torch.arange(j * ps, (j + 1) * ps, device="cuda")
+            pos[page] = torch.where(p < t, p, -1).to(torch.int32)
+        if pages:
+            tables[i, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    q_pos = torch.full((4, s), -1, dtype=torch.int32, device="cuda")
+    for i, t in enumerate(lengths):
+        n = min(s, t) if i != 1 else min(s, t, max(1, s - 2))
+        q_pos[i, :n] = torch.arange(t - n, t, dtype=torch.int32, device="cuda")
+    q = torch.randn((4, s, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(kv_heads=1, softmax_scale=1.0 / math.sqrt(96), k_scale=k_scale, latent_dv=dv)
+    return q, lat, pos, tables, q_pos, kw
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16, 20])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("ps", [4, 8, 16, 32])
+def test_paged_attn_latent_tc_kernel_bf16(cuda, monkeypatch, int8, s, splits, ps):
+    """#6's latent tensor-core kernel (bf16 MLA) against the plain version
+    at minicpm3-4b's head shapes: decode (40 rows, one row tile), a whole
+    chunk (640 rows over 10 tiles) and 20 tokens (800 rows, tiles across
+    token boundaries), padding rows, an idle row over the null page, a
+    scrubbed page, one split (the output written directly) and three (the
+    combine), pages of 4, 8, 16 and 32 slots."""
+    if splits == 1:  # a table no wider than one split
+        monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 8)
+        p_cnt = 8
+    else:
+        p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, ps)
+    before = (paged_attn.PAGED_ATTN_LATENT.launches, paged_attn.PAGED_ATTN_LATENT_TC.launches)
+    got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+    assert (paged_attn.PAGED_ATTN_LATENT.launches,
+            paged_attn.PAGED_ATTN_LATENT_TC.launches) == (before[0] + 1, before[1] + 1)
+    want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2, err
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16])
+def test_paged_attn_latent_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
+    """A request's latent rows are the same bits alone (B=1) and inside a
+    B=4 call: the row tiles and splits are fixed by the mode, and a row's
+    arithmetic is its own warps'."""
+    p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, 16)
+    full = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+    for i in range(4):
+        alone = paged_attn.paged_attn_cuda(q[i:i + 1].contiguous(), lat, None, pos,
+                                           tables[i:i + 1].contiguous(),
+                                           q_pos[i:i + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], full[i]), i
+
+
+@pytest.mark.parametrize("dk,dv,ps", [(40, 32, 16), (288, 260, 16), (320, 264, 16),
+                                      (288, 256, 72)])
+def test_paged_attn_latent_tc_unsupported_shapes_raise(cuda, dk, dv, ps):
+    """bf16 latent shapes the tensor-core kernel does not take raise;
+    nothing falls back to the scalar kernel or the plain version."""
+    n_pages = 3
+    q = torch.zeros((1, 1, 40, dk), dtype=torch.bfloat16, device="cuda")
+    lat = torch.zeros((n_pages, ps, dk), dtype=torch.bfloat16, device="cuda")
+    pos = torch.zeros((n_pages, ps), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    q_pos = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    before = (paged_attn.PAGED_ATTN_LATENT.launches, paged_attn.PAGED_ATTN_LATENT_TC.launches)
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, kv_heads=1, latent_dv=dv)
+    assert (paged_attn.PAGED_ATTN_LATENT.launches,
+            paged_attn.PAGED_ATTN_LATENT_TC.launches) == before
+
+
+@pytest.mark.parametrize("page_size", [2, 4])
+def test_engine_serves_small_pages_bf16(cuda, monkeypatch, page_size):
+    """A granite smoke config in bf16 serves at page sizes 2 and 4 on
+    CUDA through the tensor-core kernel, and its tokens equal the same
+    engine's on the CPU (the kernels' plain versions).  A split here
+    takes a whole table (32 pages): the kernel then walks the pages in
+    the plain version's order and writes its output itself.  With several
+    splits the combine rounds in another order, within 1.6e-2 of the
+    plain version (the kernel tests above), and DAP's top-4 selection
+    after attention can turn one bf16 ulp into another token: at
+    ``page_size=2`` and 4 pages a split, the 15th token of a request
+    differs, its logits 0.3-0.6 apart on the two devices (NVIDIA H100)."""
+    monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 32)
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = dataclasses.replace(configs.get_config("granite_3_8b", smoke=True), vocab=64,
+                              d_model=64, d_ff=128, n_layers=2, dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    scfg = ServeConfig(max_seq=32, page_size=page_size, max_batch=2, prefill_chunk=4)
+    rng = np.random.default_rng(page_size)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 12)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        ops.reset_counters()
+        paged_attn.PAGED_ATTN_TC.launches = 0
+        eng = Engine(params, cfg, scfg, device=device)
+        outs[device] = eng.generate_requests(prompts, 6, arrivals=[0, 3, 1])
+    attn = ops.counters()["paged_attn"]
+    assert attn.plain == 0 and attn.launches > 0
+    assert paged_attn.PAGED_ATTN_TC.launches == attn.launches
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("m,k", [(4, 768), (64, 4096), (3, 40), (1, 8)])

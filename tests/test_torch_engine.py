@@ -27,6 +27,7 @@ from _torch_parity import (
     reference_params,
     small_cfgs,
 )
+from repro.serve import engine as jengine
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.serve import engine as tengine
 
@@ -72,7 +73,8 @@ SLICE_LIMITS = {  # fixed ids: every xdist worker must collect the same names
     "stepped": dict(prefill_mode="stepped"), "auto": dict(prefill_mode="auto"),
     "unpacked": dict(pack_weights=False),
     "sampled": dict(temperature=0.7), "spec": dict(spec="draft"),
-    "snapshots": dict(snapshot_every=4),
+    "snapshots": dict(snapshot_every=4, snapshot_dir="snapshots"),
+    "gather": dict(paged_attn="gather"),
 }
 
 
@@ -89,3 +91,66 @@ def test_non_dense_family_and_sampling_raise(weights):
                        tengine.ServeConfig(**SERVE), device="cpu")
     with pytest.raises(NotImplementedError, match="threefry"):
         SamplingParams(temperature=0.5)
+
+
+# reference-valid configs of the continuous packed path, over the fields
+# this slice added; fixed ids for xdist
+REFERENCE_VALID = {
+    "auto": dict(paged_attn="auto"), "fused": dict(paged_attn="fused"),
+    "snapshot_dir": dict(snapshot_dir="snapshots", snapshot_keep=1),
+    "hang_threshold": dict(hang_threshold=1.5),
+    "page_size_2": dict(page_size=2, max_seq=64), "page_size_4": dict(page_size=4),
+    "page_size_72": dict(page_size=72),
+}
+REFERENCE_INVALID = {
+    "paged_attn": dict(paged_attn="ring"), "snapshot_every": dict(snapshot_every=-1),
+    "snapshot_without_dir": dict(snapshot_every=3), "snapshot_keep": dict(snapshot_keep=0),
+    "hang_threshold": dict(hang_threshold=1.0),
+}
+CONTINUOUS = dict(prefill_mode="continuous", pack_weights=True)
+
+
+def test_serve_config_has_every_reference_field():
+    """Every field of the reference's ServeConfig exists in the port's;
+    the four this slice added keep the reference's defaults."""
+    import dataclasses as dc
+
+    ref = {f.name: f.default for f in dc.fields(jengine.ServeConfig)}
+    port = {f.name: f.default for f in dc.fields(tengine.ServeConfig)}
+    assert set(ref) <= set(port), set(ref) - set(port)
+    for name in ("paged_attn", "snapshot_dir", "snapshot_keep", "hang_threshold"):
+        assert port[name] == ref[name], name
+
+
+@pytest.mark.parametrize("name", list(REFERENCE_VALID))
+def test_reference_valid_serve_config_constructs(name):
+    kw = dict(CONTINUOUS, **REFERENCE_VALID[name])
+    ref = jengine.ServeConfig(**kw)
+    port = tengine.ServeConfig(**kw)
+    for key in kw:
+        assert getattr(port, key) == getattr(ref, key), key
+
+
+@pytest.mark.parametrize("name", list(REFERENCE_INVALID))
+def test_reference_invalid_serve_config_raises(name):
+    """A config the reference refuses is a ValueError in the port too,
+    not a slice limit."""
+    kw = dict(CONTINUOUS, **REFERENCE_INVALID[name])
+    with pytest.raises(ValueError):
+        jengine.ServeConfig(**kw)
+    with pytest.raises(ValueError):
+        tengine.ServeConfig(**kw)
+
+
+def test_gather_and_large_pages_on_cuda_raise(weights):
+    """``paged_attn="gather"`` names queue 1 item 8; on CUDA a page above
+    64 slots is refused when the engine is built, naming its queue-3 item,
+    before anything touches the card; on the CPU it serves."""
+    _, tcfg, _, tparams = weights
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        tengine.ServeConfig(**SERVE, paged_attn="gather")
+    scfg = tengine.ServeConfig(**dict(SERVE, page_size=72))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3, page sizes above 64"):
+        tengine.Engine(tparams, tcfg, scfg, device="cuda")
+    eng = tengine.Engine(tparams, tcfg, scfg, device="cpu")
+    assert eng.scfg.page_size == 72

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.core import dbb as jdbb
+from repro.core import quant as jquant
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.paged_attn import paged_attn_fused
@@ -241,6 +242,41 @@ def test_paged_attn_plain_bf16_vs_interpret_kernel(int8):
                                rtol=0)
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["native_kv", "int8_kv"])
+@pytest.mark.parametrize("ps", [4, 3], ids=["ps4", "ps3"])
+def test_paged_attn_plain_bf16_latent_vs_interpret_kernel(int8, ps):
+    """The call the latent tensor-core kernel takes on the card: bf16 MLA
+    latent mode (one latent of Dk = 48, v its first 32 features, 8 query
+    heads, an explicit softmax scale), pages of 4 and of 3 slots (not a
+    multiple of 8), int8 k with scales or native bf16, a chunk with padding
+    rows (no valid key): the plain version vs the interpret-mode Pallas
+    kernel, both in bf16, within 1.6e-2 as for GQA."""
+    lora, rope_d, h, s = 32, 16, 8, 3
+    cache, pos_tbl, tables = make_paged_state(41 + ps, n_tokens=(9, 5), ps=ps,
+                                              kvd=lora + rope_d, garbage_scale=1.0)
+    k = cache["k"]
+    k_scale = None
+    if int8:  # MLA quantizes only the latent k plane
+        k, k_scale = jquant.quantize_rows(k)
+    else:
+        k = k.astype(jnp.bfloat16)
+    rng = np.random.default_rng(141 + ps)
+    q = jnp.asarray(rng.normal(size=(2, s, h, lora + rope_d)), jnp.bfloat16)
+    q_pos = jnp.asarray([[6, 7, 8], [4, -1, -1]], jnp.int32)
+    scale = 1.0 / np.sqrt(24.0)
+    want = paged_attn_fused(q, k, None, pos_tbl, tables, q_pos, interpret=True, kv_heads=1,
+                            softmax_scale=scale, k_scale=k_scale, latent_dv=lora)
+    got = tref.paged_attn_ref(
+        _t(np.asarray(q, np.float32)).to(torch.bfloat16),
+        _t(k) if int8 else _t(np.asarray(k, np.float32)).to(torch.bfloat16), None,
+        _t(pos_tbl), _t(tables), _t(q_pos), kv_heads=1, softmax_scale=scale,
+        k_scale=None if k_scale is None else _t(k_scale), latent_dv=lora,
+    )
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, s, h, lora)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1.6e-2,
+                               rtol=0)
+
+
 def test_tc_shape_rule():
     """The shapes the tensor-core kernel takes: the main paths' head
     shapes do, the rest name what they break."""
@@ -248,9 +284,30 @@ def test_tc_shape_rule():
     assert paged_attn.tc_shape_error(2, 64, 64, 16) is None  # granite-moe-1b-a400m
     assert paged_attn.tc_shape_error(64, 16, 8, 8) is None
     for args, word in (((4, 40, 40, 16), "Dk=40"), ((4, 64, 60, 16), "Dv=60"),
-                       ((4, 64, 136, 16), "Dv=136"), ((4, 64, 64, 12), "PS=12"),
-                       ((4, 64, 64, 72), "PS=72"), ((65, 64, 64, 16), "65 query heads")):
+                       ((4, 64, 136, 16), "Dv=136"), ((4, 64, 64, 72), "PS=72"),
+                       ((65, 64, 64, 16), "65 query heads")):
         assert word in paged_attn.tc_shape_error(*args)
+
+
+@pytest.mark.parametrize("latent", [False, True], ids=["gqa", "latent"])
+def test_tc_shape_rule_page_sizes(latent):
+    """Both tensor-core kernels take every page size from 1 to 64 slots
+    (pad slots fill the S fragment's 8-slot n-tiles) and none above."""
+    g, dk, dv = (40, 288, 256) if latent else (4, 128, 128)
+    for ps in range(1, paged_attn.MAX_PAGE_SIZE + 1):
+        assert paged_attn.tc_shape_error(g, dk, dv, ps, latent) is None, ps
+    for ps in (0, 65, 72, 128):
+        assert f"PS={ps}" in paged_attn.tc_shape_error(g, dk, dv, ps, latent)
+
+
+def test_tc_shape_rule_latent():
+    """The latent kernel: minicpm3-4b's latent (Dk 288, Dv 256, 40 query
+    heads over one latent) and any head count; Dv up to 256, within Dk."""
+    assert paged_attn.tc_shape_error(40, 288, 256, 16, latent=True) is None  # minicpm3-4b
+    assert paged_attn.tc_shape_error(128, 48, 8, 1, latent=True) is None
+    for args, word in (((40, 40, 32, 16), "Dk=40"), ((40, 288, 260, 16), "Dv=260"),
+                       ((40, 320, 264, 16), "Dv=264"), ((40, 288, 256, 80), "PS=80")):
+        assert word in paged_attn.tc_shape_error(*args, latent=True)
 
 
 # ------------------------------------------------------------- dispatch
