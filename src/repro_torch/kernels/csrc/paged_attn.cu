@@ -53,11 +53,14 @@
 // from shared memory into the bf16 tiles exactly as the scalar kernel
 // does, round_bf16(f32(q) * scale).  The slot positions of the block's
 // whole page split are read first, so only pages with a valid slot enter
-// the ring.  Any page size from 1 to 64 slots: the K tile's slots are
-// padded to a multiple of 8 (the S fragment's n-tile) and the V tile's to
-// 16 (P V's k-step), pad rows zero; a pad slot has position -1 and its
-// logit is a true -inf, so it adds nothing to any row, also to a row
-// that has seen no valid key (NEG_INF there would give it weight 1).
+// the ring.  Any page size: a page of more than 64 slots is walked as
+// ceil(PS / 64) sub-pages of 64 slots (the last one shorter), each its
+// own pass of the S fragment and its own stage of the ring; the K tile's
+// slots are padded to a multiple of 8 (the S fragment's n-tile) and the V
+// tile's to 16 (P V's k-step), pad rows zero (copied as zero-fill); a pad
+// slot has position -1 and its logit is a true -inf, so it adds nothing
+// to any row, also to a row that has seen no valid key (NEG_INF there
+// would give it weight 1).
 // Slot-less pages add their summed v to the rows that have seen no valid
 // key (m == NEG_INF) after the ring, in the thread's own register
 // fragments; for every other row they add exactly nothing, in whatever
@@ -71,7 +74,7 @@
 // split, up to 64 query rows of whole tokens); one warp per 16-row m-tile
 // holding all Dv <= 128 columns (a decode step's G rows pad one tile:
 // padding rows compute and are never written).  Shapes: Dk % 16 == 0,
-// Dv % 8 == 0 and <= 128, 1 <= PS <= 64, G <= 64.
+// Dv % 8 == 0 and <= 128, PS >= 1, G <= 64.
 //
 // Latent (paged_attn_latent_tc_kernel): with KV = 1 the S * G rows of a
 // request form one row space, and a block takes a tile of LT_MTILES * 16
@@ -86,8 +89,11 @@
 // warps' and quad's whatever the tile, so its bits do not depend on S or
 // its position.  A block whose split has no page with a slot and no
 // keyless row leaves after writing its rows' (m, l), before it copies q.
-// Shapes: Dk % 16 == 0, Dv % 8 == 0 and <= min(Dk, 256), 1 <= PS <= 64,
-// any G.
+// A latent width that is a multiple of 8 but not of 16 (minicpm3's smoke
+// latent of 40) is zero-padded to the next multiple of 16 in q's and K's
+// shared rows: the extra columns add exactly 0 to Q K^T, and v stays the
+// first Dv columns.  Shapes: Dk % 8 == 0, Dv % 8 == 0 and <= min(Dk,
+// 256), PS >= 1, any G.
 //
 // The scalar kernel (f32).  The dense window is never materialized: a
 // block loads each page of its share once into shared memory and serves
@@ -456,9 +462,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TC_MAX_PS = 64;   // slots of a page, at most (8 n-tiles of the S fragment)
+constexpr int TC_MAX_PS = 64;   // slots of a sub-page, at most (8 n-tiles of the S fragment)
 constexpr int TC_MAX_PPS = 32;  // pages of a split: one ballot covers them
-constexpr int TC_STAGES = 2;    // pages of the ring: one in use, one in flight
+constexpr int TC_STAGES = 2;    // sub-pages of the ring: one in use, one in flight
 // The latent kernel's block: LT_MTILES m-tiles of 16 query rows taken
 // across token boundaries, each served by LT_WARPS warps that compute the
 // same S fragment and own 1 / LT_WARPS of Dv's columns each.
@@ -471,14 +477,30 @@ constexpr int LT_NVW = LT_MAX_DV / 8 / LT_WARPS;  // accumulator n-tiles of one 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// A page of PS slots is walked as n sub-pages of sps = min(PS, 64) slots
+// (the last holds PS - (n - 1) * sps), each its own pass of the S
+// fragment; a page of at most 64 slots is one sub-page.  A page's slot
+// positions sit in shared memory as n runs of sps8 = sps rounded up to 8
+// (the pad slots -1), psp in all.
+struct SubPages {
+  int n, sps, sps8, psp;
+};
+
+__host__ __device__ inline SubPages sub_pages(int PS) {
+  const int sps = PS < TC_MAX_PS ? PS : TC_MAX_PS, n = (PS + sps - 1) / sps;
+  return SubPages{n, sps, round_up(sps, 8), n * round_up(sps, 8)};
+}
+
 // Byte offsets of a tensor-core kernel's dynamic shared memory.  bf16
 // pages: a K (and, GQA, a V) tile per stage of the ring.  int8 pages: raw
-// rows and scales per stage, dequantized into one K (and V) tile.  Tile
-// rows are padded by 8 bf16 (16 bytes).  The K tile has PS rounded up to
-// 8 rows (the S fragment's n-tile) and the V tile PS rounded up to 16
-// rows (P V's k-step), the extra rows zero; in latent mode the K tile is
-// also V's, so it has the 16-row rounding and there is no V tile.  Slot
-// positions are [pps][PS rounded up to 8], the extra slots -1.
+// rows and scales per stage, dequantized into one K (and V) tile.  A tile
+// holds one sub-page.  Tile rows are padded by 8 bf16 (16 bytes), after
+// Dk rounded up to 16 (the k-step of Q K^T; the latent mode's Dk may be a
+// multiple of 8 only, and its extra columns are zero in q and K).  The K
+// tile has the sub-page's slots rounded up to 8 rows (the S fragment's
+// n-tile) and the V tile rounded up to 16 rows (P V's k-step), the extra
+// rows zero; in latent mode the K tile is also V's, so it has the 16-row
+// rounding and there is no V tile.  Slot positions are [pps][psp].
 struct TcLayout {
   size_t q, kt, vt, kraw, vraw, ks, vs, pos, pid, vsum, total;
 };
@@ -486,19 +508,21 @@ struct TcLayout {
 __host__ __device__ inline TcLayout tc_layout(int rows16, int Dk, int Dv, int PS, int pps,
                                               bool int8, bool latent) {
   TcLayout L;
-  const size_t ps8 = round_up(PS, 8), ps16 = round_up(PS, 16);
+  const SubPages sp = sub_pages(PS);
+  const size_t sps = sp.sps, ps8 = round_up(sp.sps, 8), ps16 = round_up(sp.sps, 16);
+  const size_t dkp = round_up(Dk, 16) + 8;
   const size_t krows = latent ? ps16 : ps8;
   const size_t tiles = int8 ? 1 : TC_STAGES, raw = int8 ? TC_STAGES : 0;
   const size_t vtiles = latent ? 0 : tiles, vraw = latent ? 0 : raw;
   size_t o = 0;
-  L.q = o;     o = align16(o + (size_t)rows16 * (Dk + 8) * sizeof(bf16));
-  L.kt = o;    o = align16(o + tiles * krows * (Dk + 8) * sizeof(bf16));
+  L.q = o;     o = align16(o + (size_t)rows16 * dkp * sizeof(bf16));
+  L.kt = o;    o = align16(o + tiles * krows * dkp * sizeof(bf16));
   L.vt = o;    o = align16(o + vtiles * ps16 * (Dv + 8) * sizeof(bf16));
-  L.kraw = o;  o = align16(o + raw * PS * Dk);
-  L.vraw = o;  o = align16(o + vraw * PS * Dv);
-  L.ks = o;    o = align16(o + raw * PS * sizeof(float));
-  L.vs = o;    o = align16(o + vraw * PS * sizeof(float));
-  L.pos = o;   o = align16(o + (size_t)pps * ps8 * sizeof(int32_t));
+  L.kraw = o;  o = align16(o + raw * sps * Dk);
+  L.vraw = o;  o = align16(o + vraw * sps * Dv);
+  L.ks = o;    o = align16(o + raw * sps * sizeof(float));
+  L.vs = o;    o = align16(o + vraw * sps * sizeof(float));
+  L.pos = o;   o = align16(o + (size_t)pps * sp.psp * sizeof(int32_t));
   L.pid = o;   o = align16(o + (size_t)pps * sizeof(int32_t));
   L.vsum = o;  o = align16(o + (size_t)Dv * sizeof(float));
   L.total = o;
@@ -514,13 +538,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+// the same, copying only when `full` and else writing 16 zero bytes (a
+// sub-page's rows past its last slot)
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+__device__ __forceinline__ void cp_async8z(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 4 : 0)
                : "memory");
 }
 
@@ -532,14 +566,17 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// a page's PS scales (f32) into shared memory: 16-byte copies when the
-// scale rows are 16-byte aligned (PS % 4 == 0), else one float a thread
-__device__ __forceinline__ void cp_async_scales(float* dst, const float* src, int PS) {
+// a sub-page's n scales (f32) into the first of sps shared slots, the rest
+// zero: 16-byte copies when every sub-page's scales are 16-byte aligned
+// (PS % 4 == 0, so sps and n are multiples of 4 too), else one float a
+// thread
+__device__ __forceinline__ void cp_async_scales(float* dst, const float* src, int n, int sps,
+                                                int PS) {
   const int tid = threadIdx.x;
   if (PS % 4 == 0) {
-    if (tid < PS / 4) cp_async16(dst + tid * 4, src + tid * 4);
-  } else if (tid < PS) {
-    cp_async4(dst + tid, src + tid);
+    if (tid < sps / 4) cp_async16z(dst + tid * 4, tid * 4 < n ? src + tid * 4 : src, tid * 4 < n);
+  } else if (tid < sps) {
+    cp_async4z(dst + tid, tid < n ? src + tid : src, tid < n);
   }
 }
 
@@ -589,9 +626,10 @@ __device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
 // The logit bias of slot `sl` for a query at qp: 0 for a valid key,
 // NEG_INF for a real slot that is not (so a row with no valid key takes
 // exp(NEG_INF - NEG_INF) = 1 there, the plain version's uniform mean), and
-// -inf for a pad slot past PS, which must add nothing to any row.
-__device__ __forceinline__ float slot_bias(int sl, int PS, int kp, int qp, int window) {
-  return sl >= PS ? -INFINITY : (key_valid(kp, qp, window) ? 0.0f : NEG_INF);
+// -inf for a pad slot past the sub-page's n slots, which must add nothing
+// to any row.
+__device__ __forceinline__ float slot_bias(int sl, int n, int kp, int qp, int window) {
+  return sl >= n ? -INFINITY : (key_valid(kp, qp, window) ? 0.0f : NEG_INF);
 }
 
 // A [rows][n] grid of 16- or 8-byte chunks dealt to a block's NT threads
@@ -631,20 +669,21 @@ struct Split {
 };
 
 // The split's page ids and slot positions into shared memory, read ahead
-// of the ring (pad slots past PS at -1), and the keyless scan of the
-// block's query tokens [t0, t1): both read global memory before the one
-// barrier, so their latencies overlap.
+// of the ring (each page as its sub-pages' runs, pad slots at -1), and
+// the keyless scan of the block's query tokens [t0, t1): both read global
+// memory before the one barrier, so their latencies overlap.
 __device__ __forceinline__ Split read_split(const int32_t* __restrict__ pos_tbl,
                                            const int32_t* __restrict__ table, int p0, int np,
                                            const int32_t* __restrict__ qpos, int t0, int t1,
-                                           int P, int PS, int window, int NT, int32_t* pos_s,
-                                           int32_t* pid_s) {
-  const int ps8 = round_up(PS, 8), tid = threadIdx.x, lane = tid % 32;
-  for (int i = tid; i < np * ps8; i += NT) {
-    const int p = i / ps8, sl = i % ps8;
+                                           int P, int PS, SubPages sp, int window, int NT,
+                                           int32_t* pos_s, int32_t* pid_s) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int i = tid; i < np * sp.psp; i += NT) {
+    const int p = i / sp.psp, e = i % sp.psp;
+    const int sl = e % sp.sps8, slot = e / sp.sps8 * sp.sps + sl;
     const int pid = table[p0 + p];
-    pos_s[i] = sl < PS ? pos_tbl[(size_t)pid * PS + sl] : -1;
-    if (sl == 0) pid_s[p] = pid;
+    pos_s[i] = sl < sp.sps && slot < PS ? pos_tbl[(size_t)pid * PS + slot] : -1;
+    if (e == 0) pid_s[p] = pid;
   }
   bool keyless = false;
   for (int t = t0 + tid; t < t1; t += NT) {
@@ -660,7 +699,7 @@ __device__ __forceinline__ Split read_split(const int32_t* __restrict__ pos_tbl,
   const bool walk_all = __syncthreads_or(keyless);
   bool any = false;
   if (lane < np)
-    for (int sl = 0; sl < PS; ++sl) any |= pos_s[lane * ps8 + sl] >= 0;
+    for (int e = 0; e < sp.psp; ++e) any |= pos_s[lane * sp.psp + e] >= 0;
   return Split{__ballot_sync(0xffffffffu, any), walk_all};
 }
 
@@ -697,13 +736,13 @@ __device__ void sum_slotless(const KT* __restrict__ pages, const float* __restri
   __syncthreads();
 }
 
-// Online softmax over one page's S fragment (rows g and g + 8 of the
-// m-tile, the thread's quad holding the whole page): scale, mask, row max
+// Online softmax over one sub-page's S fragment (rows g and g + 8 of the
+// m-tile, the thread's quad holding its n slots): scale, mask, row max
 // and sum by quad shuffles; sc becomes the probabilities, (m, l) advance
 // and acc is rescaled when a row's max moved.
 template <int NS, int NVT>
 __device__ __forceinline__ void page_softmax(float (&sc)[NS][4], float (&acc)[NVT][4], int ns,
-                                             const int32_t* pos, int PS, int qp0, int qp1,
+                                             const int32_t* pos, int n, int qp0, int qp1,
                                              int window, float scale, float& m0, float& m1,
                                              float& l0, float& l1) {
   const int tig = threadIdx.x % 4;
@@ -713,10 +752,10 @@ __device__ __forceinline__ void page_softmax(float (&sc)[NS][4], float (&acc)[NV
     if (j >= ns) continue;
     const int sl = j * 8 + 2 * tig;
     const int2 kp = *reinterpret_cast<const int2*>(pos + sl);
-    sc[j][0] = sc[j][0] * scale + slot_bias(sl, PS, kp.x, qp0, window);
-    sc[j][1] = sc[j][1] * scale + slot_bias(sl + 1, PS, kp.y, qp0, window);
-    sc[j][2] = sc[j][2] * scale + slot_bias(sl, PS, kp.x, qp1, window);
-    sc[j][3] = sc[j][3] * scale + slot_bias(sl + 1, PS, kp.y, qp1, window);
+    sc[j][0] = sc[j][0] * scale + slot_bias(sl, n, kp.x, qp0, window);
+    sc[j][1] = sc[j][1] * scale + slot_bias(sl + 1, n, kp.y, qp0, window);
+    sc[j][2] = sc[j][2] * scale + slot_bias(sl, n, kp.x, qp1, window);
+    sc[j][3] = sc[j][3] * scale + slot_bias(sl + 1, n, kp.y, qp1, window);
     mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
     mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
   }
@@ -864,7 +903,9 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   const int SG = (min(S, s_lo + s_blk) - s_lo) * G;
   const int rows16 = (min(S, s_blk) * G + 15) / 16 * 16;
   const int p0 = blockIdx.y * pps, np = min(P, p0 + pps) - p0;
-  const int DkP = Dk + 8, DvP = Dv + 8, ps8 = round_up(PS, 8), ps16 = round_up(PS, 16);
+  const SubPages sb = sub_pages(PS);
+  const int SPS = sb.sps, DkP = Dk + 8, DvP = Dv + 8, ps8 = round_up(SPS, 8),
+            ps16 = round_up(SPS, 16);
   const int kvd_k = KV * Dk, kvd_v = KV * Dv;
   const TcLayout L = tc_layout(rows16, Dk, Dv, PS, pps, INT8, false);
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem + L.q);
@@ -874,7 +915,7 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   int8_t* vraw_s = reinterpret_cast<int8_t*>(tc_smem + L.vraw);
   float* ks_s = reinterpret_cast<float*>(tc_smem + L.ks);
   float* vs_s = reinterpret_cast<float*>(tc_smem + L.vs);
-  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);  // [pps][ps8]
+  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);  // [pps][psp]
   int32_t* pid_s = reinterpret_cast<int32_t*>(tc_smem + L.pid);  // [pps]
   float* vsum_s = reinterpret_cast<float*>(tc_smem + L.vsum);    // [Dv]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -893,17 +934,18 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
     }
   }
   cp_commit();
-  // tile rows past PS stay zero: a pad slot's logit is -inf and its P 0,
+  // tile rows past a sub-page's slots stay zero (the ring zero-fills those
+  // under sps, these are past it): a pad slot's logit is -inf and its P 0,
   // and 0 times a stale NaN would not be
   const bf16 zero = __float2bfloat16_rn(0.0f);
   for (int t = 0; t < (INT8 ? 1 : TC_STAGES); ++t) {
-    for (int i = tid; i < (ps8 - PS) * DkP; i += THREADS)
-      kt_s[(size_t)t * ps8 * DkP + PS * DkP + i] = zero;
-    for (int i = tid; i < (ps16 - PS) * DvP; i += THREADS)
-      vt_s[(size_t)t * ps16 * DvP + PS * DvP + i] = zero;
+    for (int i = tid; i < (ps8 - SPS) * DkP; i += THREADS)
+      kt_s[(size_t)t * ps8 * DkP + SPS * DkP + i] = zero;
+    for (int i = tid; i < (ps16 - SPS) * DvP; i += THREADS)
+      vt_s[(size_t)t * ps16 * DvP + SPS * DvP + i] = zero;
   }
   const Split sp = read_split(pos_tbl, page_tables + (size_t)b * P, p0, np,
-                              q_pos + (size_t)b * S, s_lo, s_lo + SG / G, P, PS, window,
+                              q_pos + (size_t)b * S, s_lo, s_lo + SG / G, P, PS, sb, window,
                               THREADS, pos_s, pid_s);
   const unsigned valid = sp.valid;
   const int nv = __popc(valid);
@@ -914,70 +956,84 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   const bool active = warp * 16 < SG;
   const int qp0 = r0 < SG ? q_pos[(size_t)b * S + s_lo + r0 / G] : -1;
   const int qp1 = r1 < SG ? q_pos[(size_t)b * S + s_lo + r1 / G] : -1;
-  const int ns = ps8 / 8, nvt = Dv / 8;
+  const int nvt = Dv / 8;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
   float acc[NVT][4];
 #pragma unroll
   for (int j = 0; j < NVT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
-  // The ring: TC_STAGES - 1 pages in flight ahead of the one in use, one
-  // cp.async group per page (empty past the last, so the count is
-  // uniform).  K rows go in 16-byte chunks; V rows too, or in 8-byte ones
-  // for int8 rows whose width is not a multiple of 16.
+  // The ring: TC_STAGES - 1 sub-pages in flight ahead of the one in use,
+  // one cp.async group per sub-page (empty past the last, so the count is
+  // uniform); a page with a slot enters as all its sub-pages, in order.  K
+  // rows go in 16-byte chunks; V rows too, or in 8-byte ones for int8 rows
+  // whose width is not a multiple of 16.  A sub-page's tile rows past its
+  // slots are zero-filled.
   constexpr int KB = sizeof(KT);
   const int vbytes = (Dv * KB) % 16 == 0 ? 16 : 8;
   const Grid kg = make_grid<THREADS>(Dk * KB / 16), vg = make_grid<THREADS>(Dv * KB / vbytes);
   const KT* kbase = k_pages + (size_t)kvh * Dk + kg.c * (16 / KB);
   const KT* vbase = v_pages + (size_t)kvh * Dv + vg.c * (vbytes / KB);
   unsigned ahead = valid, cur = valid;
-  auto issue_next = [&](int st) {  // the next page with a slot into stage st
+  int a_sub = 0, c_sub = 0;  // sub-page of the next page to issue / to walk
+  auto issue_next = [&](int st) {  // the next sub-page of a page with a slot into stage st
     if (ahead) {
-      const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS;
-      ahead &= ahead - 1;
+      const int j = a_sub, n = min(SPS, PS - j * SPS);
+      const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS + (size_t)j * SPS;
+      if (++a_sub == sb.n) {
+        a_sub = 0;
+        ahead &= ahead - 1;
+      }
       const KT* ksrc = kbase + row0 * kvd_k;
       const KT* vsrc = vbase + row0 * kvd_v;
       if constexpr (INT8) {
-        int8_t* kd = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
-        int8_t* vd = vraw_s + (size_t)st * PS * Dv + vg.c * vbytes;
-        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * Dk, ksrc + (size_t)r * kvd_k);
-        for (int r = vg.r0; r < PS; r += vg.step) {
-          if (vbytes == 16) cp_async16(vd + r * Dv, vsrc + (size_t)r * kvd_v);
-          else cp_async8(vd + r * Dv, vsrc + (size_t)r * kvd_v);
+        int8_t* kd = kraw_s + (size_t)st * SPS * Dk + kg.c * 16;
+        int8_t* vd = vraw_s + (size_t)st * SPS * Dv + vg.c * vbytes;
+        for (int r = kg.r0; r < SPS; r += kg.step)
+          cp_async16z(kd + r * Dk, ksrc + (size_t)(r < n ? r : 0) * kvd_k, r < n);
+        for (int r = vg.r0; r < SPS; r += vg.step) {
+          const KT* src = vsrc + (size_t)(r < n ? r : 0) * kvd_v;
+          if (vbytes == 16) cp_async16z(vd + r * Dv, src, r < n);
+          else cp_async8z(vd + r * Dv, src, r < n);
         }
-        cp_async_scales(ks_s + st * PS, k_scale + row0, PS);
-        cp_async_scales(vs_s + st * PS, v_scale + row0, PS);
+        cp_async_scales(ks_s + st * SPS, k_scale + row0, n, SPS, PS);
+        cp_async_scales(vs_s + st * SPS, v_scale + row0, n, SPS, PS);
       } else {
         bf16* kd = kt_s + (size_t)st * ps8 * DkP + kg.c * 8;
         bf16* vd = vt_s + (size_t)st * ps16 * DvP + vg.c * 8;
-        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * DkP, ksrc + (size_t)r * kvd_k);
-        for (int r = vg.r0; r < PS; r += vg.step) cp_async16(vd + r * DvP, vsrc + (size_t)r * kvd_v);
+        for (int r = kg.r0; r < SPS; r += kg.step)
+          cp_async16z(kd + r * DkP, ksrc + (size_t)(r < n ? r : 0) * kvd_k, r < n);
+        for (int r = vg.r0; r < SPS; r += vg.step)
+          cp_async16z(vd + r * DvP, vsrc + (size_t)(r < n ? r : 0) * kvd_v, r < n);
       }
     }
     cp_commit();
   };
   for (int j = 0; j < TC_STAGES - 1; ++j) issue_next(j);
 
-  for (int i = 0; i < nv; ++i) {
+  for (int i = 0; i < nv * sb.n; ++i) {
     const int st = i % TC_STAGES;
-    const int page = __ffs(cur) - 1;
-    cur &= cur - 1;
-    cp_wait<TC_STAGES - 2>();  // page i (and, first, q) landed
-    __syncthreads();           // ... for every thread; page i - 1 fully consumed
+    const int page = __ffs(cur) - 1, sj = c_sub, n = min(SPS, PS - sj * SPS);
+    if (++c_sub == sb.n) {
+      c_sub = 0;
+      cur &= cur - 1;
+    }
+    cp_wait<TC_STAGES - 2>();  // sub-page i (and, first, q) landed
+    __syncthreads();           // ... for every thread; sub-page i - 1 fully consumed
     issue_next((i + TC_STAGES - 1) % TC_STAGES);
     const bf16* kt;
     const bf16* vt;
     if constexpr (INT8) {  // the thread's own grid chunks, into the bf16 tiles
-      const int8_t* kr = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
-      const int8_t* vr = vraw_s + (size_t)st * PS * Dv + vg.c * vbytes;
-      const float* ks = ks_s + st * PS;
-      const float* vs = vs_s + st * PS;
-      for (int r = kg.r0; r < PS; r += kg.step) {
+      const int8_t* kr = kraw_s + (size_t)st * SPS * Dk + kg.c * 16;
+      const int8_t* vr = vraw_s + (size_t)st * SPS * Dv + vg.c * vbytes;
+      const float* ks = ks_s + st * SPS;
+      const float* vs = vs_s + st * SPS;
+      for (int r = kg.r0; r < SPS; r += kg.step) {
         const uint4 w = *reinterpret_cast<const uint4*>(kr + r * Dk);
         bf16* o = kt_s + r * DkP + kg.c * 16;
         *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, ks[r]);
         *reinterpret_cast<uint4*>(o + 8) = dequant8(w.z, w.w, ks[r]);
       }
-      for (int r = vg.r0; r < PS; r += vg.step) {
+      for (int r = vg.r0; r < SPS; r += vg.step) {
         bf16* o = vt_s + r * DvP + vg.c * vbytes;
         if (vbytes == 16) {
           const uint4 w = *reinterpret_cast<const uint4*>(vr + r * Dv);
@@ -996,6 +1052,7 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
       vt = vt_s + (size_t)st * ps16 * DvP;
     }
     if (!active) continue;
+    const int ns = (n + 7) / 8;  // n-tiles of the S fragment this sub-page fills
 
     // S = Q K^T: A from q's rows, B = K rows (ldmatrix: K^T's columns)
     float sc[NS][4];
@@ -1019,8 +1076,8 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
         }
       }
     }
-    page_softmax<NS, NVT>(sc, acc, ns, pos_s + page * ps8, PS, qp0, qp1, window, scale, m0, m1,
-                          l0, l1);
+    page_softmax<NS, NVT>(sc, acc, ns, pos_s + page * sb.psp + sj * ps8, n, qp0, qp1, window,
+                          scale, m0, m1, l0, l1);
     const bf16* vb = vt + (lane % 8 + ((lane / 8) % 2) * 8) * DvP + (lane / 16) * 8;
     page_pv<NS, NVT>(sc, acc, ns, vb, DvP, nvt);
   }
@@ -1077,25 +1134,32 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   const int b = blockIdx.x, SG = S * G;
   const int r_lo = blockIdx.z * RT, nr = min(RT, SG - r_lo);
   const int p0 = blockIdx.y * pps, np = min(P, p0 + pps) - p0;
-  const int DkP = Dk + 8, ps8 = round_up(PS, 8), ps16 = round_up(PS, 16);
+  const SubPages sb = sub_pages(PS);
+  const int SPS = sb.sps, DkR = round_up(Dk, 16), DkP = DkR + 8, ps8 = round_up(SPS, 8),
+            ps16 = round_up(SPS, 16);
   const TcLayout L = tc_layout(RT, Dk, Dv, PS, pps, INT8, true);
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem + L.q);
   bf16* kt_s = reinterpret_cast<bf16*>(tc_smem + L.kt);
   int8_t* kraw_s = reinterpret_cast<int8_t*>(tc_smem + L.kraw);
   float* ks_s = reinterpret_cast<float*>(tc_smem + L.ks);
-  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);  // [pps][ps8]
+  int32_t* pos_s = reinterpret_cast<int32_t*>(tc_smem + L.pos);  // [pps][psp]
   int32_t* pid_s = reinterpret_cast<int32_t*>(tc_smem + L.pid);  // [pps]
   float* vsum_s = reinterpret_cast<float*>(tc_smem + L.vsum);    // [Dv]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  // K tile rows past PS stay zero (a pad slot's P is 0; 0 x a stale NaN is not)
+  // K tile rows past a sub-page's slots stay zero (a pad slot's P is 0; 0 x
+  // a stale NaN is not), and so do the columns from Dk to DkR (they add 0
+  // to Q K^T)
   const bf16 zero = __float2bfloat16_rn(0.0f);
-  for (int t = 0; t < (INT8 ? 1 : TC_STAGES); ++t)
-    for (int i = tid; i < (ps16 - PS) * DkP; i += NT)
-      kt_s[(size_t)t * ps16 * DkP + PS * DkP + i] = zero;
+  for (int t = 0; t < (INT8 ? 1 : TC_STAGES); ++t) {
+    bf16* tile = kt_s + (size_t)t * ps16 * DkP;
+    for (int i = tid; i < (ps16 - SPS) * DkP; i += NT) tile[SPS * DkP + i] = zero;
+    for (int i = tid; i < SPS * (DkR - Dk); i += NT)
+      tile[i / (DkR - Dk) * DkP + Dk + i % (DkR - Dk)] = zero;
+  }
   const Split sp = read_split(pos_tbl, page_tables + (size_t)b * P, p0, np,
                               q_pos + (size_t)b * S, r_lo / G, (r_lo + nr - 1) / G + 1, P, PS,
-                              window, NT, pos_s, pid_s);
+                              sb, window, NT, pos_s, pid_s);
   const unsigned valid = sp.valid;
   const int nv = __popc(valid);
   // A split with no page to walk for any row of the tile (no slot, no
@@ -1112,13 +1176,13 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   }
   // q rows -> shared memory (one cp.async group), for the products only;
   // with KV = 1 a request's rows are contiguous in q; rows past the
-  // request's last are zero
-  const int qc = Dk / 8;
+  // request's last, and the columns from Dk to DkR, are zero
+  const int qc = Dk / 8, qcr = DkR / 8;
   const bf16* qb = q + ((size_t)b * SG + r_lo) * Dk;
-  for (int i = tid; i < (nv ? RT * qc : 0); i += NT) {
-    const int r = i / qc, c = i % qc;
+  for (int i = tid; i < (nv ? RT * qcr : 0); i += NT) {
+    const int r = i / qcr, c = i % qcr;
     bf16* dst = q_s + r * DkP + c * 8;
-    if (r < nr) cp_async16(dst, qb + (size_t)r * Dk + c * 8);
+    if (r < nr && c < qc) cp_async16(dst, qb + (size_t)r * Dk + c * 8);
     else *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
   cp_commit();
@@ -1133,30 +1197,41 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   const bool active = mt * 16 < nr;
   const int qp0 = r0 < nr ? q_pos[(size_t)b * S + (r_lo + r0) / G] : -1;
   const int qp1 = r1 < nr ? q_pos[(size_t)b * S + (r_lo + r1) / G] : -1;
-  const int ns = ps8 / 8;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
   float acc[NVW][4];
 #pragma unroll
   for (int j = 0; j < NVW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
   // the ring, as the GQA kernel's: K rows in 16-byte chunks (a bf16
-  // latent row is Dk / 8 of them, an int8 one Dk / 16), and the scales
+  // latent row is Dk / 8 of them, an int8 one Dk / 16), or 8-byte ones for
+  // int8 rows whose width is not a multiple of 16, and the scales
   constexpr int KB = sizeof(KT);
-  const Grid kg = make_grid<NT>(Dk * KB / 16);
-  const KT* kbase = k_pages + kg.c * (16 / KB);
+  const int kcb = (Dk * KB) % 16 == 0 ? 16 : 8;
+  const Grid kg = make_grid<NT>(Dk * KB / kcb);
+  const KT* kbase = k_pages + kg.c * (kcb / KB);
   unsigned ahead = valid, cur = valid;
-  auto issue_next = [&](int st) {  // the next page with a slot into stage st
+  int a_sub = 0, c_sub = 0;  // sub-page of the next page to issue / to walk
+  auto issue_next = [&](int st) {  // the next sub-page of a page with a slot into stage st
     if (ahead) {
-      const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS;
-      ahead &= ahead - 1;
+      const int j = a_sub, n = min(SPS, PS - j * SPS);
+      const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS + (size_t)j * SPS;
+      if (++a_sub == sb.n) {
+        a_sub = 0;
+        ahead &= ahead - 1;
+      }
       const KT* ksrc = kbase + row0 * Dk;
       if constexpr (INT8) {
-        int8_t* kd = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
-        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * Dk, ksrc + (size_t)r * Dk);
-        cp_async_scales(ks_s + st * PS, k_scale + row0, PS);
+        int8_t* kd = kraw_s + (size_t)st * SPS * Dk + kg.c * kcb;
+        for (int r = kg.r0; r < SPS; r += kg.step) {
+          const KT* src = ksrc + (size_t)(r < n ? r : 0) * Dk;
+          if (kcb == 16) cp_async16z(kd + r * Dk, src, r < n);
+          else cp_async8z(kd + r * Dk, src, r < n);
+        }
+        cp_async_scales(ks_s + st * SPS, k_scale + row0, n, SPS, PS);
       } else {
         bf16* kd = kt_s + (size_t)st * ps16 * DkP + kg.c * 8;
-        for (int r = kg.r0; r < PS; r += kg.step) cp_async16(kd + r * DkP, ksrc + (size_t)r * Dk);
+        for (int r = kg.r0; r < SPS; r += kg.step)
+          cp_async16z(kd + r * DkP, ksrc + (size_t)(r < n ? r : 0) * Dk, r < n);
       }
     }
     cp_commit();
@@ -1164,22 +1239,30 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   for (int j = 0; j < TC_STAGES - 1; ++j) issue_next(j);
 
   const bf16* qa = q_s + (mt * 16 + lane % 8 + ((lane / 8) % 2) * 8) * DkP + (lane / 16) * 8;
-  for (int i = 0; i < nv; ++i) {
+  for (int i = 0; i < nv * sb.n; ++i) {
     const int st = i % TC_STAGES;
-    const int page = __ffs(cur) - 1;
-    cur &= cur - 1;
-    cp_wait<TC_STAGES - 2>();  // page i (and, first, q) landed
-    __syncthreads();           // ... for every thread; page i - 1 fully consumed
+    const int page = __ffs(cur) - 1, sj = c_sub, n = min(SPS, PS - sj * SPS);
+    if (++c_sub == sb.n) {
+      c_sub = 0;
+      cur &= cur - 1;
+    }
+    cp_wait<TC_STAGES - 2>();  // sub-page i (and, first, q) landed
+    __syncthreads();           // ... for every thread; sub-page i - 1 fully consumed
     issue_next((i + TC_STAGES - 1) % TC_STAGES);
     const bf16* kt;
     if constexpr (INT8) {  // the thread's own grid chunks, into the bf16 tile
-      const int8_t* kr = kraw_s + (size_t)st * PS * Dk + kg.c * 16;
-      const float* ks = ks_s + st * PS;
-      for (int r = kg.r0; r < PS; r += kg.step) {
-        const uint4 w = *reinterpret_cast<const uint4*>(kr + r * Dk);
-        bf16* o = kt_s + r * DkP + kg.c * 16;
-        *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, ks[r]);
-        *reinterpret_cast<uint4*>(o + 8) = dequant8(w.z, w.w, ks[r]);
+      const int8_t* kr = kraw_s + (size_t)st * SPS * Dk + kg.c * kcb;
+      const float* ks = ks_s + st * SPS;
+      for (int r = kg.r0; r < SPS; r += kg.step) {
+        bf16* o = kt_s + r * DkP + kg.c * kcb;
+        if (kcb == 16) {
+          const uint4 w = *reinterpret_cast<const uint4*>(kr + r * Dk);
+          *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, ks[r]);
+          *reinterpret_cast<uint4*>(o + 8) = dequant8(w.z, w.w, ks[r]);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(kr + r * Dk);
+          *reinterpret_cast<uint4*>(o) = dequant8(w.x, w.y, ks[r]);
+        }
       }
       __syncthreads();
       kt = kt_s;
@@ -1187,19 +1270,20 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
       kt = kt_s + (size_t)st * ps16 * DkP;
     }
     if (!active) continue;
+    const int ns = (n + 7) / 8;  // n-tiles of the S fragment this sub-page fills
 
-    // S = Q K^T over all Dk columns
+    // S = Q K^T over all DkR columns
     float sk[KSETS][NS][4];
 #pragma unroll
     for (int e = 0; e < KSETS; ++e)
 #pragma unroll
       for (int j = 0; j < NS; ++j) sk[e][j][0] = sk[e][j][1] = sk[e][j][2] = sk[e][j][3] = 0.0f;
     const bf16* kb = kt + (lane % 8 + (lane / 16) * 8) * DkP + ((lane / 8) % 2) * 8;
-    for (int kk = 0; kk < Dk; kk += 16 * KSETS) {
+    for (int kk = 0; kk < DkR; kk += 16 * KSETS) {
 #pragma unroll
       for (int e = 0; e < KSETS; ++e) {
         const int k = kk + 16 * e;
-        if (k >= Dk) continue;
+        if (k >= DkR) continue;
         uint32_t a[4];
         ldsm_x4(a, qa + k);
 #pragma unroll
@@ -1221,8 +1305,8 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x) sc[j][x] = KSETS == 2 ? sk[0][j][x] + sk[KSETS - 1][j][x] : sk[0][j][x];
-    page_softmax<NS, NVW>(sc, acc, ns, pos_s + page * ps8, PS, qp0, qp1, window, scale, m0, m1,
-                          l0, l1);
+    page_softmax<NS, NVW>(sc, acc, ns, pos_s + page * sb.psp + sj * ps8, n, qp0, qp1, window,
+                          scale, m0, m1, l0, l1);
     // acc += P V: V is the K tile's first Dv columns, this warp's share
     const bf16* vb = kt + (lane % 8 + ((lane / 8) % 2) * 8) * DkP + (lane / 16) * 8 + c0;
     page_pv<NS, NVW>(sc, acc, ns, vb, DkP, my_nvt);
@@ -1257,10 +1341,10 @@ size_t tc_smem_bytes(int S, int G, int Dk, int Dv, int PS, int pps, int kv_int8,
 }
 
 bool tc_shape_ok(int G, int Dk, int Dv, int PS, int pps, int latent) {
-  const bool common = Dk > 0 && Dk % 16 == 0 && Dk <= 1024 && Dv > 0 && Dv % 8 == 0 &&
-                      PS > 0 && PS <= TC_MAX_PS && pps <= TC_MAX_PPS;
-  if (latent) return common && Dv <= LT_MAX_DV && Dv <= Dk;
-  return common && Dv <= 128 && G <= ROWS;
+  const bool common = Dk > 0 && Dk <= 1024 && Dv > 0 && Dv % 8 == 0 && PS > 0 &&
+                      pps <= TC_MAX_PPS;
+  if (latent) return common && Dk % 8 == 0 && Dv <= LT_MAX_DV && Dv <= Dk;
+  return common && Dk % 16 == 0 && Dv <= 128 && G <= ROWS;
 }
 
 // the kernel's dynamic shared memory, granted before its launch
@@ -1348,9 +1432,10 @@ extern "C" size_t paged_attn_tc_smem_bytes(int S, int G, int Dk, int Dv, int PS,
 // c_bf16 selects bf16 (else f32) for q, native pages and the output.
 // window <= 0 means no sliding window.  latent != 0 is MLA's latent mode:
 // KV == 1, Dv <= Dk, v_pages and v_scale unread (may be NULL).
-// bf16 calls run the tensor-core kernels, which take Dk % 16 == 0,
-// Dv % 8 == 0, 1 <= PS <= 64, pages_per_split <= 32 and 16-byte aligned
-// q and pages; GQA also Dv <= 128 and G = H / KV <= 64, latent Dv <= 256.
+// bf16 calls run the tensor-core kernels, which take Dv % 8 == 0, any
+// PS >= 1, pages_per_split <= 32 and 16-byte aligned q and pages; GQA
+// also Dk % 16 == 0, Dv <= 128 and G = H / KV <= 64, latent Dk % 8 == 0
+// and Dv <= 256.
 // Other bf16 shapes return cudaErrorInvalidValue.  f32 calls run the
 // scalar kernel.  ws is f32 scratch of B*KV*ceil(P/pages_per_split)*S*G*(Dv+2)
 // floats for the splits' partial statistics (NULL is allowed for a

@@ -15,10 +15,11 @@ P V, a two-stage ``cp.async`` page ring): GQA calls in
 latent calls in ``paged_attn_latent_tc_kernel`` (query rows tiled across
 token boundaries, one k tile for both products), counted in
 ``PAGED_ATTN_LATENT`` and ``PAGED_ATTN_LATENT_TC``.  Both take any page
-size from 1 to ``MAX_PAGE_SIZE`` slots and ``Dk % 16 == 0``,
-``Dv % 8 == 0``; GQA also ``Dv <= 128`` and at most 64 query heads per KV
-head, latent ``Dv <= 256``.  They raise on other bf16 shapes: nothing
-falls back.  f32 calls run the scalar kernel.
+size (a page of more than 64 slots is walked as 64-slot sub-pages) and
+``Dv % 8 == 0``; GQA also ``Dk % 16 == 0``, ``Dv <= 128`` and at most 64
+query heads per KV head, latent ``Dk % 8 == 0`` (zero-padded to 16 in
+shared memory) and ``Dv <= 256``.  They raise on other bf16 shapes:
+nothing falls back.  f32 calls run the scalar kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ PAGED_ATTN_LATENT_TC = native.Counter()  # the latent tensor-core kernel's share
 # second kernel merges.  A fixed width, so a row's bits never depend on
 # the batch, its length or the co-batch.
 PAGES_PER_SPLIT = 4
-MAX_PAGE_SIZE = 64  # slots of a page the tensor-core kernels take, at most
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
@@ -69,13 +69,13 @@ def tc_shape_error(g: int, dk: int, dv: int, ps: int, latent: bool = False) -> O
     """Why the tensor-core kernel does not take a bf16 call of these shapes
     (GQA: ``g`` query heads per KV head; ``latent``: MLA's latent mode, any
     ``g``), or None when it does."""
-    if dk % 16:
-        return f"head dim Dk={dk} is not a multiple of 16"
+    if dk % (8 if latent else 16):
+        return f"head dim Dk={dk} is not a multiple of {8 if latent else 16}"
     max_dv = 256 if latent else 128
     if dv % 8 or dv > max_dv:
         return f"value dim Dv={dv} is not a multiple of 8 up to {max_dv}"
-    if not 1 <= ps <= MAX_PAGE_SIZE:
-        return f"page size PS={ps} is not between 1 and {MAX_PAGE_SIZE}"
+    if ps < 1:
+        return f"page size PS={ps} is not at least 1"
     if not latent and g > 64:
         return f"{g} query heads per KV head exceed 64"
     return None

@@ -16,9 +16,8 @@ decoders with GQA or MLA attention are served.
 This is the continuous path only.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that will lift it:
 other prefill modes, unpacked weights, sampled decoding, speculative
-decoding, the gather attention path, snapshots, non-dense families and,
-on CUDA, pages of more than 64 slots.  A kernel failure raises; there
-is no fallback path.
+decoding, the gather attention path, snapshots and non-dense families.
+A kernel failure raises; there is no fallback path.
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.sampling import SamplingParams, sample_tokens, validate_sampling
-from repro_torch.kernels.paged_attn import MAX_PAGE_SIZE
 from repro_torch.models import common, lm
 from repro_torch.serve import paged_cache
 from repro_torch.serve.scheduler import FINISH_LENGTH, DecodeRun, Request, Scheduler
@@ -217,12 +215,6 @@ class Engine:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        if self.device.type == "cuda" and scfg.page_size > MAX_PAGE_SIZE:
-            raise NotImplementedError(
-                f"page_size={scfg.page_size}: the tensor-core paged-attention kernels take "
-                f"pages of at most {MAX_PAGE_SIZE} slots (ROADMAP queue 3, "
-                f"page sizes above {MAX_PAGE_SIZE})"
-            )
         lm._check_family(cfg)
         if cfg.sparsity.mode not in ("wdbb", "awdbb"):
             raise ValueError(

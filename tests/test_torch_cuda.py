@@ -156,11 +156,13 @@ def test_paged_attn_tc_kernel_bf16(cuda, monkeypatch, g, d, int8, s, splits, ps)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
-@pytest.mark.parametrize("ps", [1, 2, 3, 4, 5, 12, 24, 64])
+@pytest.mark.parametrize("ps", [1, 2, 3, 4, 5, 12, 24, 64, 65, 72, 128])
 def test_paged_attn_tc_kernel_bf16_page_sizes(cuda, int8, ps):
     """Page sizes that are not a multiple of 8 (pad slots at position -1
-    with a zero K row and a -inf logit) and the largest, 64, at
-    granite-3-8b's head shape: mixed and keyless rows within 1.6e-2."""
+    with a zero K row and a -inf logit), 64, and pages above 64 slots,
+    walked as 64-slot sub-pages (65: a one-slot tail; 72; 128: two whole
+    sub-pages, the second of request 0's page empty) at granite-3-8b's
+    head shape: mixed and keyless rows within 1.6e-2."""
     p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
     q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, 16, 4, 128, 8, int8, p_cnt, ps)
     before = paged_attn.PAGED_ATTN_TC.launches
@@ -188,7 +190,7 @@ def test_paged_attn_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
 
 
 @pytest.mark.parametrize("g,dk,dv,ps", [(4, 40, 40, 16), (4, 64, 60, 16), (4, 64, 136, 16),
-                                        (4, 64, 64, 72), (80, 64, 64, 16)])
+                                        (4, 64, 64, 0), (80, 64, 64, 16)])
 def test_paged_attn_tc_unsupported_shapes_raise(cuda, g, dk, dv, ps):
     """bf16 GQA shapes the tensor-core kernel does not take raise; nothing
     falls back to the scalar kernel or the plain version."""
@@ -354,6 +356,41 @@ def test_paged_attn_latent_tc_kernel_bf16(cuda, monkeypatch, int8, s, splits, ps
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("ps", [65, 72, 128])
+def test_paged_attn_latent_tc_kernel_bf16_large_pages(cuda, int8, s, ps):
+    """The latent tensor-core kernel at pages above 64 slots (64-slot
+    sub-pages, the last one shorter) at minicpm3-4b's head shapes, with
+    padding rows, an idle row and a scrubbed page, over three splits."""
+    p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, ps)
+    before = paged_attn.PAGED_ATTN_LATENT_TC.launches
+    got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+    assert paged_attn.PAGED_ATTN_LATENT_TC.launches == before + 1
+    want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2, err
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("ps", [8, 16, 72])
+def test_paged_attn_latent_tc_kernel_bf16_narrow_latent(cuda, int8, s, ps):
+    """minicpm3-4b's smoke latent: Dk 40 (kv_lora 32 + rope 8, not a
+    multiple of 16: zero-padded to 48 in shared memory, int8 rows copied 8
+    bytes at a time), Dv 32, 4 heads; one split and three."""
+    for p_cnt in (4, 2 * paged_attn.PAGES_PER_SPLIT + 3):
+        q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, ps, h=4, dk=40,
+                                                      dv=32)
+        before = paged_attn.PAGED_ATTN_LATENT_TC.launches
+        got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+        assert paged_attn.PAGED_ATTN_LATENT_TC.launches == before + 1
+        want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1.6e-2, (p_cnt, err)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("s", [1, 16])
 def test_paged_attn_latent_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
     """A request's latent rows are the same bits alone (B=1) and inside a
     B=4 call: the row tiles and splits are fixed by the mode, and a row's
@@ -368,8 +405,8 @@ def test_paged_attn_latent_tc_rows_bitwise_independent_of_batch(cuda, int8, s):
         assert torch.equal(alone[0], full[i]), i
 
 
-@pytest.mark.parametrize("dk,dv,ps", [(40, 32, 16), (288, 260, 16), (320, 264, 16),
-                                      (288, 256, 72)])
+@pytest.mark.parametrize("dk,dv,ps", [(36, 32, 16), (288, 260, 16), (320, 264, 16),
+                                      (288, 256, 0)])
 def test_paged_attn_latent_tc_unsupported_shapes_raise(cuda, dk, dv, ps):
     """bf16 latent shapes the tensor-core kernel does not take raise;
     nothing falls back to the scalar kernel or the plain version."""
@@ -422,6 +459,47 @@ def test_engine_serves_small_pages_bf16(cuda, monkeypatch, page_size):
     attn = ops.counters()["paged_attn"]
     assert attn.plain == 0 and attn.launches > 0
     assert paged_attn.PAGED_ATTN_TC.launches == attn.launches
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_8b", "minicpm3_4b"])
+def test_engine_serves_large_pages_bf16(cuda, monkeypatch, arch):
+    """bf16 smoke engines serve at ``page_size=72`` on CUDA: each page is
+    walked as sub-pages of 64 and 8 slots, and prompts of 70 and 80 tokens
+    cross the sub-page boundary.  granite runs the GQA tensor-core kernel;
+    minicpm3 the latent one at its smoke latent of 40 (kv_lora 32 + rope
+    8, zero-padded to 48 in shared memory), the shape that kernel refused
+    before.  A split takes a whole table, as above, and the tokens equal
+    the same engine's on the CPU."""
+    monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 32)
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = configs.get_config(arch, smoke=True)
+    if arch == "granite_3_8b":
+        cfg = dataclasses.replace(cfg, vocab=64, d_model=64, d_ff=128)
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    scfg = ServeConfig(max_seq=160, page_size=72, max_batch=2, prefill_chunk=16)
+    rng = np.random.default_rng(72)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (70, 5, 80)]
+    attn = "paged_attn_latent" if cfg.mla is not None else "paged_attn"
+    tc = paged_attn.PAGED_ATTN_LATENT_TC if cfg.mla is not None else paged_attn.PAGED_ATTN_TC
+    outs = {}
+    for device in ("cpu", "cuda"):
+        ops.reset_counters()
+        tc.launches = 0
+        eng = Engine(params, cfg, scfg, device=device)
+        outs[device] = eng.generate_requests(prompts, 6, arrivals=[0, 3, 1])
+    count = ops.counters()[attn]
+    assert count.plain == 0 and count.launches > 0
+    assert tc.launches == count.launches
     for got, want in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_array_equal(got, want)
 

@@ -284,29 +284,35 @@ def test_tc_shape_rule():
     assert paged_attn.tc_shape_error(2, 64, 64, 16) is None  # granite-moe-1b-a400m
     assert paged_attn.tc_shape_error(64, 16, 8, 8) is None
     for args, word in (((4, 40, 40, 16), "Dk=40"), ((4, 64, 60, 16), "Dv=60"),
-                       ((4, 64, 136, 16), "Dv=136"), ((4, 64, 64, 72), "PS=72"),
+                       ((4, 64, 136, 16), "Dv=136"), ((4, 64, 64, 0), "PS=0"),
                        ((65, 64, 64, 16), "65 query heads")):
         assert word in paged_attn.tc_shape_error(*args)
 
 
 @pytest.mark.parametrize("latent", [False, True], ids=["gqa", "latent"])
 def test_tc_shape_rule_page_sizes(latent):
-    """Both tensor-core kernels take every page size from 1 to 64 slots
-    (pad slots fill the S fragment's 8-slot n-tiles) and none above."""
+    """Both tensor-core kernels take every page size from one slot up:
+    pad slots fill the S fragment's 8-slot n-tiles, and a page of more
+    than 64 slots is walked as 64-slot sub-pages (65, 72 and 128 among
+    them).  A page of no slot is refused."""
     g, dk, dv = (40, 288, 256) if latent else (4, 128, 128)
-    for ps in range(1, paged_attn.MAX_PAGE_SIZE + 1):
+    for ps in list(range(1, 130)) + [256, 1000]:
         assert paged_attn.tc_shape_error(g, dk, dv, ps, latent) is None, ps
-    for ps in (0, 65, 72, 128):
+    for ps in (0, -1):
         assert f"PS={ps}" in paged_attn.tc_shape_error(g, dk, dv, ps, latent)
 
 
 def test_tc_shape_rule_latent():
     """The latent kernel: minicpm3-4b's latent (Dk 288, Dv 256, 40 query
-    heads over one latent) and any head count; Dv up to 256, within Dk."""
+    heads over one latent), its smoke latent (Dk 40: zero-padded to 48 in
+    shared memory) and any head count; Dk a multiple of 8, Dv up to 256,
+    within Dk; any page size from 1 up."""
     assert paged_attn.tc_shape_error(40, 288, 256, 16, latent=True) is None  # minicpm3-4b
+    assert paged_attn.tc_shape_error(40, 40, 32, 16, latent=True) is None  # its smoke config
     assert paged_attn.tc_shape_error(128, 48, 8, 1, latent=True) is None
-    for args, word in (((40, 40, 32, 16), "Dk=40"), ((40, 288, 260, 16), "Dv=260"),
-                       ((40, 320, 264, 16), "Dv=264"), ((40, 288, 256, 80), "PS=80")):
+    assert paged_attn.tc_shape_error(40, 288, 256, 80, latent=True) is None
+    for args, word in (((40, 36, 32, 16), "Dk=36"), ((40, 288, 260, 16), "Dv=260"),
+                       ((40, 320, 264, 16), "Dv=264"), ((40, 288, 256, 0), "PS=0")):
         assert word in paged_attn.tc_shape_error(*args, latent=True)
 
 
