@@ -19,13 +19,17 @@ non-zero and prints no result:
    with the padding and idle rows of a mixed step, in bf16 through the
    tensor-core kernel and in f32 through the scalar one, and bf16 calls at
    pages of 4 and 2 slots; the native-wire
-   matmuls (#1, #4), with a check that a row's bits do not depend on M,
-   at minicpm3-4b's and granite-moe-1b-a400m's; latent paged attention
+   matmuls (#1, #4) through their tc body, with a check that a row's bits
+   do not depend on M, at minicpm3-4b's and granite-moe-1b-a400m's;
+   latent paged attention
    (#6, MLA) at minicpm3-4b's on decode, whole-chunk and mixed steps,
    keyless rows included, in bf16 through the latent tensor-core kernel
-   and in f32 through the scalar one; DAP (#5) bit for bit at every
+   and in f32 through the scalar one; both tensor-core kernels at pages of
+   72 slots (64-slot sub-pages) and the latent one at minicpm3-4b's smoke
+   latent of 40 (zero-padded to 48); DAP (#5) bit for bit at every
    dense-input width of the three paths, NaN, infinities, ties and -0.0
-   included;
+   included; a bf16 smoke minicpm3-4b engine served at pages of 16 and 72
+   slots;
 4. the main paths, each driven with the launch counters set to 0 just
    before and read just after: full-width granite-3-8b (40 layers, int8
    DBB wire, int8 KV), full-width minicpm3-4b (62 layers, native DBB
@@ -34,8 +38,9 @@ non-zero and prints no result:
    random weights in bf16, each serving 8 requests continuously through
    ``Engine.generate_requests``; the counters show every packed linear,
    every attention call and every DAP went through the kernels, every
-   bf16 GQA attention call through the tensor-core kernel and every bf16
-   latent call through the latent tensor-core kernel.  A dense
+   bf16 GQA attention call through the tensor-core kernel, every bf16
+   latent call through the latent tensor-core kernel and every bf16 #1 and
+   #4 call through their tc body.  A dense
    arch's request re-served alone is byte-identical; an MoE token
    depends on its co-batch (expert capacity), so there a fresh engine
    re-serves the same requests and arrivals byte-identically.
@@ -413,7 +418,8 @@ def phase_attention(torch, run_ms):
                              ops=n_layers * nops)
         del k_p, v_p, k32, v32, kk, vv
         torch.cuda.empty_cache()
-    stats["max_abs_err"] = max(stats["max_abs_err"], small_page_gqa(torch, gen))
+    stats["max_abs_err"] = max(stats["max_abs_err"], small_page_gqa(torch, gen),
+                               large_page_attention(torch, gen, latent=False))
     t_bytes = stats["bytes"] / HBM_BYTES_PER_S
     t_ops = stats["ops"] / BF16_OPS_PER_S
     stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -469,12 +475,84 @@ def small_page_gqa(torch, gen):
     return worst
 
 
+def large_page_attention(torch, gen, latent):
+    """bf16 #6 at pages of 72 slots (walked as a 64-slot sub-page and an
+    8-slot one), int8 and native KV, a mixed step with an idle row over
+    the null page: GQA at granite-3-8b's head shape, or the latent mode at
+    minicpm3-4b's (Dk 288, Dv 256, 40 heads) and at its smoke config's
+    latent (Dk 40 = kv_lora 32 + rope 8, zero-padded to 48 in shared
+    memory; Dv 32, 4 heads), the latter at pages of 16 and 72 slots.
+    Every call through the tensor-core kernel, within 1.6e-2 of the plain
+    version.  Returns the max error."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import paged_attn, ref
+
+    b, s = 4, 16
+    lengths = (300, 117, 64, 50)
+    if latent:
+        cases = [(72, 40, 288, 256), (16, 4, 40, 32), (72, 4, 40, 32)]  # (PS, heads, Dk, Dv)
+        counter = paged_attn.PAGED_ATTN_LATENT_TC
+    else:
+        cases = [(72, 32, 128, 128)]
+        counter = paged_attn.PAGED_ATTN_TC
+    worst = 0.0
+    for ps, h, dk, dv in cases:
+        kv = 1 if latent else 8
+        p_cnt = -(-max(lengths) // ps) + 1
+        n_pages = b * p_cnt + 1
+        k_f = torch.randn((n_pages, ps, kv * dk), generator=gen, device="cuda")
+        v_f = None if latent else torch.randn((n_pages, ps, kv * dv), generator=gen,
+                                              device="cuda")
+        pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+        tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
+        nxt = 1
+        for i, t in enumerate(lengths):
+            used = -(-t // ps)
+            tables[i, :used] = torch.arange(nxt, nxt + used, device="cuda")
+            pos = torch.arange(used * ps, device="cuda")
+            pos_tbl[nxt:nxt + used] = torch.where(pos < t, pos, -1).reshape(used, ps).int()
+            nxt += used
+        q_pos = mixed_q_pos(torch, lengths, s)
+        q_pos[3], tables[3] = -1, 0  # an idle row over the null page
+        q = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
+        for kv_name in ("int8", "native"):
+            if latent:
+                k_s = v_p = v_s = None
+                k_p = k_f.to(torch.bfloat16)
+                if kv_name == "int8":
+                    k_p, k_s = quant.quantize_rows(k_f)
+                kw = dict(kv_heads=1, softmax_scale=1.0 / math.sqrt(96), k_scale=k_s,
+                          latent_dv=dv)
+            else:
+                if kv_name == "int8":
+                    (k_p, k_s), (v_p, v_s) = quant.quantize_rows(k_f), quant.quantize_rows(v_f)
+                else:
+                    k_p, v_p = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
+                    k_s = v_s = None
+                kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s)
+            tc_before = counter.launches
+            out = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            mode = "paged_attn_latent" if latent else "paged_attn"
+            check(counter.launches == tc_before + 1,
+                  f"{mode} PS={ps} Dk={dk} {kv_name} KV bf16: not the tensor-core kernel")
+            want = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= 1.6e-2,
+                  f"{mode} PS={ps} Dk={dk} {kv_name} KV bf16: max error {err:.3g}")
+            say(f"kernel {mode} B={b} S={s} mixed with an idle row H={h} Dk={dk} Dv={dv} "
+                f"P={p_cnt} PS={ps} {kv_name}-KV bf16 (path: tensor cores, "
+                f"{-(-ps // 64)} sub-pages a page): max_abs_err {err:.3g}")
+            worst = max(worst, err)
+    return worst
+
+
 def phase_native_matmuls(torch, run_ms):
     """Kernels #1 and #4 at minicpm3-4b's and granite-moe-1b-a400m's
-    full-width shapes, bf16 operands: held against their plain versions
-    (float64 products, rounded once) within 1e-5 of the largest output in
-    f32, a row's bits checked equal at M=1, 4 and 64, and timed at M=4
-    and 64.  The record holds minicpm3-4b's pass."""
+    full-width shapes, bf16 operands: every call through the tc body, held
+    against their plain versions (float64 products, rounded once) within
+    1e-5 of the largest output in f32, a row's bits checked equal at M=1,
+    4 and 64, and timed at M=4 and 64.  The record holds minicpm3-4b's
+    pass."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -512,8 +590,11 @@ def phase_native_matmuls(torch, run_ms):
             plain = lambda m, a, o: ref.dbb_matmul_ref(  # noqa: E731
                 x[:m], wv, wm, cfg, act=a, out_dtype=o)
             x_bytes = lambda m: 2 * m * k  # noqa: E731
-        # a row's bits do not depend on M
+        # a row's bits do not depend on M; every call runs the tc body
+        tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
+        tc_before = tc.launches
         y = {m: kern(m, act, torch.float32) for m in (1, 4, 64)}
+        check(tc.launches == tc_before + 3, f"{arch} {name}: not the tc body")
         check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
               f"{arch} {name}: a row's output differs between M=1, 4 and 64")
         for m in (4, 64):
@@ -541,7 +622,9 @@ def phase_native_matmuls(torch, run_ms):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
-            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16: kernel_ms {t_k:.4f} "
+            bn, kb_per_split, n_split = dbb_matmul.native_plan(k, n)
+            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16 (path: tc body, BN {bn}, "
+                f"{n_split} splits of {kb_per_split} 8-blocks): kernel_ms {t_k:.4f} "
                 f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms {bound:.4f} "
                 f"({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
             agg = per_kernel[kname]
@@ -670,6 +753,7 @@ def phase_latent_attention(torch, run_ms):
                 stats.update(ms=62 * t_k, plain_ms=62 * t_p, library_ms=62 * t_lib,
                              bytes=62 * nbytes, ops=62 * nops)
         del win, kk, vv
+    stats["max_abs_err"] = max(stats["max_abs_err"], large_page_attention(torch, gen, latent=True))
     t_bytes = stats["bytes"] / HBM_BYTES_PER_S
     t_ops = stats["ops"] / BF16_OPS_PER_S
     stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -747,7 +831,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     """One main path: a full-width engine serves 8 requests; the launch
     counters are set to 0 just before and read just after."""
     from repro_torch import configs
-    from repro_torch.kernels import ops, paged_attn
+    from repro_torch.kernels import dbb_matmul, ops, paged_attn
     from repro_torch.models import lm
     from repro_torch.serve import paged_cache
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -789,6 +873,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     ops.reset_counters()
     paged_attn.PAGED_ATTN_TC.launches = 0
     paged_attn.PAGED_ATTN_LATENT_TC.launches = 0
+    dbb_matmul.NATIVE_TC.launches = dbb_matmul.AW_NATIVE_TC.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals)
     torch.cuda.synchronize()
@@ -796,6 +881,8 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
     tc_launches = paged_attn.PAGED_ATTN_TC.launches
     latent_tc_launches = paged_attn.PAGED_ATTN_LATENT_TC.launches
+    mm_tc = {"dbb_matmul": dbb_matmul.NATIVE_TC.launches,
+             "dbb_matmul_aw": dbb_matmul.AW_NATIVE_TC.launches}
     lm.paged_step = inner
     passes = steps["n"]
     results = eng.last_results
@@ -821,9 +908,14 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     check(latent_tc_launches == counts["paged_attn_latent"][0],
           f"{arch}: {latent_tc_launches} of {counts['paged_attn_latent'][0]} latent attention "
           f"launches on the latent tensor-core kernel")
+    # every bf16 native-wire matmul (#1, #4) went through the tc body
+    for name, n_tc in mm_tc.items():
+        check(n_tc == counts[name][0],
+              f"{arch}: {n_tc} of {counts[name][0]} {name} launches on the tc body")
     say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})} "
         f"(paged_attn on the tensor-core kernel: {tc_launches}, paged_attn_latent on the "
-        f"latent tensor-core kernel: {latent_tc_launches}), "
+        f"latent tensor-core kernel: {latent_tc_launches}, dbb_matmul and dbb_matmul_aw on "
+        f"the tc body: {mm_tc['dbb_matmul']}, {mm_tc['dbb_matmul_aw']}), "
         f"plain-version calls {json.dumps({k: v[1] for k, v in counts.items()})}")
     ttft = sorted(r.time_to_first_token for r in results)
     tok_s = N_REQUESTS * N_NEW / wall
@@ -870,6 +962,61 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     return counts
 
 
+def phase_smoke_latent_engine(torch, np):
+    """minicpm3-4b's smoke config in bf16 (a latent of 40 = kv_lora 32 +
+    rope 8: the shape the latent tensor-core kernel took only once it
+    zero-pads the latent to 48) served on the card at pages of 16 and 72
+    slots, native wire and KV: every latent call on the latent tensor-core
+    kernel, every #1/#4 call on the tc body, every request finished, and
+    the longest request re-served alone byte-identical."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import dbb_matmul, ops, paged_attn
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = dataclasses.replace(configs.get_config("minicpm3_4b", smoke=True), dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                            wire_dtype="native")
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.integers(10, 121, size=N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32) for n in lens]
+    arrivals = [2 * i for i in range(N_REQUESTS)]
+    for page_size in (16, 72):
+        serve = dict(SERVE_SHAPE, max_seq=256, page_size=page_size, wire_dtype="native",
+                     kv_dtype="native")
+        eng = Engine(params, cfg, ServeConfig(**serve), device="cuda")
+        ops.reset_counters()
+        paged_attn.PAGED_ATTN_LATENT_TC.launches = 0
+        dbb_matmul.NATIVE_TC.launches = dbb_matmul.AW_NATIVE_TC.launches = 0
+        outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        check(all(r.finish_reason == "length" and r.n_generated == N_NEW
+                  for r in eng.last_results), f"smoke minicpm3 PS={page_size}: a request failed")
+        check(all(c.plain == 0 for c in counts.values()),
+              f"smoke minicpm3 PS={page_size}: a plain version ran")
+        n_lat = counts["paged_attn_latent"].launches
+        check(n_lat > 0 and paged_attn.PAGED_ATTN_LATENT_TC.launches == n_lat,
+              f"smoke minicpm3 PS={page_size}: {paged_attn.PAGED_ATTN_LATENT_TC.launches} of "
+              f"{n_lat} latent launches on the latent tensor-core kernel")
+        check(dbb_matmul.NATIVE_TC.launches == counts["dbb_matmul"].launches > 0
+              and dbb_matmul.AW_NATIVE_TC.launches == counts["dbb_matmul_aw"].launches > 0,
+              f"smoke minicpm3 PS={page_size}: a native matmul launch not on the tc body")
+        k = int(np.argmax(lens))
+        again = eng.generate_requests([prompts[k]], N_NEW)[0]
+        check(np.array_equal(again, outs[k]),
+              f"smoke minicpm3 PS={page_size}: request {k} re-served alone diverged")
+        say(f"smoke minicpm3-4b bf16 (latent Dk 40 Dv 32) PS={page_size}: {N_REQUESTS} "
+            f"requests served, {n_lat} latent launches on the latent tensor-core kernel, "
+            f"{counts['dbb_matmul'].launches} + {counts['dbb_matmul_aw'].launches} #1/#4 "
+            f"launches on the tc body; request {k} re-served alone byte-identical")
+        del eng
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -901,6 +1048,7 @@ def main():
     stats.update(phase_native_matmuls(torch, run_ms))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
     stats["dap_prune"] = phase_dap_prune(torch, run_ms)
+    phase_smoke_latent_engine(torch, np)
     del flush
     torch.cuda.empty_cache()
     launches = {}

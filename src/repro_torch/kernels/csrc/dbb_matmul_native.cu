@@ -1,5 +1,5 @@
 // Native-wire DBB matmuls for Hopper (sm_90a): the W-DBB kernel (#1) and
-// the joint A/W-DBB kernel (#4), one templated body.
+// the joint A/W-DBB kernel (#4), one templated body each way.
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/dbb_matmul.py::dbb_matmul_pallas     (_dbb_matmul_kernel)
@@ -15,35 +15,63 @@
 // decode, M = 64 on a mixed prefill step, K up to 6400, N up to 73472) the
 // work is the packed weight stream: 1.125 bytes per weight element at 4/8
 // in bf16 (NNZ bf16 values + one mask byte per 8-block) against 2*M
-// operations per weight element, far below the card's ~295 bf16
-// operations per byte.  So the bound is bytes (3.35 TB/s), not operations.
+// operations per weight element, at M <= 64 at most 2 * 64 / 1.125 = 114
+// operations per byte, below the card's ~295 bf16 operations per byte.
+// So the bound is bytes (3.35 TB/s), not operations, and mma.sync keeps
+// up: wgmma's higher rate would buy nothing until M passes ~150 rows.
 //
-// What the design does about it.  Weights cross device memory once, in the
-// packed wire format, and are rank-decoded in shared memory, never written
-// back dense:  dense[b] = bit_b ? vals[popcount(mask & (2^b-1))] : 0.
-// One thread decodes one 8-block of four adjacent columns (one mask word,
-// NNZ loads of four values) into shared rows of k-consecutive values.
-// bf16 operands multiply on the tensor cores (mma.sync m16n8k16, f32
-// accumulate) straight out of shared memory, whose rows hold 2
-// consecutive k per 32-bit word — the fragment layout of the instruction
-// — with a 4-word pad against bank conflicts.  Every bf16 product is
-// exact in f32, so only the order of the sums differs from the oracle.
-// f32 operands multiply with scalar FFMA (never TF32: the oracle is full
-// f32).  A block owns a BM x 64 output tile and loops over K in BK-deep
-// steps.
+// Two bodies.  Every bf16 call whose shape it takes runs the tc body
+// (dbb_tc_kernel, counted in NATIVE_TC / AW_NATIVE_TC by the wrapper):
+// N % 8 == 0, K % 64 == 0, aligned operands, a launch plan of at most 8
+// K splits.  Other shapes and every f32 call run the generic body
+// (dbb_bf16_kernel, dbb_f32_kernel), which keeps a workspace and a second
+// launch for split-K.  Both sum a row's k in the same order: k-steps of 16
+// in ascending order within a split, then the splits' partials in split
+// order, then bias and activation.  The split plan is the caller's, from
+// (K, N) only, never from M: a row's output is bitwise the same whatever
+// M or the other rows are, so batch invariance holds on the card.  No
+// float atomics, no order that depends on arrival.
 //
-// Determinism.  The K range of an output element is cut into splits whose
-// count the caller derives from (K, N) only, never from M; each split
-// sums its k in ascending order, and a second kernel adds the splits'
-// f32 partials from a workspace in split order before the epilogue.  No
-// float atomics: a row's output is bitwise the same whatever M or the
-// other rows are, so batch invariance holds on the card.
-// Not yet done: cp.async/TMA double buffering and wgmma.
+// The tc body.  A block owns a BM x BN output tile (BM 16 or 64 rows, BN
+// 64 or 128 columns) and one K split, in k-steps of 8 8-blocks:
+// - A ring of TC_STAGES k-steps in shared memory, filled by cp.async with
+//   the operands as they lie in device memory (w_vals [8][NNZ][BN],
+//   w_mask [8][BN], x_vals/x_mask or dense x), 16 bytes a thread (8 for the
+//   masks), each thread's chunks worked out once: three steps are in
+//   flight while one is decoded and multiplied.  Rows and columns past the
+//   tile's edge are zero-filled by the copy itself.
+// - Weights are rank-decoded from the raw stage straight into the B
+//   fragments of mma.sync.m16n8k16: lane (g, t) needs column g's k pair
+//   (2t, 2t + 1) of each of the step's two 8-blocks, at rank popcount(mask
+//   & (2^2t - 1)) of the packed values, so no dense weight tile and no
+//   dynamic register index exist.  Each warp owns BN / 8 / 8 n-tiles, so a
+//   weight is decoded once per block.
+// - #4's activations are rank-decoded once a step for the whole block into
+//   a padded A tile (one (row, 8-block) a thread, values read at their
+//   ranks in shared memory), from which every warp takes its A fragments
+//   by ldmatrix; #1's dense x lands in the ring as that A tile.
+// - Split-K in a thread-block cluster: the n_split blocks of one output
+//   tile are one cluster (at most 8).  Each writes its f32 partial to its
+//   own shared memory; after the cluster's barrier each sums a share of
+//   the tile over the partials through distributed shared memory, in
+//   split order, and runs the epilogue.  Partials never leave the chip and
+//   there is no second launch.
+// Every bf16 product is exact in f32, so only the order of the sums
+// differs from the oracle's (float64, rounded once).
+//
+// The generic body (PR 12's): one thread decodes an 8-block of four
+// adjacent columns into shared rows of k-consecutive values, bf16 on the
+// tensor cores (mma.sync), f32 with scalar FFMA (never TF32: the oracle is
+// full f32), synchronous loads; a second kernel adds the splits' f32
+// partials from a workspace in split order before the epilogue.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -365,6 +393,370 @@ reduce_kernel(const float* __restrict__ part, int n_split, const float* __restri
   finish<OutT, ACT>(s, (int)(i / N), (int)(i % N), N, bias, out);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16, "tc"): a cp.async ring of raw packed tiles,
+// rank-decode from shared memory, split-K summed in a thread-block cluster.
+
+constexpr int TC_THREADS = 256;  // 8 warps
+constexpr int TC_STAGES = 4;     // k-steps of the ring: one in use, three in flight
+constexpr int TC_KBT = 8;        // 8-blocks per k-step (64 k, four m16n8k16 k-steps)
+constexpr int TC_AROW = 8 * TC_KBT + 8;  // bf16 per row of an A tile: 64 k + 16 bytes of pad
+constexpr int TC_MAX_SPLIT = 8;  // blocks of a cluster (the portable size)
+
+__host__ __device__ inline int align16i(int x) { return (x + 15) & ~15; }
+
+// Byte offsets of the tc body's dynamic shared memory.  A stage of the
+// ring holds one k-step as it lies in device memory: w_vals [KBT][NNZw][BN]
+// (rows padded to BN + 8 values), w_mask [KBT][BN], and x_vals [BM][KBT *
+// NNZa] with x_mask [BM][KBT] (#4) or x [BM][64] (#1, rows padded to 72
+// values: the A tile itself).  #4 decodes A into one A tile [BM][72] a
+// step.  After the loop the same memory holds the block's f32 partial
+// [BM][BN + 4] for the cluster's sum.
+struct TcSmem {
+  int wv, wm, xa, xm, stage, atile, part_row, total;
+};
+
+__host__ __device__ inline TcSmem tc_smem(int BM, int BN, int nnz_w, int nnz_a, bool packed) {
+  TcSmem L;
+  L.wv = 0;
+  L.wm = align16i(L.wv + TC_KBT * nnz_w * (BN + 8) * 2);
+  L.xa = align16i(L.wm + TC_KBT * BN);
+  L.xm = align16i(L.xa + (packed ? BM * TC_KBT * nnz_a * 2 : BM * TC_AROW * 2));
+  L.stage = align16i(L.xm + (packed ? BM * TC_KBT : 0));
+  L.atile = TC_STAGES * L.stage;
+  L.part_row = BN + 4;
+  const int ring = L.atile + (packed ? BM * TC_AROW * 2 : 0);
+  const int part = BM * L.part_row * 4;
+  L.total = ring > part ? ring : part;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 (or 8) bytes, or as many zero bytes when !full (the src
+// is then not read; a valid address is passed all the same)
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8z(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ float activate_rt(int act, float y) {
+  switch (act) {
+    case ACT_RELU: return activate<ACT_RELU>(y);
+    case ACT_SILU: return activate<ACT_SILU>(y);
+    case ACT_GELU: return activate<ACT_GELU>(y);
+    default: return y;
+  }
+}
+
+// out[m, n .. n + W) = act(acc + bias), W = 2 or 4 adjacent columns
+template <int W>
+__device__ __forceinline__ void finish_vec(const float (&acc)[W], int m, int n, int N,
+                                           const float* __restrict__ bias, int act, int out_bf16,
+                                           void* out) {
+  float y[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    y[i] = acc[i];
+    if (bias != nullptr) y[i] = __fadd_rn(y[i], bias[n + i]);
+    y[i] = activate_rt(act, y[i]);
+  }
+  const size_t o = (size_t)m * N + n;
+  if (out_bf16) {
+    uint32_t w[W / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+      memcpy(&w[i], &v, 4);
+    }
+    if constexpr (W == 4) *(uint2*)((__nv_bfloat16*)out + o) = make_uint2(w[0], w[1]);
+    else *(uint32_t*)((__nv_bfloat16*)out + o) = w[0];
+  } else {
+    if constexpr (W == 4) *(float4*)((float*)out + o) = make_float4(y[0], y[1], y[2], y[3]);
+    else *(float2*)((float*)out + o) = make_float2(y[0], y[1]);
+  }
+}
+
+// One B fragment register of m16n8k16 (k pair 2t, 2t+1 of column col of
+// one 8-block), rank-decoded from the raw stage: the pair's values sit at
+// rank r0 = popcount of the mask's bits below 2t, and r0 + bit 2t; a bit
+// that is clear gives 0.  Ranks clamp to nnz - 1 like the oracle's gather.
+__device__ __forceinline__ uint32_t decode_pair(const uint8_t* wm_row,
+                                                const unsigned short* wv_rows, int col, int vst,
+                                                int t2, unsigned below, int nnz1) {
+  const unsigned msk = wm_row[col];
+  const int r0 = __popc(msk & below);
+  const unsigned b0 = (msk >> t2) & 1u, b1 = (msk >> (t2 + 1)) & 1u;
+  const int ra = min(r0, nnz1), rb = min(r0 + (int)b0, nnz1);
+  const unsigned lo = b0 ? wv_rows[ra * vst + col] : 0u;
+  const unsigned hi = b1 ? wv_rows[rb * vst + col] : 0u;
+  return lo | (hi << 16);
+}
+
+// TM m-tiles of 16 rows (BM = 16 TM), NTW n-tiles of 8 columns a warp (BN
+// = 64 NTW).  Grid (n_split, N tiles, M tiles), one cluster per output
+// tile along x: block x sums the 8-blocks [x * kb_per_split, ...).
+template <int TM, int NTW, bool PACKED_A>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x_mask,
+              const __nv_bfloat16* __restrict__ w_vals, const uint8_t* __restrict__ w_mask,
+              const float* __restrict__ bias, void* __restrict__ out, int M, int N, int KB,
+              int nnz_a, int nnz_w, int kb_per_split, int act, int out_bf16) {
+  constexpr int BM = 16 * TM, BN = 64 * NTW, BNV = BN + 8, NT = TC_THREADS;
+  constexpr int WCH = (TC_KBT * 8 * (BN / 8) + NT - 1) / NT;  // w_vals chunks a thread, at most
+  constexpr int XCH = (BM * 8 + NT - 1) / NT;  // x chunks a thread, at most (8 a row)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcSmem L = tc_smem(BM, BN, nnz_w, nnz_a, PACKED_A);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int kb_begin = blockIdx.x * kb_per_split;
+  const int nsteps = (min(KB, kb_begin + kb_per_split) - kb_begin) / TC_KBT;
+
+  // Each thread's chunks of a stage, worked out once (no division per
+  // copy): the smem offset and the source offset from the step's base.
+  // w_vals rows (8-block, slot) of BN values in 16-byte chunks; w_mask
+  // rows of BN bytes in 8-byte chunks; x_vals rows of KBT * NNZa values
+  // (NNZa chunks) and x_mask rows of 8 bytes, or x rows of 64 values.
+  const int wrows = TC_KBT * nnz_w, wcpr = BN / 8;
+  int w_so[WCH], w_go[WCH];
+  unsigned w_ok = 0;
+#pragma unroll
+  for (int i = 0; i < WCH; ++i) {
+    const int c = tid + i * NT, r = c / wcpr, cc = c % wcpr;
+    w_so[i] = r * BNV + cc * 8;
+    w_go[i] = r * N + n0 + cc * 8;
+    if (r < wrows && n0 + cc * 8 < N) w_ok |= 1u << i;
+    if (r >= wrows) w_so[i] = -1;
+  }
+  const int m_r = tid / wcpr, m_c = tid % wcpr;
+  const bool m_has = tid < TC_KBT * wcpr, m_ok = m_has && n0 + m_c * 8 < N;
+  const int xcpr = PACKED_A ? nnz_a : 8;  // 16-byte chunks of an x row's step
+  int x_so[XCH];
+  long long x_go[XCH];
+  unsigned x_ok = 0;
+#pragma unroll
+  for (int i = 0; i < XCH; ++i) {
+    const int c = tid + i * NT, r = c / xcpr, cc = c % xcpr;
+    x_so[i] = r < BM ? (PACKED_A ? r * TC_KBT * nnz_a + cc * 8 : r * TC_AROW + cc * 8) : -1;
+    x_go[i] = PACKED_A ? (long long)(m0 + r) * KB * nnz_a + cc * 8
+                       : (long long)(m0 + r) * KB * 8 + cc * 8;
+    if (r < BM && m0 + r < M) x_ok |= 1u << i;
+  }
+  const bool xm_has = PACKED_A && tid < BM, xm_ok = xm_has && m0 + tid < M;
+
+  auto issue = [&](int step) {  // k-step `step` of this split into its stage
+    if (step < nsteps) {
+      unsigned char* st = smem + (step % TC_STAGES) * L.stage;
+      const int kb0 = kb_begin + step * TC_KBT;
+      const __nv_bfloat16* wb = w_vals + (size_t)kb0 * nnz_w * N;
+      __nv_bfloat16* wv = (__nv_bfloat16*)(st + L.wv);
+#pragma unroll
+      for (int i = 0; i < WCH; ++i)
+        if (w_so[i] >= 0) cp_async16z(wv + w_so[i], (w_ok >> i & 1u) ? wb + w_go[i] : w_vals,
+                                      w_ok >> i & 1u);
+      if (m_has)
+        cp_async8z(st + L.wm + m_r * BN + m_c * 8,
+                   m_ok ? w_mask + (size_t)(kb0 + m_r) * N + n0 + m_c * 8 : w_mask, m_ok);
+      const __nv_bfloat16* xb = x + (size_t)kb0 * (PACKED_A ? nnz_a : 8);
+      __nv_bfloat16* xa = (__nv_bfloat16*)(st + L.xa);
+#pragma unroll
+      for (int i = 0; i < XCH; ++i)
+        if (x_so[i] >= 0) cp_async16z(xa + x_so[i], (x_ok >> i & 1u) ? xb + x_go[i] : x,
+                                      x_ok >> i & 1u);
+      if (xm_has)
+        cp_async8z(st + L.xm + tid * TC_KBT,
+                   xm_ok ? x_mask + (size_t)(m0 + tid) * KB + kb0 : x_mask, xm_ok);
+    }
+    cp_commit();
+  };
+
+  float acc[TM][NTW][4];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < NTW; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.0f;
+
+  const int g = lane / 4, t = lane % 4;
+  const unsigned below = (1u << (2 * t)) - 1u;
+  const int nnz_w1 = nnz_w - 1, nnz_a1 = nnz_a - 1;
+  // A fragments by ldmatrix: lanes 0-15 rows 0-15 at k, 16-31 at k + 8
+  const int a_off = (lane % 16) * TC_AROW + (lane / 16) * 8;
+  __nv_bfloat16* atile = (__nv_bfloat16*)(smem + L.atile);
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) issue(s);
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_wait<TC_STAGES - 2>();  // step s landed (this thread's copies) ...
+    __syncthreads();           // ... everyone's; step s - 1 fully consumed
+    issue(s + TC_STAGES - 1);
+    const unsigned char* st = smem + (s % TC_STAGES) * L.stage;
+    const __nv_bfloat16* at;
+    if constexpr (PACKED_A) {
+      // decode the step's activations once for the block: one (row, 8-block)
+      // a thread at a time, its values read at their ranks in shared memory
+      const unsigned short* xv = (const unsigned short*)(st + L.xa);
+      const uint8_t* xm = st + L.xm;
+      for (int p = tid; p < BM * TC_KBT; p += NT) {
+        const unsigned msk = xm[p];
+        const unsigned short* v = xv + p * nnz_a;
+        uint32_t w[4];
+        int r = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          unsigned lo = 0, hi = 0;
+          if (msk >> (2 * j) & 1u) lo = v[min(r++, nnz_a1)];
+          if (msk >> (2 * j + 1) & 1u) hi = v[min(r++, nnz_a1)];
+          w[j] = lo | (hi << 16);
+        }
+        *(uint4*)(atile + (p / TC_KBT) * TC_AROW + (p % TC_KBT) * 8) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      __syncthreads();
+      at = atile;
+    } else {
+      at = (const __nv_bfloat16*)(st + L.xa);
+    }
+    const uint8_t* wm = st + L.wm;
+    const unsigned short* wv = (const unsigned short*)(st + L.wv);
+#pragma unroll
+    for (int kk = 0; kk < TC_KBT / 2; ++kk) {  // four 16-deep k-steps: 8-blocks 2kk, 2kk+1
+      uint32_t a[TM][4];
+#pragma unroll
+      for (int mt = 0; mt < TM; ++mt) ldsm_x4(a[mt], at + mt * 16 * TC_AROW + a_off + kk * 16);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int col = (warp * NTW + j) * 8 + g;
+        const uint32_t b0 = decode_pair(wm + (2 * kk) * BN, wv + (2 * kk) * nnz_w * BNV, col,
+                                        BNV, 2 * t, below, nnz_w1);
+        const uint32_t b1 = decode_pair(wm + (2 * kk + 1) * BN,
+                                        wv + (2 * kk + 1) * nnz_w * BNV, col, BNV, 2 * t, below,
+                                        nnz_w1);
+#pragma unroll
+        for (int mt = 0; mt < TM; ++mt)
+          mma_bf16(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  const int n_split = gridDim.x;
+  if (n_split == 1) {  // the whole K range: finish from the registers
+#pragma unroll
+    for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + mt * 16 + g + 8 * h, n = n0 + (warp * NTW + j) * 8 + 2 * t;
+          if (m < M && n < N) {
+            const float v[2] = {acc[mt][j][2 * h], acc[mt][j][2 * h + 1]};
+            finish_vec<2>(v, m, n, N, bias, act, out_bf16, out);
+          }
+        }
+    return;
+  }
+
+  // Split-K: each block's f32 partial into its own shared memory; after
+  // the cluster's barrier block x sums its share of the tile's outputs over
+  // the n_split partials through distributed shared memory, in split order
+  // (rank 0, 1, ...: the K ranges in order), then finishes them.
+  __syncthreads();  // the ring's last reads are done before it is overwritten
+  float* part = (float*)smem;
+  const int PR = L.part_row;
+#pragma unroll
+  for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *(float2*)(part + (mt * 16 + g + 8 * h) * PR + (warp * NTW + j) * 8 + 2 * t) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  const int rows = min(BM, M - m0), q4 = min(BN, N - n0) / 4;  // float4 groups of a row
+  const int total = rows * q4, per = (total + n_split - 1) / n_split;
+  const int q_end = min(total, (rank + 1) * per);
+  for (int q = rank * per + tid; q < q_end; q += NT) {
+    const int r = q / q4, c = (q % q4) * 4;
+    const int off = r * PR + c;
+    float4 sum = *(const float4*)(cluster.map_shared_rank(part, 0) + off);
+    for (int j = 1; j < n_split; ++j) {
+      const float4 v = *(const float4*)(cluster.map_shared_rank(part, j) + off);
+      sum.x = __fadd_rn(sum.x, v.x);
+      sum.y = __fadd_rn(sum.y, v.y);
+      sum.z = __fadd_rn(sum.z, v.z);
+      sum.w = __fadd_rn(sum.w, v.w);
+    }
+    const float v4[4] = {sum.x, sum.y, sum.z, sum.w};
+    finish_vec<4>(v4, m0 + r, n0 + c, N, bias, act, out_bf16, out);
+  }
+  cluster.sync();  // no block leaves while another still reads its partial
+}
+
+template <int TM, int NTW, bool PACKED_A>
+cudaError_t launch_tc(const void* x, const uint8_t* xm, const void* wv, const uint8_t* wm,
+                      const float* bias, void* out, int M, int N, int KB, int nnz_a, int nnz_w,
+                      int kb_per_split, int n_split, int act, int out_bf16, cudaStream_t st) {
+  auto kernel = dbb_tc_kernel<TM, NTW, PACKED_A>;
+  const int smem = tc_smem(16 * TM, 64 * NTW, nnz_w, nnz_a, PACKED_A).total;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, (N + 64 * NTW - 1) / (64 * NTW), (M + 16 * TM - 1) / (16 * TM));
+  cfg.blockDim = dim3(TC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)x, xm, (const __nv_bfloat16*)wv,
+                           wm, bias, out, M, N, KB, nnz_a, nnz_w, kb_per_split, act, out_bf16);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool PACKED_A>
+cudaError_t launch_tc_for(int bn, const void* x, const uint8_t* xm, const void* wv,
+                          const uint8_t* wm, const float* bias, void* out, int M, int N, int KB,
+                          int nnz_a, int nnz_w, int kb_per_split, int n_split, int act,
+                          int out_bf16, cudaStream_t st) {
+#define TC_ARGS x, xm, wv, wm, bias, out, M, N, KB, nnz_a, nnz_w, kb_per_split, n_split, act, \
+    out_bf16, st
+  if (M <= 16)
+    return bn == 128 ? launch_tc<1, 2, PACKED_A>(TC_ARGS) : launch_tc<1, 1, PACKED_A>(TC_ARGS);
+  return bn == 128 ? launch_tc<4, 2, PACKED_A>(TC_ARGS) : launch_tc<4, 1, PACKED_A>(TC_ARGS);
+#undef TC_ARGS
+}
+
 struct Args {
   const void* x;
   const uint8_t* xm;
@@ -423,32 +815,42 @@ cudaError_t launch_type(int bf16, int act, const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// Reduction depth of one shared-memory step (in 8-blocks) for bf16 (else
-// f32) operands: the wrapper cuts K into splits of whole steps.
-extern "C" int dbb_matmul_native_step_blocks(int bf16) {
-  return bf16 ? Tile<__nv_bfloat16>::BK / 8 : Tile<float>::BK / 8;
-}
-
 // C entry point, bound with ctypes (kernels/dbb_matmul.py).  Every pointer
 // and the stream are void*; sizes are int.  packed_a selects kernel #4 (x
 // = x_vals [M, KB, nnz_a], x_mask [M, KB] given) over kernel #1 (x = dense
 // [M, KB*8], x_mask NULL, 16-byte aligned).  x and w_vals are bf16
 // (bf16 != 0) or f32; bias (f32 [N]) may be NULL.  The K range splits into
-// n_split ranges of kb_per_split 8-blocks (a multiple of the step depth);
-// n_split > 1 needs part, f32 [n_split, M, N] scratch.  Returns
-// cudaGetLastError() after the launches.
+// n_split ranges of kb_per_split 8-blocks.  body 1 runs the tc body (bf16
+// only; N % 8 == 0, KB % 8 == 0, kb_per_split % 8 == 0, n_split <= 8, bn
+// 64 or 128, x and w_vals 16-byte and the masks 8-byte aligned; no
+// scratch), body 0 the generic body (bf16 or f32; n_split > 1 needs part,
+// f32 [n_split, M, N] scratch, and a second launch).  Returns
+// cudaGetLastError() after the launches; cudaErrorInvalidValue for
+// arguments the chosen body does not take.
 extern "C" int dbb_matmul_native(const void* x, const void* x_mask, const void* w_vals,
                                  const void* w_mask, const void* bias, void* out, void* part,
                                  int M, int N, int KB, int nnz_a, int nnz_w, int kb_per_split,
                                  int n_split, int packed_a, int bf16, int out_bf16, int act,
-                                 void* stream) {
-  if (M <= 0 || N <= 0 || KB <= 0 || nnz_w < 1 || nnz_w > 8 || (packed_a && (nnz_a < 1 || nnz_a > 8)) ||
-      n_split < 1 || kb_per_split < 1 || (long long)kb_per_split * n_split < KB ||
-      (n_split > 1 && part == nullptr))
+                                 int body, int bn, void* stream) {
+  if (M <= 0 || N <= 0 || KB <= 0 || nnz_w < 1 || nnz_w > 8 ||
+      (packed_a && (nnz_a < 1 || nnz_a > 8)) || n_split < 1 || kb_per_split < 1 ||
+      (long long)kb_per_split * n_split < KB || act < ACT_NONE || act > ACT_GELU)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)w_vals % 16 == 0 &&
+                         (uintptr_t)w_mask % 8 == 0 && (!packed_a || (uintptr_t)x_mask % 8 == 0);
+    if (!bf16 || N % 8 || KB % TC_KBT || kb_per_split % TC_KBT || n_split > TC_MAX_SPLIT ||
+        (long long)kb_per_split * (n_split - 1) >= KB || (bn != 64 && bn != 128) || !aligned)
+      return (int)cudaErrorInvalidValue;
+    const auto launch = packed_a ? launch_tc_for<true> : launch_tc_for<false>;
+    return (int)launch(bn, x, (const uint8_t*)x_mask, w_vals, (const uint8_t*)w_mask,
+                       (const float*)bias, out, M, N, KB, nnz_a, nnz_w, kb_per_split, n_split,
+                       act, out_bf16, s);
+  }
+  if (body != 0 || (n_split > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{x, (const uint8_t*)x_mask, w_vals, (const uint8_t*)w_mask, (const float*)bias,
                out, (float*)part, M, N, KB, nnz_a, nnz_w, kb_per_split, n_split};
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (packed_a) {
     err = out_bf16 ? launch_type<true, __nv_bfloat16>(bf16, act, a, s)

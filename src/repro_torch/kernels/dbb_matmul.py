@@ -12,8 +12,14 @@ plain versions in ``kernels/ref.py``.
 Native wire (values in the model dtype, bf16 or f32): kernel #1
 (``dbb_matmul_cuda``) replaces ``dbb_matmul_pallas`` and kernel #4
 (``dbb_matmul_aw_cuda``) replaces ``dbb_matmul_aw_pallas``: an f32
-accumulator drained through ``act(acc + bias)``.  Their K splits depend
-on (K, N) only, so a row's output is bitwise the same whatever M is.
+accumulator drained through ``act(acc + bias)``.  Their launch plan
+(:func:`native_plan`: tile width, K splits, cluster) depends on (K, N)
+only, so a row's output is bitwise the same whatever M is.  A bf16 call
+of a shape the tc body takes (:func:`tc_body_error`) runs it — a
+``cp.async`` ring of raw packed tiles, rank-decode from shared memory,
+split-K summed in a thread-block cluster — counted in ``NATIVE_TC`` /
+``AW_NATIVE_TC`` as well as ``NATIVE`` / ``AW_NATIVE``; any other call
+runs the generic body (a split-K workspace and a second launch).
 
 These wrappers take CUDA tensors only; ``kernels/ops.py`` dispatches CPU
 tensors to the plain versions.
@@ -33,6 +39,8 @@ INT8 = native.Counter()  # kernel #2: dense int8 x, packed int8 w
 AW_INT8 = native.Counter()  # kernel #3: packed int8 x and w
 NATIVE = native.Counter()  # kernel #1: dense x, packed w, model dtype
 AW_NATIVE = native.Counter()  # kernel #4: packed x and w, model dtype
+NATIVE_TC = native.Counter()  # kernel #1's launches of the tc body
+AW_NATIVE_TC = native.Counter()  # kernel #4's launches of the tc body
 
 _ACT = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
@@ -172,30 +180,50 @@ def _native_entries():
     global _native_fns
     if _native_fns is None:
         lib = native.load("dbb_matmul_native")
-        P, I = ctypes.c_void_p, ctypes.c_int
         fn = lib.dbb_matmul_native
-        fn.argtypes = [P] * 7 + [I] * 11 + [P]
-        fn.restype = I
-        step = lib.dbb_matmul_native_step_blocks
-        step.argtypes = [I]
-        step.restype = I
-        _native_fns = (fn, step)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _native_fns = fn
     return _native_fns
 
 
-def _native_split(n: int, kb: int, step: int):
-    """``(kb_per_split, n_split)`` for a native-wire launch: enough K
-    splits that the output tiles of one 16-row tile fill the H100 twice,
-    each a whole number of ``step``-deep shared-memory steps.  A function
-    of N and K only — never of M — so every row sums in the same order."""
-    tiles = -(-n // 64)
-    steps = -(-kb // step)
-    want = 1 if tiles >= TARGET_BLOCKS // 2 else min(-(-TARGET_BLOCKS // tiles), steps)
-    kb_per_split = -(-steps // max(1, want)) * step
-    return kb_per_split, -(-kb // kb_per_split)
+STEP_BLOCKS = 8  # 8-blocks of one k-step of the tc body (64 k): splits are whole steps
+MAX_SPLIT = 8  # K splits of one output tile: the blocks of a portable cluster
+PLAN_BLOCKS = 132  # blocks a launch aims for: one per SM of the H100
 
 
-def _launch_native(counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg_w, out_dtype,
+def native_plan(k: int, n: int):
+    """``(bn, kb_per_split, n_split)`` of a native-wire launch over K = ``k``
+    (8-blocks of 8) and N = ``n``: the output tile's width (128 where the
+    wider tiles alone with up to 8 splits fill the card, else 64) and as
+    many K splits (at most ``MAX_SPLIT``, the cluster size) of whole
+    ``STEP_BLOCKS`` k-steps as fill ``PLAN_BLOCKS`` blocks with one row
+    tile.  A function of (K, N) only — never of M — so every row sums in
+    the same order."""
+    kb = k // 8
+    steps = -(-kb // STEP_BLOCKS)
+    bn = 128 if -(-n // 128) * min(MAX_SPLIT, steps) >= PLAN_BLOCKS else 64
+    want = min(MAX_SPLIT, steps, -(-PLAN_BLOCKS // -(-n // bn)))
+    per = -(-steps // want)
+    return bn, per * STEP_BLOCKS, -(-steps // per)
+
+
+def tc_body_error(dtype, kb: int, n: int, ptrs=(), mask_ptrs=()) -> Optional[str]:
+    """Why the tc body does not take a native-wire call (``dtype`` of its
+    values, ``kb`` 8-blocks, ``n`` columns, the 16-byte operands' and the
+    8-byte masks' device pointers), or None when it does."""
+    if dtype != torch.bfloat16:
+        return f"values are {dtype}, not bfloat16"
+    if n % 8:
+        return f"N={n} is not a multiple of 8"
+    if kb % STEP_BLOCKS:
+        return f"K={8 * kb} is not a multiple of {8 * STEP_BLOCKS}"
+    if any(p % 16 for p in ptrs) or any(p % 8 for p in mask_ptrs):
+        return "an operand is not aligned for cp.async"
+    return None
+
+
+def _launch_native(counter, tc_counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg_w, out_dtype,
                    bias, act):
     if cfg_w.bz != 8:
         raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
@@ -219,20 +247,23 @@ def _launch_native(counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg_w, out_dtyp
     if bias is not None:
         bias = bias.to(device=dev, dtype=torch.float32).contiguous()
         p_b = native.cuda_arg(bias, "bias", torch.float32, (n,))
-    fn, step = _native_entries()
-    bf16 = _FLOAT[w_vals.dtype]
-    kb_per_split, n_split = _native_split(n, kb, step(bf16))
+    p_x = x.data_ptr()
+    p_xm = None if x_mask is None else x_mask.data_ptr()
+    bn, kb_per_split, n_split = native_plan(8 * kb, n)
+    tc = tc_body_error(w_vals.dtype, kb, n, (p_x, p_wv),
+                       (p_wm,) if p_xm is None else (p_wm, p_xm)) is None
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     part = (torch.empty((n_split, m, n), dtype=torch.float32, device=dev)
-            if n_split > 1 else None)
-    err = fn(
-        x.data_ptr(), None if x_mask is None else x_mask.data_ptr(), p_wv, p_wm, p_b,
-        out.data_ptr(), None if part is None else part.data_ptr(), m, n, kb, nnz_a, nnz_w,
-        kb_per_split, n_split, int(x_mask is not None), bf16, _OUT[out_dtype], _ACT[act],
-        native.stream_ptr(dev),
+            if n_split > 1 and not tc else None)
+    err = _native_entries()(
+        p_x, p_xm, p_wv, p_wm, p_b, out.data_ptr(), None if part is None else part.data_ptr(),
+        m, n, kb, nnz_a, nnz_w, kb_per_split, n_split, int(x_mask is not None),
+        _FLOAT[w_vals.dtype], _OUT[out_dtype], _ACT[act], int(tc), bn, native.stream_ptr(dev),
     )
     native.check(err, "dbb_matmul_native")
     counter.launches += 1
+    if tc:
+        tc_counter.launches += 1
     return out
 
 
@@ -251,7 +282,7 @@ def dbb_matmul_cuda(
         raise ValueError(f"x {tuple(x.shape)} does not match w_vals {tuple(w_vals.shape)}")
     if native.cuda_arg(x, "x", x.dtype) % 16:
         x = x.clone()  # the kernel reads 8 values at a time
-    return _launch_native(NATIVE, x, None, x.shape[0], 1, w_vals, w_mask, cfg,
+    return _launch_native(NATIVE, NATIVE_TC, x, None, x.shape[0], 1, w_vals, w_mask, cfg,
                           out_dtype or x.dtype, bias, act)
 
 
@@ -277,5 +308,5 @@ def dbb_matmul_aw_cuda(
         )
     native.cuda_arg(x_vals, "x_vals", x_vals.dtype)
     native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
-    return _launch_native(AW_NATIVE, x_vals, x_mask, m, nnz_a, w_vals, w_mask, cfg_w,
-                          out_dtype or x_vals.dtype, bias, act)
+    return _launch_native(AW_NATIVE, AW_NATIVE_TC, x_vals, x_mask, m, nnz_a, w_vals, w_mask,
+                          cfg_w, out_dtype or x_vals.dtype, bias, act)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.core import dbb, quant
+from repro_torch.core.dap import DAPSpec, apply_dap
 from repro_torch.kernels import dap_prune, dbb_matmul, ops, paged_attn, ref
 
 pytestmark = pytest.mark.cuda
@@ -223,8 +224,13 @@ def _native_operands(gen, m, k, n, dtype):
 @pytest.mark.parametrize("kind", ["w", "aw"])
 def test_native_matmul_kernels_vs_plain(cuda, m, k, n, dtype, kind):
     """Kernels #1 and #4 vs their plain versions, ragged N included (70
-    and 290 are not multiples of 4: the kernel's scalar load path)."""
+    and 290 are not multiples of 4: the generic body's scalar load path).
+    bf16 calls with N % 8 == 0 and K % 64 == 0 run the tc body, the rest
+    the generic body."""
     cfg, x, xv, xm, wv, wm, bias = _native_operands(cuda, m, k, n, dtype)
+    counter, tc = ((dbb_matmul.AW_NATIVE, dbb_matmul.AW_NATIVE_TC) if kind == "aw"
+                   else (dbb_matmul.NATIVE, dbb_matmul.NATIVE_TC))
+    before = (counter.launches, tc.launches)
     for act, b in ((None, None), ("silu", bias), ("gelu", None)):
         if kind == "aw":
             got = dbb_matmul.dbb_matmul_aw_cuda(xv, xm, wv, wm, cfg, cfg, bias=b, act=act,
@@ -246,24 +252,82 @@ def test_native_matmul_kernels_vs_plain(cuda, m, k, n, dtype, kind):
     err16 = (got16.float() - want16.float()).abs()
     ulp = 2.0 ** -7 * torch.maximum(got16.float().abs(), want16.float().abs())
     assert bool((err16 <= ulp + 1e-5 * want16.float().abs().max().item() + 1e-6).all())
-    counter = dbb_matmul.AW_NATIVE if kind == "aw" else dbb_matmul.NATIVE
-    assert counter.launches > 0
+    takes_tc = dtype == torch.bfloat16 and n % 8 == 0 and k % 64 == 0
+    assert counter.launches == before[0] + 4
+    assert tc.launches == before[1] + (4 if takes_tc else 0)
+
+
+def _smoke_native_linears():
+    """``chip_smoke.py``'s full-width native-wire linears: (arch, name,
+    kernel, activation, DAP-pruned input, K, N)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return ([("minicpm3-4b",) + row for row in mod.NATIVE_LINEARS]
+            + [("granite-moe-1b-a400m",) + row for row in mod.MOE_NATIVE_LINEARS])
+
+
+@pytest.mark.parametrize("arch,name,kind,act,dap,k,n", _smoke_native_linears(),
+                         ids=lambda v: str(v))
+def test_native_matmul_tc_full_width(cuda, arch, name, kind, act, dap, k, n):
+    """The tc body at every full-width shape of minicpm3-4b's and
+    granite-moe-1b-a400m's native-wire linears, bf16, at M = 1, 4 and 64:
+    every call on the tc body, f32 output within 1e-5 of the largest
+    output of the plain version, bf16 within that plus one bf16 ulp, and a
+    row's bits the same at every M."""
+    cfg = dbb.DBBConfig(4, 8)
+    bf16 = torch.bfloat16
+    w = (torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)).to(bf16)
+    wv, wm = ops.pack_weight(w, cfg)
+    x = torch.randn((64, k), generator=cuda, device="cuda").to(bf16)
+    if dap:
+        x = apply_dap(x, DAPSpec(4, 8))
+    xv, xm = ops.dap_pack(x, 4, 8)
+    tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
+
+    def run(fn, m, out_dtype):
+        if kind == "aw":
+            return fn(xv[:m], xm[:m], wv, wm, cfg, cfg, act=act, out_dtype=out_dtype)
+        return fn(x[:m], wv, wm, cfg, act=act, out_dtype=out_dtype)
+
+    kern = dbb_matmul.dbb_matmul_aw_cuda if kind == "aw" else dbb_matmul.dbb_matmul_cuda
+    plain = ref.dbb_matmul_aw_ref if kind == "aw" else ref.dbb_matmul_ref
+    before = tc.launches
+    y = {m: run(kern, m, torch.float32) for m in (1, 4, 64)}
+    assert tc.launches == before + 3
+    assert torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4])
+    for m in (1, 4, 64):
+        want = run(plain, m, torch.float32)
+        tol32 = 1e-5 * want.abs().max().item()
+        assert (y[m] - want).abs().max().item() <= tol32, m
+        yb = run(kern, m, bf16).float()
+        yb_ref = run(plain, m, bf16).float()
+        ulp = 2.0 ** -7 * torch.maximum(yb.abs(), yb_ref.abs())
+        assert bool(((yb - yb_ref).abs() <= ulp + tol32).all()), m
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", ["w", "aw"])
 def test_native_matmul_rows_bitwise_independent_of_m(cuda, dtype, kind):
-    """A row's output bits are the same at M=1 and inside M=64: the K
-    split depends on (K, N) only and nothing is added atomically."""
-    cfg, x, xv, xm, wv, wm, _ = _native_operands(cuda, 64, 2560, 288, dtype)
+    """A row's output bits are the same at M=1, inside M=4, M=64 and M=100
+    (two row tiles): the K split depends on (K, N) only and nothing is
+    added atomically; bf16 runs the tc body (eight splits in a cluster),
+    f32 the generic body."""
+    cfg, x, xv, xm, wv, wm, _ = _native_operands(cuda, 100, 2560, 288, dtype)
 
     def run(rows):
         if kind == "aw":
             return dbb_matmul.dbb_matmul_aw_cuda(xv[rows], xm[rows], wv, wm, cfg, cfg, act="silu")
         return dbb_matmul.dbb_matmul_cuda(x[rows], wv, wm, cfg, act="silu")
 
-    full = run(slice(0, 64))
-    for r in (0, 21, 63):
+    full = run(slice(0, 100))
+    assert torch.equal(run(slice(0, 64)), full[:64])
+    assert torch.equal(run(slice(20, 24)), full[20:24])
+    for r in (0, 21, 63, 99):
         assert torch.equal(run(slice(r, r + 1))[0], full[r]), r
 
 
@@ -373,20 +437,24 @@ def test_paged_attn_latent_tc_kernel_bf16_large_pages(cuda, int8, s, ps):
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("splits", [1, 3])
 @pytest.mark.parametrize("ps", [8, 16, 72])
-def test_paged_attn_latent_tc_kernel_bf16_narrow_latent(cuda, int8, s, ps):
+def test_paged_attn_latent_tc_kernel_bf16_narrow_latent(cuda, monkeypatch, int8, s, splits, ps):
     """minicpm3-4b's smoke latent: Dk 40 (kv_lora 32 + rope 8, not a
     multiple of 16: zero-padded to 48 in shared memory, int8 rows copied 8
     bytes at a time), Dv 32, 4 heads; one split and three."""
-    for p_cnt in (4, 2 * paged_attn.PAGES_PER_SPLIT + 3):
-        q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, ps, h=4, dk=40,
-                                                      dv=32)
-        before = paged_attn.PAGED_ATTN_LATENT_TC.launches
-        got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
-        assert paged_attn.PAGED_ATTN_LATENT_TC.launches == before + 1
-        want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= 1.6e-2, (p_cnt, err)
+    if splits == 1:  # a table no wider than one split
+        monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 8)
+        p_cnt = 8
+    else:
+        p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    q, lat, pos, tables, q_pos, kw = _latent_case(cuda, s, int8, p_cnt, ps, h=4, dk=40, dv=32)
+    before = paged_attn.PAGED_ATTN_LATENT_TC.launches
+    got = paged_attn.paged_attn_cuda(q, lat, None, pos, tables, q_pos, **kw)
+    assert paged_attn.PAGED_ATTN_LATENT_TC.launches == before + 1
+    want = ref.paged_attn_ref(q, lat, None, pos, tables, q_pos, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2, err
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])

@@ -15,6 +15,10 @@ Tolerances, with their reasons:
 The CUDA kernels themselves need the card: ``test_torch_cuda.py``.
 """
 
+import importlib.util
+import inspect
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -314,6 +318,46 @@ def test_tc_shape_rule_latent():
     for args, word in (((40, 36, 32, 16), "Dk=36"), ((40, 288, 260, 16), "Dv=260"),
                        ((40, 320, 264, 16), "Dv=264"), ((40, 288, 256, 0), "PS=0")):
         assert word in paged_attn.tc_shape_error(*args, latent=True)
+
+
+def _smoke_native_shapes():
+    """The full-width (K, N) of ``chip_smoke.py``'s native-wire linears
+    (``NATIVE_LINEARS``: minicpm3-4b, ``MOE_NATIVE_LINEARS``:
+    granite-moe-1b-a400m)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return sorted({row[-2:] for row in mod.NATIVE_LINEARS + mod.MOE_NATIVE_LINEARS})
+
+
+@pytest.mark.parametrize("k,n", _smoke_native_shapes())
+def test_native_plan_full_width(k, n):
+    """The native matmuls' launch plan at every full-width shape: a
+    function of (K, N) alone, its splits whole k-steps that cover K with
+    none empty, at most 8 of them (one portable cluster), and the shape
+    taken by the tc body."""
+    assert list(inspect.signature(dbb_matmul.native_plan).parameters) == ["k", "n"]
+    bn, kb_per_split, n_split = dbb_matmul.native_plan(k, n)
+    assert dbb_matmul.native_plan(k, n) == (bn, kb_per_split, n_split)
+    kb, step = k // 8, dbb_matmul.STEP_BLOCKS
+    assert bn in (64, 128)
+    assert kb_per_split % step == 0
+    assert (n_split - 1) * kb_per_split < kb <= n_split * kb_per_split
+    assert (kb - (n_split - 1) * kb_per_split) % step == 0
+    assert 1 <= n_split <= dbb_matmul.MAX_SPLIT == 8
+    assert dbb_matmul.tc_body_error(torch.bfloat16, kb, n, (0, 16), (8,)) is None
+
+
+def test_tc_body_rule():
+    """What the tc body refuses, by name: f32 values, N not a multiple of
+    8 (70, 290), K not a multiple of 64, misaligned operands."""
+    assert "float32" in dbb_matmul.tc_body_error(torch.float32, 320, 768)
+    for n in (70, 290):
+        assert f"N={n}" in dbb_matmul.tc_body_error(torch.bfloat16, 320, n)
+    assert "K=136" in dbb_matmul.tc_body_error(torch.bfloat16, 17, 64)
+    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, (8,))
+    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, (16,), (4,))
 
 
 # ------------------------------------------------------------- dispatch
