@@ -77,8 +77,8 @@ def main():
         if args.plan_blocks is not None:
             dbb_matmul.PLAN_BLOCKS = args.plan_blocks
         if args.bn is not None:
-            plan = dbb_matmul.native_plan
-            dbb_matmul.native_plan = lambda k, n: (args.bn,) + plan(k, n)[1:]
+            base_plan = dbb_matmul.native_plan
+            dbb_matmul.native_plan = lambda k, n: (args.bn,) + base_plan(k, n)[1:]
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn):
@@ -112,7 +112,7 @@ def main():
             if t is None:
                 t = ev.cuda_time_total
             if t > 0 and ev.count > 0:
-                name = ev.key.split("<")[0].split("(")[0]
+                name = ev.key.split("<")[0].split("::")[-1]
                 out[name] = out.get(name, 0.0) + t / 1e3 / args.iters
         return out
 
@@ -141,11 +141,11 @@ def main():
                 ms = time_ms(fn)
                 parts = kernel_ms(fn)
                 per_pass[(kind, m)] += count * ms
-                plan = (f" plan {dbb_matmul.native_plan(k, n)}"
-                        if hasattr(dbb_matmul, "native_plan") else "")
+                plan_s = (f" plan {dbb_matmul.native_plan(k, n)}"
+                          if hasattr(dbb_matmul, "native_plan") else "")
                 split = ", ".join(f"{kname} {t:.4f}" for kname, t in sorted(parts.items()))
                 kname = "dbb_matmul_aw" if kind == "aw" else "dbb_matmul"
-                print(f"{args.label}: {kname} {arch} {name} M={m} K={k} N={n}{plan}: "
+                print(f"{args.label}: {kname} {arch} {name} M={m} K={k} N={n}{plan_s}: "
                       f"{ms:.4f} ms (warm, by kernel: {split})", flush=True)
             del wv, wm, x, xv, xm
             torch.cuda.empty_cache()

@@ -406,28 +406,33 @@ constexpr int TC_MAX_SPLIT = 8;  // blocks of a cluster (the portable size)
 __host__ __device__ inline int align16i(int x) { return (x + 15) & ~15; }
 
 // Byte offsets of the tc body's dynamic shared memory.  A stage of the
-// ring holds one k-step as it lies in device memory: w_vals [KBT][NNZw][BN]
-// (rows padded to BN + 8 values), w_mask [KBT][BN], and x_vals [BM][KBT *
-// NNZa] with x_mask [BM][KBT] (#4) or x [BM][64] (#1, rows padded to 72
-// values: the A tile itself).  #4 decodes A into one A tile [BM][72] a
-// step.  After the loop the same memory holds the block's f32 partial
-// [BM][BN + 4] for the cluster's sum.
+// ring holds one k-step as it lies in device memory: w_vals [KBT][NNZw][BN],
+// w_mask [KBT][BN], and x_vals [BM][KBT * NNZa] with x_mask [BM][KBT] (#4)
+// or x [BM][64] (#1, rows padded to 72 values: the A tile itself).  Each
+// step decodes the weights into one dense B tile [BN][72] and, for #4, the
+// activations into one A tile [BM][72] (k consecutive, 16 bytes of pad a
+// row: conflict-free ldmatrix).  The
+// decode tables of the two operands come last.  After the loop the same
+// memory holds the block's f32 partial [BM][BN + 4] for the cluster's sum.
 struct TcSmem {
-  int wv, wm, xa, xm, stage, atile, part_row, total;
+  int wv, wm, xa, xm, stage, btile, atile, lut_w, lut_a, part_row, total;
 };
 
 __host__ __device__ inline TcSmem tc_smem(int BM, int BN, int nnz_w, int nnz_a, bool packed) {
   TcSmem L;
   L.wv = 0;
-  L.wm = align16i(L.wv + TC_KBT * nnz_w * (BN + 8) * 2);
+  L.wm = align16i(L.wv + TC_KBT * nnz_w * BN * 2);
   L.xa = align16i(L.wm + TC_KBT * BN);
   L.xm = align16i(L.xa + (packed ? BM * TC_KBT * nnz_a * 2 : BM * TC_AROW * 2));
   L.stage = align16i(L.xm + (packed ? BM * TC_KBT : 0));
-  L.atile = TC_STAGES * L.stage;
+  L.btile = TC_STAGES * L.stage;
+  L.atile = L.btile + BN * TC_AROW * 2;
+  L.lut_w = L.atile + (packed ? BM * TC_AROW * 2 : 0);
+  L.lut_a = L.lut_w + 256 * 16;
   L.part_row = BN + 4;
-  const int ring = L.atile + (packed ? BM * TC_AROW * 2 : 0);
+  const int used = L.lut_a + (packed ? 256 * 16 : 0);
   const int part = BM * L.part_row * 4;
-  L.total = ring > part ? ring : part;
+  L.total = used > part ? used : part;
   return L;
 }
 
@@ -499,40 +504,73 @@ __device__ __forceinline__ void finish_vec(const float (&acc)[W], int m, int n, 
   }
 }
 
-// One B fragment register of m16n8k16 (k pair 2t, 2t+1 of column col of
-// one 8-block), rank-decoded from the raw stage: the pair's values sit at
-// rank r0 = popcount of the mask's bits below 2t, and r0 + bit 2t; a bit
-// that is clear gives 0.  Ranks clamp to nnz - 1 like the oracle's gather.
-__device__ __forceinline__ uint32_t decode_pair(const uint8_t* wm_row,
-                                                const unsigned short* wv_rows, int col, int vst,
-                                                int t2, unsigned below, int nnz1) {
-  const unsigned msk = wm_row[col];
-  const int r0 = __popc(msk & below);
-  const unsigned b0 = (msk >> t2) & 1u, b1 = (msk >> (t2 + 1)) & 1u;
-  const int ra = min(r0, nnz1), rb = min(r0 + (int)b0, nnz1);
-  const unsigned lo = b0 ? wv_rows[ra * vst + col] : 0u;
-  const unsigned hi = b1 ? wv_rows[rb * vst + col] : 0u;
-  return lo | (hi << 16);
+// The decode table of one operand (NNZ <= 4 values an 8-block), one
+// entry a mask byte m: for each pair i of positions (2i, 2i + 1), a
+// byte_perm selector (low half) that picks each position's value by its
+// rank popcount(m & (2^p - 1)), clamped to NNZ - 1 like the oracle's
+// gather, from the block's values (v0 | v1 << 16, v2 | v3 << 16), and one
+// (high half) that keeps it, or zeroes it when bit p is clear.
+__device__ __forceinline__ uint4 lut_entry(unsigned m, int nnz) {
+  uint32_t e[4];
+  int r = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned b0 = (m >> (2 * i)) & 1u, b1 = (m >> (2 * i + 1)) & 1u;
+    const int ra = min(r, nnz - 1);
+    r += b0;
+    const int rb = min(r, nnz - 1);
+    r += b1;
+    const unsigned sel = (2 * ra) | (2 * ra + 1) << 4 | (2 * rb) << 8 | (2 * rb + 1) << 12;
+    const unsigned keep = (b0 ? 0x10u : 0x44u) | (b1 ? 0x3200u : 0x4400u);
+    e[i] = sel | keep << 16;
+  }
+  return make_uint4(e[0], e[1], e[2], e[3]);
 }
 
-// TM m-tiles of 16 rows (BM = 16 TM), NTW n-tiles of 8 columns a warp (BN
-// = 64 NTW).  Grid (n_split, N tiles, M tiles), one cluster per output
-// tile along x: block x sums the 8-blocks [x * kb_per_split, ...).
-template <int TM, int NTW, bool PACKED_A>
+// One 8-block decoded to 8 bf16 (k ascending) from its values (lo = v0 |
+// v1 << 16, hi = v2 | v3 << 16) and its mask's table entry: two byte
+// permutes a pair of positions, no branch and no indexed register.
+__device__ __forceinline__ uint4 decode8_lut(uint32_t lo, uint32_t hi, const uint4& e) {
+  const uint32_t w0 = __byte_perm(__byte_perm(lo, hi, e.x & 0xFFFFu), 0u, e.x >> 16);
+  const uint32_t w1 = __byte_perm(__byte_perm(lo, hi, e.y & 0xFFFFu), 0u, e.y >> 16);
+  const uint32_t w2 = __byte_perm(__byte_perm(lo, hi, e.z & 0xFFFFu), 0u, e.z >> 16);
+  const uint32_t w3 = __byte_perm(__byte_perm(lo, hi, e.w & 0xFFFFu), 0u, e.w >> 16);
+  return make_uint4(w0, w1, w2, w3);
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// TM m-tiles of 16 rows (BM = 16 TM), BN output columns.  The 8 warps form
+// a WM x WN grid over the tile: a warp owns TMW = TM / WM m-tiles and NTW
+// = BN / 8 / WN n-tiles.  Grid (n_split, N tiles, M tiles), one cluster per
+// output tile along x: block x sums the 8-blocks [x * kb_per_split, ...).
+template <int TM, int BN, bool PACKED_A>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x_mask,
               const __nv_bfloat16* __restrict__ w_vals, const uint8_t* __restrict__ w_mask,
               const float* __restrict__ bias, void* __restrict__ out, int M, int N, int KB,
               int nnz_a, int nnz_w, int kb_per_split, int act, int out_bf16) {
-  constexpr int BM = 16 * TM, BN = 64 * NTW, BNV = BN + 8, NT = TC_THREADS;
-  constexpr int WCH = (TC_KBT * 8 * (BN / 8) + NT - 1) / NT;  // w_vals chunks a thread, at most
+  constexpr int BM = 16 * TM, NT = TC_THREADS;
+  constexpr int WM = TM == 4 ? 2 : 1, WN = 8 / WM, TMW = TM / WM, NTW = BN / 8 / WN;
+  constexpr int WCH = (TC_KBT * 4 * (BN / 8) + NT - 1) / NT;  // w_vals chunks a thread, at most
   constexpr int XCH = (BM * 8 + NT - 1) / NT;  // x chunks a thread, at most (8 a row)
+  constexpr int BTASK = TC_KBT * BN / 2;       // B decode tasks: (8-block, column pair)
   extern __shared__ __align__(16) unsigned char smem[];
   const TcSmem L = tc_smem(BM, BN, nnz_w, nnz_a, PACKED_A);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
   const int kb_begin = blockIdx.x * kb_per_split;
   const int nsteps = (min(KB, kb_begin + kb_per_split) - kb_begin) / TC_KBT;
+  uint4* lut_w = (uint4*)(smem + L.lut_w);
+  uint4* lut_a = (uint4*)(smem + L.lut_a);
+  __nv_bfloat16* btile = (__nv_bfloat16*)(smem + L.btile);
+  __nv_bfloat16* atile = (__nv_bfloat16*)(smem + L.atile);
+  lut_w[tid] = lut_entry(tid, nnz_w);  // 256 threads, one entry each
+  if (PACKED_A) lut_a[tid] = lut_entry(tid, nnz_a);
 
   // Each thread's chunks of a stage, worked out once (no division per
   // copy): the smem offset and the source offset from the step's base.
@@ -545,10 +583,9 @@ dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x
 #pragma unroll
   for (int i = 0; i < WCH; ++i) {
     const int c = tid + i * NT, r = c / wcpr, cc = c % wcpr;
-    w_so[i] = r * BNV + cc * 8;
+    w_so[i] = r < wrows ? r * BN + cc * 8 : -1;
     w_go[i] = r * N + n0 + cc * 8;
     if (r < wrows && n0 + cc * 8 < N) w_ok |= 1u << i;
-    if (r >= wrows) w_so[i] = -1;
   }
   const int m_r = tid / wcpr, m_c = tid % wcpr;
   const bool m_has = tid < TC_KBT * wcpr, m_ok = m_has && n0 + m_c * 8 < N;
@@ -592,87 +629,108 @@ dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x
     cp_commit();
   };
 
-  float acc[TM][NTW][4];
+  float acc[TMW][NTW][4];
 #pragma unroll
-  for (int a = 0; a < TM; ++a)
+  for (int a = 0; a < TMW; ++a)
 #pragma unroll
     for (int b = 0; b < NTW; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.0f;
 
   const int g = lane / 4, t = lane % 4;
-  const unsigned below = (1u << (2 * t)) - 1u;
-  const int nnz_w1 = nnz_w - 1, nnz_a1 = nnz_a - 1;
-  // A fragments by ldmatrix: lanes 0-15 rows 0-15 at k, 16-31 at k + 8
-  const int a_off = (lane % 16) * TC_AROW + (lane / 16) * 8;
-  __nv_bfloat16* atile = (__nv_bfloat16*)(smem + L.atile);
+  const int wmi = warp / WN, wni = warp % WN;
+  // ldmatrix addresses: A rows of this warp's m-tiles (lanes 0-15 at k,
+  // 16-31 at k + 8); B rows (columns of W) of its n-tiles, two n-tiles an
+  // x4 (lanes 0-7 / 8-15: n-tile j at k / k + 8, 16-31: n-tile j + 1)
+  const int a_off = (wmi * TMW * 16 + lane % 16) * TC_AROW + (lane / 16) * 8;
+  const __nv_bfloat16* bb0 =
+      btile + (wni * NTW * 8 + lane % 8 + (lane / 16) * 8) * TC_AROW + ((lane / 8) % 2) * 8;
 
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) issue(s);
 
   for (int s = 0; s < nsteps; ++s) {
     cp_wait<TC_STAGES - 2>();  // step s landed (this thread's copies) ...
-    __syncthreads();           // ... everyone's; step s - 1 fully consumed
+    __syncthreads();           // ... everyone's; step s - 1's tiles fully consumed
     issue(s + TC_STAGES - 1);
     const unsigned char* st = smem + (s % TC_STAGES) * L.stage;
+    // weights -> the dense B tile: a task is one 8-block of two adjacent
+    // columns, its values read as column pairs (one word a slot)
+    const uint32_t* wv32 = (const uint32_t*)(st + L.wv);
+    const uint16_t* wm16 = (const uint16_t*)(st + L.wm);
+#pragma unroll
+    for (int q = tid; q < BTASK; q += NT) {
+      const int kb = q / (BN / 2), c = (q % (BN / 2)) * 2;
+      const uint32_t* src = wv32 + (kb * nnz_w * BN + c) / 2;
+      uint32_t u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) u[j] = j < nnz_w ? src[j * (BN / 2)] : 0u;
+      const unsigned m2 = wm16[(kb * BN + c) / 2];
+      const uint32_t lo0 = __byte_perm(u[0], u[1], 0x5410), hi0 = __byte_perm(u[2], u[3], 0x5410);
+      const uint32_t lo1 = __byte_perm(u[0], u[1], 0x7632), hi1 = __byte_perm(u[2], u[3], 0x7632);
+      *(uint4*)(btile + c * TC_AROW + kb * 8) = decode8_lut(lo0, hi0, lut_w[m2 & 0xFFu]);
+      *(uint4*)(btile + (c + 1) * TC_AROW + kb * 8) = decode8_lut(lo1, hi1, lut_w[m2 >> 8]);
+    }
     const __nv_bfloat16* at;
     if constexpr (PACKED_A) {
-      // decode the step's activations once for the block: one (row, 8-block)
-      // a thread at a time, its values read at their ranks in shared memory
-      const unsigned short* xv = (const unsigned short*)(st + L.xa);
+      // activations -> the A tile: one (row, 8-block) a task
       const uint8_t* xm = st + L.xm;
+      const __nv_bfloat16* xv = (const __nv_bfloat16*)(st + L.xa);
       for (int p = tid; p < BM * TC_KBT; p += NT) {
-        const unsigned msk = xm[p];
-        const unsigned short* v = xv + p * nnz_a;
-        uint32_t w[4];
-        int r = 0;
+        uint32_t lo, hi;
+        if (nnz_a == 4) {
+          const uint2 v = *(const uint2*)(xv + p * 4);
+          lo = v.x;
+          hi = v.y;
+        } else {
+          const uint16_t* v = (const uint16_t*)(xv + p * nnz_a);
+          uint32_t u[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          unsigned lo = 0, hi = 0;
-          if (msk >> (2 * j) & 1u) lo = v[min(r++, nnz_a1)];
-          if (msk >> (2 * j + 1) & 1u) hi = v[min(r++, nnz_a1)];
-          w[j] = lo | (hi << 16);
+          for (int j = 0; j < 4; ++j) u[j] = j < nnz_a ? v[j] : 0u;
+          lo = u[0] | u[1] << 16;
+          hi = u[2] | u[3] << 16;
         }
         *(uint4*)(atile + (p / TC_KBT) * TC_AROW + (p % TC_KBT) * 8) =
-            make_uint4(w[0], w[1], w[2], w[3]);
+            decode8_lut(lo, hi, lut_a[xm[p]]);
       }
-      __syncthreads();
       at = atile;
     } else {
       at = (const __nv_bfloat16*)(st + L.xa);
     }
-    const uint8_t* wm = st + L.wm;
-    const unsigned short* wv = (const unsigned short*)(st + L.wv);
+    __syncthreads();  // the step's tiles are decoded
 #pragma unroll
-    for (int kk = 0; kk < TC_KBT / 2; ++kk) {  // four 16-deep k-steps: 8-blocks 2kk, 2kk+1
-      uint32_t a[TM][4];
+    for (int kk = 0; kk < TC_KBT / 2; ++kk) {  // four 16-deep k-steps
+      uint32_t a[TMW][4];
 #pragma unroll
-      for (int mt = 0; mt < TM; ++mt) ldsm_x4(a[mt], at + mt * 16 * TC_AROW + a_off + kk * 16);
+      for (int i = 0; i < TMW; ++i) ldsm_x4(a[i], at + a_off + i * 16 * TC_AROW + kk * 16);
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int col = (warp * NTW + j) * 8 + g;
-        const uint32_t b0 = decode_pair(wm + (2 * kk) * BN, wv + (2 * kk) * nnz_w * BNV, col,
-                                        BNV, 2 * t, below, nnz_w1);
-        const uint32_t b1 = decode_pair(wm + (2 * kk + 1) * BN,
-                                        wv + (2 * kk + 1) * nnz_w * BNV, col, BNV, 2 * t, below,
-                                        nnz_w1);
+      for (int j = 0; j < NTW; j += 2) {
+        uint32_t b[4];
+        if constexpr (NTW == 1) ldsm_x2(b, bb0 + kk * 16);
+        else ldsm_x4(b, bb0 + j * 8 * TC_AROW + kk * 16);
 #pragma unroll
-        for (int mt = 0; mt < TM; ++mt)
-          mma_bf16(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
+        for (int i = 0; i < TMW; ++i) {
+          mma_bf16(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[0], b[1]);
+          if constexpr (NTW > 1)
+            mma_bf16(acc[i][j + 1], a[i][0], a[i][1], a[i][2], a[i][3], b[2], b[3]);
+        }
       }
     }
   }
   cp_wait<0>();
 
+  // this thread's outputs: rows (wmi * TMW + i) * 16 + g (+ 8), columns
+  // (wni * NTW + j) * 8 + 2t (+ 1) of the tile
   const int n_split = gridDim.x;
   if (n_split == 1) {  // the whole K range: finish from the registers
 #pragma unroll
-    for (int mt = 0; mt < TM; ++mt)
+    for (int i = 0; i < TMW; ++i)
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int m = m0 + mt * 16 + g + 8 * h, n = n0 + (warp * NTW + j) * 8 + 2 * t;
+          const int m = m0 + (wmi * TMW + i) * 16 + g + 8 * h;
+          const int n = n0 + (wni * NTW + j) * 8 + 2 * t;
           if (m < M && n < N) {
-            const float v[2] = {acc[mt][j][2 * h], acc[mt][j][2 * h + 1]};
+            const float v[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
             finish_vec<2>(v, m, n, N, bias, act, out_bf16, out);
           }
         }
@@ -687,13 +745,13 @@ dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x
   float* part = (float*)smem;
   const int PR = L.part_row;
 #pragma unroll
-  for (int mt = 0; mt < TM; ++mt)
+  for (int i = 0; i < TMW; ++i)
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *(float2*)(part + (mt * 16 + g + 8 * h) * PR + (warp * NTW + j) * 8 + 2 * t) =
-            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+        *(float2*)(part + ((wmi * TMW + i) * 16 + g + 8 * h) * PR + (wni * NTW + j) * 8 + 2 * t) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int rank = (int)cluster.block_rank();
@@ -717,17 +775,17 @@ dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x
   cluster.sync();  // no block leaves while another still reads its partial
 }
 
-template <int TM, int NTW, bool PACKED_A>
+template <int TM, int BN, bool PACKED_A>
 cudaError_t launch_tc(const void* x, const uint8_t* xm, const void* wv, const uint8_t* wm,
                       const float* bias, void* out, int M, int N, int KB, int nnz_a, int nnz_w,
                       int kb_per_split, int n_split, int act, int out_bf16, cudaStream_t st) {
-  auto kernel = dbb_tc_kernel<TM, NTW, PACKED_A>;
-  const int smem = tc_smem(16 * TM, 64 * NTW, nnz_w, nnz_a, PACKED_A).total;
+  auto kernel = dbb_tc_kernel<TM, BN, PACKED_A>;
+  const int smem = tc_smem(16 * TM, BN, nnz_w, nnz_a, PACKED_A).total;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, (N + 64 * NTW - 1) / (64 * NTW), (M + 16 * TM - 1) / (16 * TM));
+  cfg.gridDim = dim3(n_split, (N + BN - 1) / BN, (M + 16 * TM - 1) / (16 * TM));
   cfg.blockDim = dim3(TC_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -752,8 +810,8 @@ cudaError_t launch_tc_for(int bn, const void* x, const uint8_t* xm, const void* 
 #define TC_ARGS x, xm, wv, wm, bias, out, M, N, KB, nnz_a, nnz_w, kb_per_split, n_split, act, \
     out_bf16, st
   if (M <= 16)
-    return bn == 128 ? launch_tc<1, 2, PACKED_A>(TC_ARGS) : launch_tc<1, 1, PACKED_A>(TC_ARGS);
-  return bn == 128 ? launch_tc<4, 2, PACKED_A>(TC_ARGS) : launch_tc<4, 1, PACKED_A>(TC_ARGS);
+    return bn == 128 ? launch_tc<1, 128, PACKED_A>(TC_ARGS) : launch_tc<1, 64, PACKED_A>(TC_ARGS);
+  return bn == 128 ? launch_tc<4, 128, PACKED_A>(TC_ARGS) : launch_tc<4, 64, PACKED_A>(TC_ARGS);
 #undef TC_ARGS
 }
 
@@ -841,6 +899,7 @@ extern "C" int dbb_matmul_native(const void* x, const void* x_mask, const void* 
     const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)w_vals % 16 == 0 &&
                          (uintptr_t)w_mask % 8 == 0 && (!packed_a || (uintptr_t)x_mask % 8 == 0);
     if (!bf16 || N % 8 || KB % TC_KBT || kb_per_split % TC_KBT || n_split > TC_MAX_SPLIT ||
+        nnz_w > 4 || (packed_a && nnz_a > 4) ||
         (long long)kb_per_split * (n_split - 1) >= KB || (bn != 64 && bn != 128) || !aligned)
       return (int)cudaErrorInvalidValue;
     const auto launch = packed_a ? launch_tc_for<true> : launch_tc_for<false>;

@@ -208,16 +208,19 @@ def native_plan(k: int, n: int):
     return bn, per * STEP_BLOCKS, -(-steps // per)
 
 
-def tc_body_error(dtype, kb: int, n: int, ptrs=(), mask_ptrs=()) -> Optional[str]:
+def tc_body_error(dtype, kb: int, n: int, nnz: int = 4, ptrs=(), mask_ptrs=()) -> Optional[str]:
     """Why the tc body does not take a native-wire call (``dtype`` of its
-    values, ``kb`` 8-blocks, ``n`` columns, the 16-byte operands' and the
-    8-byte masks' device pointers), or None when it does."""
+    values, ``kb`` 8-blocks, ``n`` columns, ``nnz`` values an 8-block of
+    either packed operand at most, the 16-byte operands' and the 8-byte
+    masks' device pointers), or None when it does."""
     if dtype != torch.bfloat16:
         return f"values are {dtype}, not bfloat16"
     if n % 8:
         return f"N={n} is not a multiple of 8"
     if kb % STEP_BLOCKS:
         return f"K={8 * kb} is not a multiple of {8 * STEP_BLOCKS}"
+    if nnz > 4:
+        return f"NNZ={nnz} exceeds 4 values an 8-block"
     if any(p % 16 for p in ptrs) or any(p % 8 for p in mask_ptrs):
         return "an operand is not aligned for cp.async"
     return None
@@ -250,7 +253,7 @@ def _launch_native(counter, tc_counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg
     p_x = x.data_ptr()
     p_xm = None if x_mask is None else x_mask.data_ptr()
     bn, kb_per_split, n_split = native_plan(8 * kb, n)
-    tc = tc_body_error(w_vals.dtype, kb, n, (p_x, p_wv),
+    tc = tc_body_error(w_vals.dtype, kb, n, max(nnz_a, nnz_w), (p_x, p_wv),
                        (p_wm,) if p_xm is None else (p_wm, p_xm)) is None
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     part = (torch.empty((n_split, m, n), dtype=torch.float32, device=dev)

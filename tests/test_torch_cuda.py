@@ -257,6 +257,36 @@ def test_native_matmul_kernels_vs_plain(cuda, m, k, n, dtype, kind):
     assert tc.launches == before[1] + (4 if takes_tc else 0)
 
 
+@pytest.mark.parametrize("nnz", [1, 2, 3, 5])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_native_matmul_tc_nnz(cuda, nnz, kind):
+    """Other densities than 4 of 8: the tc body decodes up to 4 values an
+    8-block (its tables clamp ranks to NNZ - 1 like the oracle), more go
+    to the generic body; both within the tolerances above."""
+    cfg = dbb.DBBConfig(nnz, 8)
+    m, k, n = 20, 256, 136
+    w = (torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+    wv, wm = ops.pack_weight(w, cfg)
+    x = torch.randn((m, k), generator=cuda, device="cuda").to(torch.bfloat16)
+    xv, xm = ops.dap_pack(x, nnz, 8)
+    tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
+    before = tc.launches
+    for out_dtype in (torch.float32, torch.bfloat16):
+        if kind == "aw":
+            got = dbb_matmul.dbb_matmul_aw_cuda(xv, xm, wv, wm, cfg, cfg, act="silu",
+                                                out_dtype=out_dtype).float()
+            want = ref.dbb_matmul_aw_ref(xv, xm, wv, wm, cfg, cfg, act="silu",
+                                         out_dtype=out_dtype).float()
+        else:
+            got = dbb_matmul.dbb_matmul_cuda(x, wv, wm, cfg, act="silu", out_dtype=out_dtype).float()
+            want = ref.dbb_matmul_ref(x, wv, wm, cfg, act="silu", out_dtype=out_dtype).float()
+        tol = 1e-5 * want.abs().max().item() + 1e-6
+        if out_dtype == torch.bfloat16:
+            tol = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + tol
+        assert bool(((got - want).abs() <= tol).all()), out_dtype
+    assert tc.launches == before + (2 if nnz <= 4 else 0)
+
+
 def _smoke_native_linears():
     """``chip_smoke.py``'s full-width native-wire linears: (arch, name,
     kernel, activation, DAP-pruned input, K, N)."""
@@ -538,8 +568,19 @@ def test_engine_serves_large_pages_bf16(cuda, monkeypatch, arch):
     cross the sub-page boundary.  granite runs the GQA tensor-core kernel;
     minicpm3 the latent one at its smoke latent of 40 (kv_lora 32 + rope
     8, zero-padded to 48 in shared memory), the shape that kernel refused
-    before.  A split takes a whole table, as above, and the tokens equal
-    the same engine's on the CPU."""
+    before.  A split takes a whole table, as above.
+
+    With weights-only DBB (``wdbb``: no DAP) the tokens equal the CPU
+    engine's and a solo prefill's logits agree within four bf16 ulps of
+    the largest (measured on an NVIDIA H100: 0.025 and 0.035 of 3.5 and
+    4.3, the same gap as at 16-slot pages).  With DAP (the configs'
+    ``awdbb``) the sub-pages' online softmax rounds in another order than
+    the plain version's whole page and DAP's top-4 selection turns one
+    bf16 ulp into other tokens (logits 1.2 and 2.6 apart there; the CPU
+    engine alone moves 1.7 and 2.6 between page sizes 16 and 72), so that
+    engine is held to itself: every request served, every attention call
+    on the tensor-core kernel, the longest request re-served alone
+    byte-identical."""
     monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 32)
     import dataclasses
 
@@ -547,29 +588,46 @@ def test_engine_serves_large_pages_bf16(cuda, monkeypatch, arch):
 
     from repro_torch import configs
     from repro_torch.models import lm
+    from repro_torch.serve import paged_cache
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    cfg = configs.get_config(arch, smoke=True)
-    if arch == "granite_3_8b":
-        cfg = dataclasses.replace(cfg, vocab=64, d_model=64, d_ff=128)
-    cfg = dataclasses.replace(cfg, n_layers=2, dtype="bfloat16")
-    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
     scfg = ServeConfig(max_seq=160, page_size=72, max_batch=2, prefill_chunk=16)
     rng = np.random.default_rng(72)
-    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (70, 5, 80)]
-    attn = "paged_attn_latent" if cfg.mla is not None else "paged_attn"
-    tc = paged_attn.PAGED_ATTN_LATENT_TC if cfg.mla is not None else paged_attn.PAGED_ATTN_TC
-    outs = {}
-    for device in ("cpu", "cuda"):
-        ops.reset_counters()
-        tc.launches = 0
-        eng = Engine(params, cfg, scfg, device=device)
-        outs[device] = eng.generate_requests(prompts, 6, arrivals=[0, 3, 1])
-    count = ops.counters()[attn]
-    assert count.plain == 0 and count.launches > 0
-    assert tc.launches == count.launches
-    for got, want in zip(outs["cuda"], outs["cpu"]):
-        np.testing.assert_array_equal(got, want)
+    attn = "paged_attn_latent" if arch == "minicpm3_4b" else "paged_attn"
+    tc = paged_attn.PAGED_ATTN_LATENT_TC if arch == "minicpm3_4b" else paged_attn.PAGED_ATTN_TC
+    for mode in ("wdbb", "awdbb"):
+        cfg = configs.get_config(arch, smoke=True)
+        if arch == "granite_3_8b":
+            cfg = dataclasses.replace(cfg, vocab=64, d_model=64, d_ff=128)
+        cfg = dataclasses.replace(cfg, n_layers=2, dtype="bfloat16",
+                                  sparsity=dataclasses.replace(cfg.sparsity, mode=mode))
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+        prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (70, 5, 80)]
+        outs, logits = {}, {}
+        for device in ("cpu", "cuda"):
+            ops.reset_counters()
+            tc.launches = 0
+            eng = Engine(params, cfg, scfg, device=device)
+            outs[device] = eng.generate_requests(prompts, 6, arrivals=[0, 3, 1])
+            s = len(prompts[2])
+            n_pages = -(-s // 72) + 1
+            cache = paged_cache.make_paged_cache(eng.cfg, n_pages, 72, device)
+            lg, _ = lm.paged_step(
+                eng.params, cache, torch.tensor(prompts[2][None], device=device),
+                torch.arange(s, dtype=torch.int32, device=device)[None],
+                torch.arange(1, n_pages, dtype=torch.int32, device=device)[None], eng.cfg)
+            logits[device] = lg[0, :, :cfg.vocab].float().cpu()
+        count = ops.counters()[attn]
+        assert count.plain == 0 and count.launches > 0
+        assert tc.launches == count.launches
+        if mode == "wdbb":
+            for got, want in zip(outs["cuda"], outs["cpu"]):
+                np.testing.assert_array_equal(got, want)
+            bound = 4 * 2.0 ** -7 * logits["cpu"].abs().max().item()
+            assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= bound
+        else:
+            again = eng.generate_requests([prompts[2]], 6)[0]
+            np.testing.assert_array_equal(again, outs["cuda"][2])
 
 
 @pytest.mark.parametrize("m,k", [(4, 768), (64, 4096), (3, 40), (1, 8)])

@@ -346,18 +346,22 @@ def test_native_plan_full_width(k, n):
     assert (n_split - 1) * kb_per_split < kb <= n_split * kb_per_split
     assert (kb - (n_split - 1) * kb_per_split) % step == 0
     assert 1 <= n_split <= dbb_matmul.MAX_SPLIT == 8
-    assert dbb_matmul.tc_body_error(torch.bfloat16, kb, n, (0, 16), (8,)) is None
+    assert dbb_matmul.tc_body_error(torch.bfloat16, kb, n, 4, (0, 16), (8,)) is None
 
 
 def test_tc_body_rule():
     """What the tc body refuses, by name: f32 values, N not a multiple of
-    8 (70, 290), K not a multiple of 64, misaligned operands."""
+    8 (70, 290), K not a multiple of 64, more than 4 values an 8-block,
+    misaligned operands."""
     assert "float32" in dbb_matmul.tc_body_error(torch.float32, 320, 768)
     for n in (70, 290):
         assert f"N={n}" in dbb_matmul.tc_body_error(torch.bfloat16, 320, n)
     assert "K=136" in dbb_matmul.tc_body_error(torch.bfloat16, 17, 64)
-    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, (8,))
-    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, (16,), (4,))
+    assert "NNZ=5" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, 5)
+    for nnz in (1, 2, 3, 4):
+        assert dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, nnz) is None
+    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, 4, (8,))
+    assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, 4, (16,), (4,))
 
 
 # ------------------------------------------------------------- dispatch
