@@ -22,7 +22,7 @@
 //
 // Two bodies.  Every bf16 call whose shape it takes runs the tc body
 // (dbb_tc_kernel, counted in NATIVE_TC / AW_NATIVE_TC by the wrapper):
-// N % 8 == 0, K % 64 == 0, aligned operands, a launch plan of at most 8
+// N % 8 == 0, K % 64 == 0, NNZ <= 4, aligned operands, a plan of at most 8
 // K splits.  Other shapes and every f32 call run the generic body
 // (dbb_bf16_kernel, dbb_f32_kernel), which keeps a workspace and a second
 // launch for split-K.  Both sum a row's k in the same order: k-steps of 16
@@ -37,19 +37,25 @@
 // - A ring of TC_STAGES k-steps in shared memory, filled by cp.async with
 //   the operands as they lie in device memory (w_vals [8][NNZ][BN],
 //   w_mask [8][BN], x_vals/x_mask or dense x), 16 bytes a thread (8 for the
-//   masks), each thread's chunks worked out once: three steps are in
+//   masks), each thread's chunks worked out once: the next step is in
 //   flight while one is decoded and multiplied.  Rows and columns past the
-//   tile's edge are zero-filled by the copy itself.
-// - Weights are rank-decoded from the raw stage straight into the B
-//   fragments of mma.sync.m16n8k16: lane (g, t) needs column g's k pair
-//   (2t, 2t + 1) of each of the step's two 8-blocks, at rank popcount(mask
-//   & (2^2t - 1)) of the packed values, so no dense weight tile and no
-//   dynamic register index exist.  Each warp owns BN / 8 / 8 n-tiles, so a
-//   weight is decoded once per block.
-// - #4's activations are rank-decoded once a step for the whole block into
-//   a padded A tile (one (row, 8-block) a thread, values read at their
-//   ranks in shared memory), from which every warp takes its A fragments
-//   by ldmatrix; #1's dense x lands in the ring as that A tile.
+//   tile's edge are zero-filled by the copy itself.  Two stages (not three
+//   or four: no faster) keep a block at 63 KB and 80 registers, so three
+//   blocks share an SM and hide each other's decode latency.
+// - Each step decodes the raw stage into dense tiles, once for the
+//   block: the weights into a B tile [BN][k] (a thread one 8-block of two
+//   adjacent columns), #4's activations into an A tile [BM][k] (a thread
+//   one (row, 8-block)); #1's dense x lands in the ring as its A tile.
+//   An 8-block decodes by a table indexed by its mask byte, built per
+//   launch for the operand's NNZ (at most 4): for each pair of positions
+//   a byte_perm selector that picks each position's value by its rank
+//   popcount(mask & (2^p - 1)) from the block's four values in two
+//   registers, and one that zeroes the positions whose bit is clear.
+//   Eight byte permutes an 8-block: no branch, no popcount, no indexed
+//   register.  Every warp then takes its A and B fragments by ldmatrix
+//   (rows padded by 16 bytes) into mma.sync.m16n8k16.  Decoding straight
+//   into B fragments (a lane's k pair at its rank) was the first design:
+//   each lane's chain of dependent loads left the SMs idle (PERF.md).
 // - Split-K in a thread-block cluster: the n_split blocks of one output
 //   tile are one cluster (at most 8).  Each writes its f32 partial to its
 //   own shared memory; after the cluster's barrier each sums a share of
@@ -59,7 +65,7 @@
 // Every bf16 product is exact in f32, so only the order of the sums
 // differs from the oracle's (float64, rounded once).
 //
-// The generic body (PR 12's): one thread decodes an 8-block of four
+// The generic body (the port's first): one thread decodes an 8-block of four
 // adjacent columns into shared rows of k-consecutive values, bf16 on the
 // tensor cores (mma.sync), f32 with scalar FFMA (never TF32: the oracle is
 // full f32), synchronous loads; a second kernel adds the splits' f32
@@ -398,7 +404,7 @@ reduce_kernel(const float* __restrict__ part, int n_split, const float* __restri
 // rank-decode from shared memory, split-K summed in a thread-block cluster.
 
 constexpr int TC_THREADS = 256;  // 8 warps
-constexpr int TC_STAGES = 4;     // k-steps of the ring: one in use, three in flight
+constexpr int TC_STAGES = 2;     // k-steps of the ring: one in use, one in flight
 constexpr int TC_KBT = 8;        // 8-blocks per k-step (64 k, four m16n8k16 k-steps)
 constexpr int TC_AROW = 8 * TC_KBT + 8;  // bf16 per row of an A tile: 64 k + 16 bytes of pad
 constexpr int TC_MAX_SPLIT = 8;  // blocks of a cluster (the portable size)
@@ -549,7 +555,7 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
 // = BN / 8 / WN n-tiles.  Grid (n_split, N tiles, M tiles), one cluster per
 // output tile along x: block x sums the 8-blocks [x * kb_per_split, ...).
 template <int TM, int BN, bool PACKED_A>
-__global__ void __launch_bounds__(TC_THREADS, 2)
+__global__ void __launch_bounds__(TC_THREADS, 3)
 dbb_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ x_mask,
               const __nv_bfloat16* __restrict__ w_vals, const uint8_t* __restrict__ w_mask,
               const float* __restrict__ bias, void* __restrict__ out, int M, int N, int KB,

@@ -189,7 +189,7 @@ def _native_entries():
 
 STEP_BLOCKS = 8  # 8-blocks of one k-step of the tc body (64 k): splits are whole steps
 MAX_SPLIT = 8  # K splits of one output tile: the blocks of a portable cluster
-PLAN_BLOCKS = 132  # blocks a launch aims for: one per SM of the H100
+PLAN_BLOCKS = 264  # blocks a launch aims for: two per SM of the H100 (three fit)
 
 
 def native_plan(k: int, n: int):
