@@ -16,7 +16,8 @@ accumulator drained through ``act(acc + bias)``.  Their launch plan
 (:func:`native_plan`: tile width, K splits, cluster) depends on (K, N)
 only, so a row's output is bitwise the same whatever M is.  A bf16 call
 of a shape the tc body takes (:func:`tc_body_error`) runs it — a
-``cp.async`` ring of raw packed tiles, rank-decode from shared memory,
+``cp.async`` ring of raw packed tiles, decoded in shared memory by a
+mask-indexed byte-permute table into dense tiles for ``mma.sync``,
 split-K summed in a thread-block cluster — counted in ``NATIVE_TC`` /
 ``AW_NATIVE_TC`` as well as ``NATIVE`` / ``AW_NATIVE``; any other call
 runs the generic body (a split-K workspace and a second launch).
