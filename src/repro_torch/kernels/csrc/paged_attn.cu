@@ -680,7 +680,7 @@ __device__ __forceinline__ Split read_split(const int32_t* __restrict__ pos_tbl,
   const int tid = threadIdx.x, lane = tid % 32;
   for (int i = tid; i < np * sp.psp; i += NT) {
     const int p = i / sp.psp, e = i % sp.psp;
-    const int sl = e % sp.sps8, slot = e / sp.sps8 * sp.sps + sl;
+    const int sl = sp.n == 1 ? e : e % sp.sps8, slot = sp.n == 1 ? e : e / sp.sps8 * sp.sps + sl;
     const int pid = table[p0 + p];
     pos_s[i] = sl < sp.sps && slot < PS ? pos_tbl[(size_t)pid * PS + slot] : -1;
     if (e == 0) pid_s[p] = pid;
@@ -885,8 +885,10 @@ __device__ __forceinline__ void store_row(const float (&acc)[NVT][4], int h, flo
 
 // KT: page storage (int8_t with scale planes, or bf16).  NVT: n-tiles of
 // 8 output features the accumulator holds (Dv <= 8 * NVT).  NS: n-tiles of
-// 8 slots a page's S fragment holds (PS <= 8 * NS).
-template <typename KT, int NVT, int NS>
+// 8 slots a sub-page's S fragment holds (min(PS, 64) <= 8 * NS).  SUB:
+// pages of more than 64 slots, walked as sub-pages (else a page is one
+// sub-page and the walk keeps no sub-page count).
+template <typename KT, int NVT, int NS, bool SUB>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
                      const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -903,7 +905,7 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   const int SG = (min(S, s_lo + s_blk) - s_lo) * G;
   const int rows16 = (min(S, s_blk) * G + 15) / 16 * 16;
   const int p0 = blockIdx.y * pps, np = min(P, p0 + pps) - p0;
-  const SubPages sb = sub_pages(PS);
+  const SubPages sb = SUB ? sub_pages(PS) : SubPages{1, PS, round_up(PS, 8), round_up(PS, 8)};
   const int SPS = sb.sps, DkP = Dk + 8, DvP = Dv + 8, ps8 = round_up(SPS, 8),
             ps16 = round_up(SPS, 16);
   const int kvd_k = KV * Dk, kvd_v = KV * Dv;
@@ -977,9 +979,9 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
   int a_sub = 0, c_sub = 0;  // sub-page of the next page to issue / to walk
   auto issue_next = [&](int st) {  // the next sub-page of a page with a slot into stage st
     if (ahead) {
-      const int j = a_sub, n = min(SPS, PS - j * SPS);
+      const int j = SUB ? a_sub : 0, n = SUB ? min(SPS, PS - j * SPS) : SPS;
       const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS + (size_t)j * SPS;
-      if (++a_sub == sb.n) {
+      if (!SUB || ++a_sub == sb.n) {
         a_sub = 0;
         ahead &= ahead - 1;
       }
@@ -988,22 +990,29 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
       if constexpr (INT8) {
         int8_t* kd = kraw_s + (size_t)st * SPS * Dk + kg.c * 16;
         int8_t* vd = vraw_s + (size_t)st * SPS * Dv + vg.c * vbytes;
-        for (int r = kg.r0; r < SPS; r += kg.step)
-          cp_async16z(kd + r * Dk, ksrc + (size_t)(r < n ? r : 0) * kvd_k, r < n);
+        for (int r = kg.r0; r < SPS; r += kg.step) {
+          const bool full = !SUB || r < n;  // rows past a sub-page's slots: zero
+          cp_async16z(kd + r * Dk, ksrc + (size_t)(full ? r : 0) * kvd_k, full);
+        }
         for (int r = vg.r0; r < SPS; r += vg.step) {
-          const KT* src = vsrc + (size_t)(r < n ? r : 0) * kvd_v;
-          if (vbytes == 16) cp_async16z(vd + r * Dv, src, r < n);
-          else cp_async8z(vd + r * Dv, src, r < n);
+          const bool full = !SUB || r < n;
+          const KT* src = vsrc + (size_t)(full ? r : 0) * kvd_v;
+          if (vbytes == 16) cp_async16z(vd + r * Dv, src, full);
+          else cp_async8z(vd + r * Dv, src, full);
         }
         cp_async_scales(ks_s + st * SPS, k_scale + row0, n, SPS, PS);
         cp_async_scales(vs_s + st * SPS, v_scale + row0, n, SPS, PS);
       } else {
         bf16* kd = kt_s + (size_t)st * ps8 * DkP + kg.c * 8;
         bf16* vd = vt_s + (size_t)st * ps16 * DvP + vg.c * 8;
-        for (int r = kg.r0; r < SPS; r += kg.step)
-          cp_async16z(kd + r * DkP, ksrc + (size_t)(r < n ? r : 0) * kvd_k, r < n);
-        for (int r = vg.r0; r < SPS; r += vg.step)
-          cp_async16z(vd + r * DvP, vsrc + (size_t)(r < n ? r : 0) * kvd_v, r < n);
+        for (int r = kg.r0; r < SPS; r += kg.step) {
+          const bool full = !SUB || r < n;
+          cp_async16z(kd + r * DkP, ksrc + (size_t)(full ? r : 0) * kvd_k, full);
+        }
+        for (int r = vg.r0; r < SPS; r += vg.step) {
+          const bool full = !SUB || r < n;
+          cp_async16z(vd + r * DvP, vsrc + (size_t)(full ? r : 0) * kvd_v, full);
+        }
       }
     }
     cp_commit();
@@ -1012,8 +1021,9 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
 
   for (int i = 0; i < nv * sb.n; ++i) {
     const int st = i % TC_STAGES;
-    const int page = __ffs(cur) - 1, sj = c_sub, n = min(SPS, PS - sj * SPS);
-    if (++c_sub == sb.n) {
+    const int page = __ffs(cur) - 1, sj = SUB ? c_sub : 0;
+    const int n = SUB ? min(SPS, PS - sj * SPS) : SPS;
+    if (!SUB || ++c_sub == sb.n) {
       c_sub = 0;
       cur &= cur - 1;
     }
@@ -1115,8 +1125,9 @@ paged_attn_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
 // they compute the same S fragment from the same q rows and K tile, and
 // each accumulates its own 1 / LT_WARPS of Dv's columns; one K tile serves
 // both products (Q K^T over all Dk columns, P V over its first Dv).
-// KT: page storage; NS: n-tiles of 8 slots of the S fragment (PS <= 8 NS).
-template <typename KT, int NS>
+// KT: page storage; NS: n-tiles of 8 slots of the S fragment (min(PS, 64)
+// <= 8 NS); SUB as the GQA kernel's.
+template <typename KT, int NS, bool SUB>
 __global__ void __launch_bounds__(LT_THREADS)
 paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k_pages,
                             const float* __restrict__ k_scale,
@@ -1134,7 +1145,7 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   const int b = blockIdx.x, SG = S * G;
   const int r_lo = blockIdx.z * RT, nr = min(RT, SG - r_lo);
   const int p0 = blockIdx.y * pps, np = min(P, p0 + pps) - p0;
-  const SubPages sb = sub_pages(PS);
+  const SubPages sb = SUB ? sub_pages(PS) : SubPages{1, PS, round_up(PS, 8), round_up(PS, 8)};
   const int SPS = sb.sps, DkR = round_up(Dk, 16), DkP = DkR + 8, ps8 = round_up(SPS, 8),
             ps16 = round_up(SPS, 16);
   const TcLayout L = tc_layout(RT, Dk, Dv, PS, pps, INT8, true);
@@ -1213,9 +1224,9 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   int a_sub = 0, c_sub = 0;  // sub-page of the next page to issue / to walk
   auto issue_next = [&](int st) {  // the next sub-page of a page with a slot into stage st
     if (ahead) {
-      const int j = a_sub, n = min(SPS, PS - j * SPS);
+      const int j = SUB ? a_sub : 0, n = SUB ? min(SPS, PS - j * SPS) : SPS;
       const size_t row0 = (size_t)pid_s[__ffs(ahead) - 1] * PS + (size_t)j * SPS;
-      if (++a_sub == sb.n) {
+      if (!SUB || ++a_sub == sb.n) {
         a_sub = 0;
         ahead &= ahead - 1;
       }
@@ -1223,15 +1234,18 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
       if constexpr (INT8) {
         int8_t* kd = kraw_s + (size_t)st * SPS * Dk + kg.c * kcb;
         for (int r = kg.r0; r < SPS; r += kg.step) {
-          const KT* src = ksrc + (size_t)(r < n ? r : 0) * Dk;
-          if (kcb == 16) cp_async16z(kd + r * Dk, src, r < n);
-          else cp_async8z(kd + r * Dk, src, r < n);
+          const bool full = !SUB || r < n;  // rows past a sub-page's slots: zero
+          const KT* src = ksrc + (size_t)(full ? r : 0) * Dk;
+          if (kcb == 16) cp_async16z(kd + r * Dk, src, full);
+          else cp_async8z(kd + r * Dk, src, full);
         }
         cp_async_scales(ks_s + st * SPS, k_scale + row0, n, SPS, PS);
       } else {
         bf16* kd = kt_s + (size_t)st * ps16 * DkP + kg.c * 8;
-        for (int r = kg.r0; r < SPS; r += kg.step)
-          cp_async16z(kd + r * DkP, ksrc + (size_t)(r < n ? r : 0) * Dk, r < n);
+        for (int r = kg.r0; r < SPS; r += kg.step) {
+          const bool full = !SUB || r < n;
+          cp_async16z(kd + r * DkP, ksrc + (size_t)(full ? r : 0) * Dk, full);
+        }
       }
     }
     cp_commit();
@@ -1241,8 +1255,9 @@ paged_attn_latent_tc_kernel(const bf16* __restrict__ q, const KT* __restrict__ k
   const bf16* qa = q_s + (mt * 16 + lane % 8 + ((lane / 8) % 2) * 8) * DkP + (lane / 16) * 8;
   for (int i = 0; i < nv * sb.n; ++i) {
     const int st = i % TC_STAGES;
-    const int page = __ffs(cur) - 1, sj = c_sub, n = min(SPS, PS - sj * SPS);
-    if (++c_sub == sb.n) {
+    const int page = __ffs(cur) - 1, sj = SUB ? c_sub : 0;
+    const int n = SUB ? min(SPS, PS - sj * SPS) : SPS;
+    if (!SUB || ++c_sub == sb.n) {
       c_sub = 0;
       cur &= cur - 1;
     }
@@ -1360,14 +1375,14 @@ cudaError_t combine_tc(const float* ws, void* out, int B, int S, int H, int KV, 
   return combine<bf16>(ws, out, B, S, H, KV, Dv, nsplit, all_acc, stream);
 }
 
-template <typename KT, int NVT, int NS>
+template <typename KT, int NVT, int NS, bool SUB>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
                       const float* vs, const int32_t* pos, const int32_t* tables,
                       const int32_t* qpos, float* ws, void* out, int B, int S, int H, int KV,
                       int Dk, int Dv, int PS, int P, int pps, int window, float scale,
                       cudaStream_t stream) {
   const int G = H / KV;
-  auto kernel = paged_attn_tc_kernel<KT, NVT, NS>;
+  auto kernel = paged_attn_tc_kernel<KT, NVT, NS, SUB>;
   const size_t smem = tc_smem_bytes(S, G, Dk, Dv, PS, pps, std::is_same<KT, int8_t>::value, 0);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1388,16 +1403,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
 template <typename KT, typename... A>
 cudaError_t launch_tc_for(int Dv, int PS, A... args) {
   if (PS <= 16)
-    return Dv <= 64 ? launch_tc<KT, 8, 2>(args...) : launch_tc<KT, 16, 2>(args...);
-  return Dv <= 64 ? launch_tc<KT, 8, 8>(args...) : launch_tc<KT, 16, 8>(args...);
+    return Dv <= 64 ? launch_tc<KT, 8, 2, false>(args...) : launch_tc<KT, 16, 2, false>(args...);
+  if (PS <= TC_MAX_PS)
+    return Dv <= 64 ? launch_tc<KT, 8, 8, false>(args...) : launch_tc<KT, 16, 8, false>(args...);
+  return Dv <= 64 ? launch_tc<KT, 8, 8, true>(args...) : launch_tc<KT, 16, 8, true>(args...);
 }
 
-template <typename KT, int NS>
+template <typename KT, int NS, bool SUB>
 cudaError_t launch_latent_tc(const void* q, const void* k, const float* ks, const int32_t* pos,
                              const int32_t* tables, const int32_t* qpos, float* ws, void* out,
                              int B, int S, int H, int Dk, int Dv, int PS, int P, int pps,
                              int window, float scale, cudaStream_t stream) {
-  auto kernel = paged_attn_latent_tc_kernel<KT, NS>;
+  auto kernel = paged_attn_latent_tc_kernel<KT, NS, SUB>;
   const size_t smem = tc_smem_bytes(S, H, Dk, Dv, PS, pps, std::is_same<KT, int8_t>::value, 1);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1464,11 +1481,13 @@ extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_page
       pages_per_split, window, scale, st
       cudaError_t err;
       if (kv_int8)
-        err = PS <= 16 ? launch_latent_tc<int8_t, 2>(LT_ARGS(ks))
-                       : launch_latent_tc<int8_t, 8>(LT_ARGS(ks));
+        err = PS <= 16        ? launch_latent_tc<int8_t, 2, false>(LT_ARGS(ks))
+              : PS <= TC_MAX_PS ? launch_latent_tc<int8_t, 8, false>(LT_ARGS(ks))
+                                : launch_latent_tc<int8_t, 8, true>(LT_ARGS(ks));
       else
-        err = PS <= 16 ? launch_latent_tc<bf16, 2>(LT_ARGS(nullptr))
-                       : launch_latent_tc<bf16, 8>(LT_ARGS(nullptr));
+        err = PS <= 16        ? launch_latent_tc<bf16, 2, false>(LT_ARGS(nullptr))
+              : PS <= TC_MAX_PS ? launch_latent_tc<bf16, 8, false>(LT_ARGS(nullptr))
+                                : launch_latent_tc<bf16, 8, true>(LT_ARGS(nullptr));
 #undef LT_ARGS
       return (int)err;
     }
