@@ -14,7 +14,11 @@ non-zero and prints no result:
    main path's full widths, and timed beside its plain version, a
    PyTorch library call computing the same function, and its bound
    (bytes over 3.35 TB/s or operations over the peak rate): the int8
-   matmuls (#2, #3) at granite-3-8b's shapes; GQA paged attention (#6)
+   matmuls (#2, #3) through their int8 tc body, bit for bit, with a check
+   that a row's bits do not depend on M, at granite-3-8b's shapes (timed
+   beside ``torch._int_mm`` with the weight row-major and column-major) and
+   at minicpm3-4b's and granite-moe-1b-a400m's int8-wire shapes (held, not
+   timed); GQA paged attention (#6)
    at granite-3-8b's (int8 KV) and granite-moe-1b-a400m's (native KV),
    with the padding and idle rows of a mixed step, in bf16 through the
    tensor-core kernel and in f32 through the scalar one, and bf16 calls at
@@ -39,8 +43,9 @@ non-zero and prints no result:
    ``Engine.generate_requests``; the counters show every packed linear,
    every attention call and every DAP went through the kernels, every
    bf16 GQA attention call through the tensor-core kernel, every bf16
-   latent call through the latent tensor-core kernel and every bf16 #1 and
-   #4 call through their tc body.  A dense
+   latent call through the latent tensor-core kernel, every bf16 #1 and
+   #4 call through their tc body and every #2 and #3 call through the int8
+   tc body.  A dense
    arch's request re-served alone is byte-identical; an MoE token
    depends on its co-batch (expert capacity), so there a fresh engine
    re-serves the same requests and arrivals byte-identically.
@@ -84,6 +89,23 @@ LINEARS = (
     ("up", "aw", None, 4096, 12800),
     ("down", "aw", None, 12800, 4096),
     ("lm_head", "w", None, 4096, 49408),
+)
+# (arch, name, kernel, act on the main path, K, N) of the int8-wire linears
+# of the two other archs: held bit for bit in phase 3, not in the record
+INT8_OTHER_LINEARS = (
+    ("minicpm3-4b", "q_down", "aw", None, 2560, 768),
+    ("minicpm3-4b", "kv_down", "aw", None, 2560, 288),
+    ("minicpm3-4b", "q_up", "w", None, 768, 3840),
+    ("minicpm3-4b", "wo", "w", None, 2560, 2560),
+    ("minicpm3-4b", "gate", "aw", "silu", 2560, 6400),
+    ("minicpm3-4b", "up", "aw", None, 2560, 6400),
+    ("minicpm3-4b", "down", "aw", None, 6400, 2560),
+    ("minicpm3-4b", "lm_head", "w", None, 2560, 73472),
+    ("granite-moe-1b-a400m", "wq", "aw", None, 1024, 1024),
+    ("granite-moe-1b-a400m", "wk", "aw", None, 1024, 512),
+    ("granite-moe-1b-a400m", "wv", "aw", None, 1024, 512),
+    ("granite-moe-1b-a400m", "wo", "w", None, 1024, 1024),
+    ("granite-moe-1b-a400m", "lm_head", "w", None, 1024, 49408),
 )
 # (name, kernel, act on the main path, DAP-pruned input, K, N) of the
 # packed linears on the native wire: minicpm3-4b's and granite-moe-1b-a400m's
@@ -190,6 +212,13 @@ def timer(torch, flush_buf):
 
 
 def phase_matmuls(torch, run_ms):
+    """Kernels #2 and #3 at granite-3-8b's full-width shapes (the record)
+    and, for correctness only, at minicpm3-4b's and granite-moe-1b-a400m's
+    int8-wire shapes: every call through the int8 tc body, int32
+    accumulators and the act=None f32 output bit for bit against the plain
+    versions at M = 1, 4 and 64, a row's bits the same at every M; granite's
+    timed at M = 4 and 64 beside torch._int_mm on the decoded operands with
+    the weight row-major and column-major (the faster is the library time)."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -199,7 +228,10 @@ def phase_matmuls(torch, run_ms):
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
                           bytes=0.0, ops=0.0)
                   for k in ("dbb_matmul_aw_int8", "dbb_matmul_int8")}
-    for name, kind, act, k, n in LINEARS:
+    counters = (dbb_matmul.INT8, dbb_matmul.INT8_TC, dbb_matmul.AW_INT8, dbb_matmul.AW_INT8_TC)
+    start = [c.launches for c in counters]
+    linears = [("granite-3-8b",) + row for row in LINEARS] + list(INT8_OTHER_LINEARS)
+    for arch, name, kind, act, k, n in linears:
         w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
         wv, wm, ws = ref.pack_weight_int8(w.to(torch.bfloat16), cfg)
         del w
@@ -207,61 +239,82 @@ def phase_matmuls(torch, run_ms):
         w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
         kname = "dbb_matmul_aw_int8" if kind == "aw" else "dbb_matmul_int8"
         count = 1 if name == "lm_head" else 40  # launches per forward pass
-        for m in (4, 64):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            if kind == "aw":
-                xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
-                x_dense = ref.decode_a(xv, xm, cfg)
-                kern = lambda a, o, acc=None: dbb_matmul.dbb_matmul_aw_int8_cuda(  # noqa: E731
-                    xv, xm, xs, wv, wm, ws, cfg, cfg, act=a, out_dtype=o, acc_out=acc)
-                plain = lambda a, o: ref.dbb_matmul_aw_int8_ref(  # noqa: E731
-                    xv, xm, xs, wv, wm, ws, cfg, cfg, act=a, out_dtype=o)
-                x_bytes = xv.numel() + xm.numel() + 4 * m
-            else:
-                if name == "wo":  # the attention output is DAP-pruned first
-                    x = apply_dap(x, DAPSpec(4, 8))
-                xq, xs = ref.quantize_act_int8(x, per_row=True)
-                x_dense = xq
-                kern = lambda a, o, acc=None: dbb_matmul.dbb_matmul_int8_cuda(  # noqa: E731
-                    xq, xs, wv, wm, ws, cfg, act=a, out_dtype=o, acc_out=acc)
-                plain = lambda a, o: ref.dbb_matmul_int8_ref(  # noqa: E731
-                    xq, xs, wv, wm, ws, cfg, act=a, out_dtype=o)
-                x_bytes = xq.numel() + 4 * m
-            # exact: int32 accumulators and the act=None f32 output
+        x = torch.randn((64, k), generator=gen, device="cuda").to(torch.bfloat16)
+        if kind == "aw":
+            xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
+            x_dense = ref.decode_a(xv, xm, cfg)
+            kern = lambda m, a, o, acc=None: dbb_matmul.dbb_matmul_aw_int8_cuda(  # noqa: E731
+                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, act=a, out_dtype=o, acc_out=acc)
+            plain = lambda m, a, o: ref.dbb_matmul_aw_int8_ref(  # noqa: E731
+                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, act=a, out_dtype=o)
+            x_bytes = lambda m: xv[:m].numel() + xm[:m].numel() + 4 * m  # noqa: E731
+            tc = dbb_matmul.AW_INT8_TC
+        else:
+            if name in ("wo", "q_up"):  # the attention output (MLA: q's latent) is DAP-pruned
+                x = apply_dap(x, DAPSpec(4, 8))
+            xq, xs = ref.quantize_act_int8(x, per_row=True)
+            x_dense = xq
+            kern = lambda m, a, o, acc=None: dbb_matmul.dbb_matmul_int8_cuda(  # noqa: E731
+                xq[:m], xs[:m], wv, wm, ws, cfg, act=a, out_dtype=o, acc_out=acc)
+            plain = lambda m, a, o: ref.dbb_matmul_int8_ref(  # noqa: E731
+                xq[:m], xs[:m], wv, wm, ws, cfg, act=a, out_dtype=o)
+            x_bytes = lambda m: xq[:m].numel() + 4 * m  # noqa: E731
+            tc = dbb_matmul.INT8_TC
+        # exact: int32 accumulators and the act=None f32 output; a row's bits
+        # do not depend on M; every call runs the tc body
+        tc_before = tc.launches
+        y = {}
+        for m in (1, 4, 64):
             acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
-            y = kern(None, torch.float32, acc)
-            acc_ref = ref.int8_acc(x_dense, w_dense)
-            check(torch.equal(acc, acc_ref), f"{name} M={m}: int32 accumulators differ")
-            y_ref = plain(None, torch.float32)
-            check(torch.equal(y, y_ref), f"{name} M={m}: act=None f32 output differs")
+            y[m] = kern(m, None, torch.float32, acc)
+            check(torch.equal(acc, ref.int8_acc(x_dense[:m], w_dense)),
+                  f"{arch} {name} M={m}: int32 accumulators differ")
+            check(torch.equal(y[m], plain(m, None, torch.float32)),
+                  f"{arch} {name} M={m}: act=None f32 output differs")
+        check(tc.launches == tc_before + 3, f"{arch} {name}: not the int8 tc body")
+        check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
+              f"{arch} {name}: a row's output differs between M=1, 4 and 64")
+        bm, kb_per_split, n_split = dbb_matmul.int8_plan(64, k, n)
+        path = f"path: tc body, {n_split} splits of {kb_per_split} 8-blocks at M=64"
+        if arch != "granite-3-8b":
+            say(f"kernel {kname} {arch} {name} K={k} N={n} ({path}): int32 accumulators and "
+                f"act=None f32 output bit-exact at M=1, 4 and 64, rows bitwise equal")
+            del wv, wm, ws, w_dense, x_dense, y
+            torch.cuda.empty_cache()
+            continue
+        w_cm = w_dense.t().contiguous().t()  # the column-major ("TN") weight for _int_mm
+        for m in (4, 64):
             # silu and bf16: the f32 silu within 1e-6; bf16 within one bf16 ulp
             # (a 1-ulp f32 difference in sigmoid can straddle a bf16 rounding)
-            ys = kern("silu", torch.float32)
-            ys_ref = plain("silu", torch.float32)
+            ys = kern(m, "silu", torch.float32)
+            ys_ref = plain(m, "silu", torch.float32)
             err32 = (ys - ys_ref).abs()
             check(bool((err32 <= 1e-6 + 1e-6 * ys_ref.abs()).all()),
                   f"{name} M={m}: silu f32 off by {err32.max().item():.3g}")
-            yb = kern("silu", torch.bfloat16).float()
-            yb_ref = plain("silu", torch.bfloat16).float()
+            yb = kern(m, "silu", torch.bfloat16).float()
+            yb_ref = plain(m, "silu", torch.bfloat16).float()
             errb = (yb - yb_ref).abs()
             check(bool((errb <= 2.0 ** -7 * yb_ref.abs() + 1e-6).all()),
                   f"{name} M={m}: silu bf16 off by {errb.max().item():.3g}")
             err = max(err32.max().item(), errb.max().item())
             # times at the main path's call: bf16 out, its own activation
-            t_k = run_ms(lambda: kern(act, torch.bfloat16), iters=10)
-            t_p = run_ms(lambda: plain(act, torch.bfloat16), iters=2)
-            t_lib = None
+            t_k = run_ms(lambda: kern(m, act, torch.bfloat16), iters=10)
+            t_p = run_ms(lambda: plain(m, act, torch.bfloat16), iters=2)
+            t_rm = t_cm = t_lib = None
             if m > 16:  # torch._int_mm refuses M <= 16
-                t_lib = run_ms(lambda: torch._int_mm(x_dense, w_dense), iters=10)
-            nbytes = x_bytes + wv.numel() + wm.numel() + 4 * n + 2 * m * n
-            x_nz = (x_dense != 0).sum(dim=0).double()
+                t_rm = run_ms(lambda: torch._int_mm(x_dense[:m], w_dense), iters=10)
+                t_cm = run_ms(lambda: torch._int_mm(x_dense[:m], w_cm), iters=10)
+                t_lib = min(t_rm, t_cm)
+            nbytes = x_bytes(m) + wv.numel() + wm.numel() + 4 * n + 2 * m * n
+            x_nz = (x_dense[:m] != 0).sum(dim=0).double()
             nops = 2.0 * float((x_nz * w_nz).sum())  # non-zero products only
             bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT8_OPS_PER_S else "operations"
-            say(f"kernel {kname} {name} M={m} K={k} N={n}: kernel_ms {t_k:.4f} "
-                f"plain_ms {t_p:.3f} library_ms "
-                f"{'n/a' if t_lib is None else f'{t_lib:.4f}'} bound_ms {bound:.4f} "
-                f"({by}) max_abs_err {err:.3g}")
+            lib = ("n/a" if t_lib is None else
+                   f"{t_lib:.4f} (_int_mm, weight row-major {t_rm:.4f}, column-major {t_cm:.4f})")
+            say(f"kernel {kname} {name} M={m} K={k} N={n} ({path}): kernel_ms {t_k:.4f} "
+                f"plain_ms {t_p:.3f} library_ms {lib} bound_ms {bound:.4f} ({by}) "
+                f"max_abs_err {err:.3g}")
             agg = per_kernel[kname]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             if m == 64:  # the JSON record: one mixed-step forward pass
@@ -270,8 +323,15 @@ def phase_matmuls(torch, run_ms):
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
-        del wv, wm, ws, w_dense
+        say(f"kernel {kname} {name}: int32 accumulators and act=None f32 output bit-exact at "
+            f"M=1, 4 and 64, rows bitwise equal")
+        del wv, wm, ws, w_dense, w_cm, x_dense, y
         torch.cuda.empty_cache()
+    # every #2 / #3 call of the phase ran the tc body
+    n_int8, n_int8_tc, n_aw, n_aw_tc = (c.launches - s for c, s in zip(counters, start))
+    check(n_int8 == n_int8_tc and n_aw == n_aw_tc,
+          f"int8 matmuls: {n_int8_tc} of {n_int8} #2 and {n_aw_tc} of {n_aw} #3 launches on "
+          f"the tc body")
     for agg in per_kernel.values():
         t_bytes = agg["bytes"] / HBM_BYTES_PER_S
         t_ops = agg["ops"] / INT8_OPS_PER_S
@@ -874,6 +934,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     paged_attn.PAGED_ATTN_TC.launches = 0
     paged_attn.PAGED_ATTN_LATENT_TC.launches = 0
     dbb_matmul.NATIVE_TC.launches = dbb_matmul.AW_NATIVE_TC.launches = 0
+    dbb_matmul.INT8_TC.launches = dbb_matmul.AW_INT8_TC.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals)
     torch.cuda.synchronize()
@@ -882,7 +943,9 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     tc_launches = paged_attn.PAGED_ATTN_TC.launches
     latent_tc_launches = paged_attn.PAGED_ATTN_LATENT_TC.launches
     mm_tc = {"dbb_matmul": dbb_matmul.NATIVE_TC.launches,
-             "dbb_matmul_aw": dbb_matmul.AW_NATIVE_TC.launches}
+             "dbb_matmul_aw": dbb_matmul.AW_NATIVE_TC.launches,
+             "dbb_matmul_int8": dbb_matmul.INT8_TC.launches,
+             "dbb_matmul_aw_int8": dbb_matmul.AW_INT8_TC.launches}
     lm.paged_step = inner
     passes = steps["n"]
     results = eng.last_results
@@ -908,14 +971,17 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     check(latent_tc_launches == counts["paged_attn_latent"][0],
           f"{arch}: {latent_tc_launches} of {counts['paged_attn_latent'][0]} latent attention "
           f"launches on the latent tensor-core kernel")
-    # every bf16 native-wire matmul (#1, #4) went through the tc body
+    # every bf16 native-wire matmul (#1, #4) went through its tc body, every
+    # int8-wire one (#2, #3) through the int8 tc body
     for name, n_tc in mm_tc.items():
         check(n_tc == counts[name][0],
               f"{arch}: {n_tc} of {counts[name][0]} {name} launches on the tc body")
     say(f"main path {arch}: launches {json.dumps({k: v[0] for k, v in counts.items()})} "
         f"(paged_attn on the tensor-core kernel: {tc_launches}, paged_attn_latent on the "
         f"latent tensor-core kernel: {latent_tc_launches}, dbb_matmul and dbb_matmul_aw on "
-        f"the tc body: {mm_tc['dbb_matmul']}, {mm_tc['dbb_matmul_aw']}), "
+        f"the tc body: {mm_tc['dbb_matmul']}, {mm_tc['dbb_matmul_aw']}, dbb_matmul_int8 and "
+        f"dbb_matmul_aw_int8 on the int8 tc body: {mm_tc['dbb_matmul_int8']}, "
+        f"{mm_tc['dbb_matmul_aw_int8']}), "
         f"plain-version calls {json.dumps({k: v[1] for k, v in counts.items()})}")
     ttft = sorted(r.time_to_first_token for r in results)
     tok_s = N_REQUESTS * N_NEW / wall

@@ -7,7 +7,15 @@ weights.  Kernel #3 (``dbb_matmul_aw_int8_cuda``) replaces
 ``dbb_matmul_aw_int8_pallas``: both operands packed.  Both accumulate in
 int32 and drain through the dequant epilogue
 ``act(float(acc) * (x_scale * w_scale) + bias)`` — bit-identical to the
-plain versions in ``kernels/ref.py``.
+plain versions in ``kernels/ref.py``.  A call of a shape the int8 tc body
+takes (:func:`int8_body_error`) runs it — a ``cp.async`` ring of raw
+packed tiles, each 8-block decoded straight into ``mma.sync`` fragments by
+two byte permutes whose selectors come from a mask-indexed table
+(:func:`int8_decode_table`, uploaded once per device), split-K summed in a
+thread-block cluster, one launch a call, planned by :func:`int8_plan` —
+counted in ``INT8_TC`` / ``AW_INT8_TC`` as well as ``INT8`` / ``AW_INT8``;
+any other call runs the generic body (an int32 split-K workspace, a
+memset and a second launch).
 
 Native wire (values in the model dtype, bf16 or f32): kernel #1
 (``dbb_matmul_cuda``) replaces ``dbb_matmul_pallas`` and kernel #4
@@ -38,6 +46,8 @@ from repro_torch.kernels import native
 
 INT8 = native.Counter()  # kernel #2: dense int8 x, packed int8 w
 AW_INT8 = native.Counter()  # kernel #3: packed int8 x and w
+INT8_TC = native.Counter()  # kernel #2's launches of the int8 tc body
+AW_INT8_TC = native.Counter()  # kernel #3's launches of the int8 tc body
 NATIVE = native.Counter()  # kernel #1: dense x, packed w, model dtype
 AW_NATIVE = native.Counter()  # kernel #4: packed x and w, model dtype
 NATIVE_TC = native.Counter()  # kernel #1's launches of the tc body
@@ -45,11 +55,12 @@ AW_NATIVE_TC = native.Counter()  # kernel #4's launches of the tc body
 
 _ACT = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
-# blocks that fill the H100's 132 SMs twice: a launch with fewer output
-# tiles splits its K loop across blocks (int32 atomics, exact)
+# blocks that fill the H100's 132 SMs twice: a generic launch with fewer
+# output tiles splits its K loop across blocks (int32 atomics, exact)
 TARGET_BLOCKS = 264
 _fns = None
 _native_fns = None
+_tables = {}  # device -> the int8 decode tables on it
 
 
 def _entries():
@@ -58,7 +69,7 @@ def _entries():
         lib = native.load("dbb_matmul_int8")
         P, I = ctypes.c_void_p, ctypes.c_int
         fn = lib.dbb_matmul_int8
-        fn.argtypes = [P, P, P, I] + [P] * 7 + [I] * 9 + [P]
+        fn.argtypes = [P, P, P, I] + [P] * 7 + [I] * 12 + [P, P]
         fn.restype = I
         tiles = lib.dbb_matmul_int8_tiles
         tiles.argtypes = [I, I]
@@ -68,14 +79,84 @@ def _entries():
 
 
 def _split_k(tiles: int, kb: int) -> int:
-    """K splits for a launch of ``tiles`` output tiles over ``kb`` 8-blocks
-    (at least 16 8-blocks, one shared-memory step, per split)."""
+    """K splits of a generic-body launch of ``tiles`` output tiles over
+    ``kb`` 8-blocks (at least 16 8-blocks, one shared-memory step, per
+    split)."""
     if tiles >= TARGET_BLOCKS // 2:
         return 1
     return max(1, min(-(-TARGET_BLOCKS // tiles), kb // 16))
 
 
-def _launch(counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
+MAX_SPLIT = 8  # K splits of one output tile: the blocks of a portable cluster
+INT8_STEP_BLOCKS = 16  # 8-blocks of one k-step of the int8 tc body (128 k)
+# blocks a launch of the int8 tc body aims for, of the H100's 132 SMs:
+# measured best of 132, 168, 200, 232 and 264 (PERF.md)
+INT8_PLAN_BLOCKS = 232
+
+
+def int8_plan(m: int, k: int, n: int):
+    """``(bm, kb_per_split, n_split)`` of an int8 tc-body launch of M =
+    ``m`` rows over K = ``k`` and N = ``n``: the output tile's rows (16 where
+    M <= 16, else 64; its columns are 128) and as many K splits of whole
+    ``INT8_STEP_BLOCKS`` k-steps (at most ``MAX_SPLIT``: the ``n_split``
+    blocks of a tile are one thread-block cluster) as ``INT8_PLAN_BLOCKS``
+    blocks hold.  It may depend on M: integer sums do not depend on the
+    split, so a row's bits never do."""
+    kb = k // 8
+    steps = -(-kb // INT8_STEP_BLOCKS)
+    bm = 16 if m <= 16 else 64
+    tiles = -(-m // bm) * -(-n // 128)
+    want = max(1, min(MAX_SPLIT, steps, INT8_PLAN_BLOCKS // tiles))
+    per = -(-steps // want)
+    return bm, per * INT8_STEP_BLOCKS, -(-steps // per)
+
+
+def int8_body_error(kb: int, n: int, nnz: int = 4, ptrs=()) -> Optional[str]:
+    """Why the int8 tc body does not take a call (``kb`` 8-blocks, ``n``
+    columns, ``nnz`` values an 8-block of either packed operand at most,
+    the device pointers of x, x_mask, w_vals and w_mask), or None when it
+    does."""
+    if kb % INT8_STEP_BLOCKS:
+        return f"K={8 * kb} is not a multiple of {8 * INT8_STEP_BLOCKS}"
+    if n % 16:
+        return f"N={n} is not a multiple of 16"
+    if nnz > 4:
+        return f"NNZ={nnz} exceeds 4 values an 8-block"
+    if any(p % 16 for p in ptrs):
+        return "an operand is not 16-byte aligned for cp.async"
+    return None
+
+
+def int8_decode_table() -> torch.Tensor:
+    """The int8 tc body's decode tables, ``[4, 256]`` int32: row ``nnz -
+    1``, entry ``mask``.  Nibble ``p`` (0-7) of an entry is the byte that
+    position ``p`` of the 8-block takes from its value word ``v0 | v1 << 8
+    | v2 << 16 | v3 << 24``: the value of rank ``popcount(mask & (2^p -
+    1))``, clamped to ``nnz - 1`` like the oracle's gather, where bit ``p``
+    is set, else 4 (a byte of a zero word).  The low half is a byte_perm
+    selector for the dense word of positions 0-3, the high half for 4-7."""
+    table = torch.zeros((4, 256), dtype=torch.int64)
+    for nnz in range(1, 5):
+        for mask in range(256):
+            entry, rank = 0, 0
+            for p in range(8):
+                if mask >> p & 1:
+                    entry |= min(rank, nnz - 1) << (4 * p)
+                    rank += 1
+                else:
+                    entry |= 4 << (4 * p)
+            table[nnz - 1, mask] = entry
+    return table.to(torch.int32)
+
+
+def _decode_table(dev: torch.device) -> torch.Tensor:
+    table = _tables.get(dev)
+    if table is None:
+        table = _tables[dev] = int8_decode_table().to(dev)
+    return table
+
+
+def _launch(counter, tc_counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
             cfg_w, out_dtype, bias, act, acc_out):
     if cfg_w.bz != 8:
         raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
@@ -84,15 +165,11 @@ def _launch(counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
     if out_dtype not in _OUT:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     kb, nnz_w, n = w_vals.shape
-    if nnz_w != cfg_w.nnz:
+    if nnz_w != cfg_w.nnz or not 1 <= nnz_w <= 8:
         raise ValueError(f"w_vals holds {nnz_w} slots, cfg says {cfg_w.nnz}")
-    if n % 4 != 0:
-        raise ValueError(f"the CUDA kernel reads 4 columns at a time: N={n} % 4 != 0")
     dev = w_vals.device
     p_wv = native.cuda_arg(w_vals, "w_vals", torch.int8)
     p_wm = native.cuda_arg(w_mask, "w_mask", torch.uint8, (kb, n))
-    if p_wv % 4 or p_wm % 4:
-        raise ValueError("w_vals and w_mask must be 4-byte aligned")
     p_ws = native.cuda_arg(w_scale, "w_scale", torch.float32, (n,))
     if x_scale.ndim == 0:
         per_row = 0
@@ -102,24 +179,40 @@ def _launch(counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
         p_xs = native.cuda_arg(x_scale, "x_scale", torch.float32, (m,))
     p_b = None
     if bias is not None:
-        bias = bias.to(torch.float32).contiguous()
+        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
         p_b = native.cuda_arg(bias, "bias", torch.float32, (n,))
     p_acc = None
     if acc_out is not None:
         p_acc = native.cuda_arg(acc_out, "acc_out", torch.int32, (m, n))
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    p_x = x.data_ptr()
     p_xm = None if x_mask is None else x_mask.data_ptr()
+    ptrs = (p_x, p_wv, p_wm) + (() if p_xm is None else (p_xm,))
+    tc = int8_body_error(kb, n, max(nnz_a, nnz_w), ptrs) is None
+    if not tc:
+        if n % 4 != 0:
+            raise ValueError(f"the generic body reads 4 columns at a time: N={n} % 4 != 0")
+        if p_wv % 4 or p_wm % 4:
+            raise ValueError("w_vals and w_mask must be 4-byte aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fn, tiles = _entries()
-    split_k = _split_k(tiles(m, n), kb)
-    acc_ws = torch.empty((m, n), dtype=torch.int32, device=dev) if split_k > 1 else None
+    if tc:
+        bm, kb_per_split, split_k = int8_plan(m, 8 * kb, n)
+        acc_ws, lut = None, _decode_table(dev).data_ptr()
+    else:
+        bm = kb_per_split = 0
+        split_k = _split_k(tiles(m, n), kb)
+        acc_ws = torch.empty((m, n), dtype=torch.int32, device=dev) if split_k > 1 else None
+        lut = None
     err = fn(
-        x.data_ptr(), p_xm, p_xs, per_row, p_wv, p_wm, p_ws, p_b, out.data_ptr(),
+        p_x, p_xm, p_xs, per_row, p_wv, p_wm, p_ws, p_b, out.data_ptr(),
         p_acc, None if acc_ws is None else acc_ws.data_ptr(), m, n, kb, nnz_a, nnz_w,
-        split_k, int(x_mask is not None), _OUT[out_dtype], _ACT[act],
-        native.stream_ptr(dev),
+        split_k, int(x_mask is not None), _OUT[out_dtype], _ACT[act], int(tc), bm,
+        kb_per_split, lut, native.stream_ptr(dev),
     )
     native.check(err, "dbb_matmul_int8")
     counter.launches += 1
+    if tc:
+        tc_counter.launches += 1
     return out
 
 
@@ -140,7 +233,7 @@ def dbb_matmul_int8_cuda(
     if x_q.ndim != 2 or x_q.shape[1] != w_vals.shape[0] * cfg.bz:
         raise ValueError(f"x_q {tuple(x_q.shape)} does not match w_vals {tuple(w_vals.shape)}")
     native.cuda_arg(x_q, "x_q", torch.int8)
-    return _launch(INT8, x_q, None, x_q.shape[0], 1, x_scale, w_vals, w_mask,
+    return _launch(INT8, INT8_TC, x_q, None, x_q.shape[0], 1, x_scale, w_vals, w_mask,
                    w_scale, cfg, out_dtype, bias, act, acc_out)
 
 
@@ -168,7 +261,7 @@ def dbb_matmul_aw_int8_cuda(
         )
     native.cuda_arg(x_vals, "x_vals", torch.int8)
     native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
-    return _launch(AW_INT8, x_vals, x_mask, m, nnz_a, x_scale, w_vals, w_mask,
+    return _launch(AW_INT8, AW_INT8_TC, x_vals, x_mask, m, nnz_a, x_scale, w_vals, w_mask,
                    w_scale, cfg_w, out_dtype, bias, act, acc_out)
 
 
@@ -189,7 +282,6 @@ def _native_entries():
 
 
 STEP_BLOCKS = 8  # 8-blocks of one k-step of the tc body (64 k): splits are whole steps
-MAX_SPLIT = 8  # K splits of one output tile: the blocks of a portable cluster
 PLAN_BLOCKS = 264  # blocks a launch aims for: two per SM of the H100 (three fit)
 
 

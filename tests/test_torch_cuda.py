@@ -46,6 +46,7 @@ def test_int8_matmul_kernels_exact(cuda, m, k, n, kind):
     wv, wm, ws = ref.pack_weight_int8(w, cfg)
     x = torch.randn((m, k), generator=cuda, device="cuda")
     acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
+    tc_before = dbb_matmul.INT8_TC.launches + dbb_matmul.AW_INT8_TC.launches
     if kind == "aw":
         xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
         y = dbb_matmul.dbb_matmul_aw_int8_cuda(xv, xm, xs, wv, wm, ws, cfg, cfg, acc_out=acc)
@@ -58,6 +59,204 @@ def test_int8_matmul_kernels_exact(cuda, m, k, n, kind):
         x_dense = xq
     assert torch.equal(acc, ref.int8_acc(x_dense, ref.decode_w(wv, wm, cfg)))
     assert torch.equal(y, want)
+    # none of these shapes has K % 128 == 0 and N % 16 == 0: the generic body
+    assert dbb_matmul.int8_body_error(k // 8, n) is not None
+    assert dbb_matmul.INT8_TC.launches + dbb_matmul.AW_INT8_TC.launches == tc_before
+
+
+def _smoke_int8_linears():
+    """Every full-width int8-wire linear of ``chip_smoke.py``: granite-3-8b's
+    (``LINEARS``), minicpm3-4b's and granite-moe-1b-a400m's
+    (``INT8_OTHER_LINEARS``), as (arch, name, kernel, K, N)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rows = [("granite-3-8b", name, kind, k, n) for name, kind, _, k, n in mod.LINEARS]
+    return rows + [(arch, name, kind, k, n) for arch, name, kind, _, k, n in mod.INT8_OTHER_LINEARS]
+
+
+def _int8_operands(gen, m, k, n, kind, nnz=4, per_row=True):
+    """Int8 wire operands of kernel #2 (``kind`` "w": x_q and its scale) or
+    #3 ("aw": DAP-packed x), weights packed at ``nnz`` of 8."""
+    cfg = dbb.DBBConfig(nnz, 8)
+    w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+    wop = ref.pack_weight_int8(w, cfg)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    if kind == "aw":
+        xop = ops.dap_pack_int8(x, nnz, 8, act_scale="per_row" if per_row else "per_tensor")
+    else:
+        xop = ref.quantize_act_int8(x, per_row=per_row)
+    return cfg, xop, wop
+
+
+def _int8_run(kind, cfg, xop, wop, m=None, **kw):
+    """The kernel's output, its plain version's, the kernel's int32
+    accumulators and the dense int8 x, on the first ``m`` rows of x."""
+    wv, wm, ws = wop
+    xs = xop[-1]
+    rows = slice(0, m)
+    if xs.ndim:
+        xs = xs[rows]
+    if kind == "aw":
+        xv, xm = xop[0][rows], xop[1][rows]
+        acc = torch.empty((xv.shape[0], wv.shape[2]), dtype=torch.int32, device="cuda")
+        y = dbb_matmul.dbb_matmul_aw_int8_cuda(xv, xm, xs, wv, wm, ws, cfg, cfg, acc_out=acc, **kw)
+        want = ref.dbb_matmul_aw_int8_ref(xv, xm, xs, wv, wm, ws, cfg, cfg, **kw)
+        return y, want, acc, ref.decode_a(xv, xm, cfg)
+    xq = xop[0][rows]
+    acc = torch.empty((xq.shape[0], wv.shape[2]), dtype=torch.int32, device="cuda")
+    y = dbb_matmul.dbb_matmul_int8_cuda(xq, xs, wv, wm, ws, cfg, acc_out=acc, **kw)
+    want = ref.dbb_matmul_int8_ref(xq, xs, wv, wm, ws, cfg, **kw)
+    return y, want, acc, xq
+
+
+def _int8_counters(kind):
+    if kind == "aw":
+        return dbb_matmul.AW_INT8, dbb_matmul.AW_INT8_TC
+    return dbb_matmul.INT8, dbb_matmul.INT8_TC
+
+
+INT8_ROWS = (1, 4, 16, 17, 64, 100)
+
+
+@pytest.mark.parametrize("arch,name,kind,k,n", _smoke_int8_linears(), ids=lambda v: str(v))
+def test_int8_tc_full_width(cuda, arch, name, kind, k, n):
+    """The int8 tc body at every full-width int8-wire shape of granite-3-8b,
+    minicpm3-4b and granite-moe-1b-a400m, at M = 1, 4, 16, 17, 64 and 100:
+    every call on the tc body, int32 accumulators and the ``act=None`` f32
+    output bit for bit against the plain version, and a row's bits the
+    same at every M (per-row scales)."""
+    cfg, xop, wop = _int8_operands(cuda, max(INT8_ROWS), k, n, kind)
+    w_dense = ref.decode_w(wop[0], wop[1], cfg)
+    total, tc = _int8_counters(kind)
+    before = (total.launches, tc.launches)
+    ys = {}
+    for m in INT8_ROWS:
+        y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop, m)
+        assert torch.equal(acc, ref.int8_acc(x_dense, w_dense)), m
+        assert torch.equal(y, want), m
+        ys[m] = y
+    assert (total.launches, tc.launches) == (before[0] + 6, before[1] + 6)
+    for a, b in zip(INT8_ROWS, INT8_ROWS[1:]):
+        assert torch.equal(ys[a], ys[b][:a]), (a, b)
+
+
+@pytest.mark.parametrize("nnz", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_int8_tc_nnz(cuda, nnz, kind):
+    """Other densities than 4 of 8 on both operands: the tc body decodes up
+    to 4 values an 8-block (its tables clamp ranks to NNZ - 1 like the
+    oracle; #3's activations of 1-3 values lie at unaligned offsets), 5
+    goes to the generic body; both bit for bit."""
+    m, k, n = 20, 512, 144
+    cfg, xop, wop = _int8_operands(cuda, m, k, n, kind, nnz=nnz)
+    total, tc = _int8_counters(kind)
+    before = (total.launches, tc.launches)
+    y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop)
+    assert torch.equal(acc, ref.int8_acc(x_dense, ref.decode_w(wop[0], wop[1], cfg)))
+    assert torch.equal(y, want)
+    assert (total.launches, tc.launches) == (before[0] + 1, before[1] + (nnz <= 4))
+
+
+@pytest.mark.parametrize("fill", [0, 255], ids=["zero_masks", "full_masks"])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_int8_tc_extreme_masks(cuda, fill, kind):
+    """Masks all zero (every 8-block decodes to zeros) and all ones (8 set
+    bits over 4 values: positions past the fourth take the last value, as
+    the oracle's clamped gather), random values: bit for bit on the tc body."""
+    m, k, n = 17, 256, 160
+    cfg = dbb.DBBConfig(4, 8)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=cuda, device="cuda").to(torch.int8)
+
+    wop = (codes((k // 8, 4, n)), torch.full((k // 8, n), fill, dtype=torch.uint8, device="cuda"),
+           torch.rand((n,), generator=cuda, device="cuda") + 0.5)
+    xs = torch.rand((m,), generator=cuda, device="cuda") + 0.5
+    if kind == "aw":
+        xop = (codes((m, k // 8, 4)), torch.full((m, k // 8), fill, dtype=torch.uint8,
+                                                 device="cuda"), xs)
+    else:
+        xop = (codes((m, k)), xs)
+    total, tc = _int8_counters(kind)
+    before = tc.launches
+    y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop)
+    w_dense = ref.decode_w(wop[0], wop[1], cfg)
+    assert torch.equal(acc, ref.int8_acc(x_dense, w_dense))
+    assert torch.equal(y, want)
+    assert tc.launches == before + 1
+    if fill == 0:
+        assert not acc.any()
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row", "per_tensor"])
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_int8_tc_epilogue(cuda, per_row, act, kind):
+    """The tc body's epilogue: per-row and per-tensor x_scale, with and
+    without bias, each activation, f32 and bf16 outputs, acc_out.  The
+    accumulators, and every output of ``act`` None or relu, bit for bit;
+    silu and gelu in f32 within 1e-6 (+ 1e-6 relative: the card's expf and
+    tanhf against ATen's), in bf16 within that plus one bf16 ulp (an f32
+    difference can straddle a bf16 rounding)."""
+    m, k, n = 33, 384, 272
+    cfg, xop, wop = _int8_operands(cuda, m, k, n, kind, per_row=per_row)
+    bias = torch.randn((n,), generator=cuda, device="cuda")
+    w_dense = ref.decode_w(wop[0], wop[1], cfg)
+    total, tc = _int8_counters(kind)
+    before = tc.launches
+    for out_dtype, b in ((torch.float32, None), (torch.float32, bias), (torch.bfloat16, bias),
+                         (torch.bfloat16, None)):
+        y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop, act=act, bias=b,
+                                          out_dtype=out_dtype)
+        assert torch.equal(acc, ref.int8_acc(x_dense, w_dense))
+        assert y.dtype == out_dtype
+        y, want = y.float(), want.float()
+        if act in (None, "relu"):
+            assert torch.equal(y, want), (out_dtype, b is not None)
+            continue
+        tol = 1e-6 + 1e-6 * want.abs()
+        if out_dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * torch.maximum(y.abs(), want.abs())
+        assert bool(((y - want).abs() <= tol).all()), (out_dtype, b is not None)
+    assert tc.launches == before + 4
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 136, 144), (64, 1000, 160), (17, 256, 200),
+                                   (5, 128, 36), (64, 384, 288), (3, 128, 16), (100, 2048, 48)])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_int8_ragged_shapes(cuda, m, k, n, kind):
+    """Ragged K and N: K % 128 or N % 16 (the first four) go to the generic
+    body, the rest (a partial last column tile, one k-step, two row tiles)
+    run the tc body; every one bit for bit."""
+    cfg, xop, wop = _int8_operands(cuda, m, k, n, kind)
+    total, tc = _int8_counters(kind)
+    before = (total.launches, tc.launches)
+    y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop)
+    assert torch.equal(acc, ref.int8_acc(x_dense, ref.decode_w(wop[0], wop[1], cfg)))
+    assert torch.equal(y, want)
+    takes_tc = dbb_matmul.int8_body_error(k // 8, n) is None
+    assert takes_tc == (k % 128 == 0 and n % 16 == 0)
+    assert (total.launches, tc.launches) == (before[0] + 1, before[1] + takes_tc)
+
+
+def test_int8_misaligned_x_runs_generic(cuda):
+    """An x that cp.async cannot copy (not 16-byte aligned) runs the
+    generic body, by the rule, bit for bit."""
+    m, k, n = 8, 256, 128
+    cfg, (xq, xs), wop = _int8_operands(cuda, m, k, n, "w")
+    buf = torch.empty(m * k + 4, dtype=torch.int8, device="cuda")
+    x_off = buf[4:].view(m, k)
+    x_off.copy_(xq)
+    assert dbb_matmul.int8_body_error(k // 8, n, 4, (x_off.data_ptr(),)) is not None
+    before = (dbb_matmul.INT8.launches, dbb_matmul.INT8_TC.launches)
+    y = dbb_matmul.dbb_matmul_int8_cuda(x_off, xs, *wop, cfg)
+    assert torch.equal(y, ref.dbb_matmul_int8_ref(xq, xs, *wop, cfg))
+    assert (dbb_matmul.INT8.launches, dbb_matmul.INT8_TC.launches) == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])

@@ -364,6 +364,90 @@ def test_tc_body_rule():
     assert "aligned" in dbb_matmul.tc_body_error(torch.bfloat16, 8, 64, 4, (16,), (4,))
 
 
+def _smoke_int8_shapes():
+    """The full-width (K, N) of ``chip_smoke.py``'s int8-wire linears
+    (``LINEARS``: granite-3-8b, ``INT8_OTHER_LINEARS``: minicpm3-4b and
+    granite-moe-1b-a400m)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return sorted({row[-2:] for row in mod.LINEARS + mod.INT8_OTHER_LINEARS})
+
+
+@pytest.mark.parametrize("k,n", _smoke_int8_shapes())
+def test_int8_plan_full_width(k, n):
+    """The int8 matmuls' launch plan at every full-width shape and M = 1,
+    4, 16, 17, 64 and 100: a 16-row tile up to M = 16, else 64; its splits
+    whole k-steps that cover K with none empty, at most 8 of them (one
+    portable cluster); the shape taken by the int8 tc body."""
+    assert list(inspect.signature(dbb_matmul.int8_plan).parameters) == ["m", "k", "n"]
+    kb, step = k // 8, dbb_matmul.INT8_STEP_BLOCKS
+    for m in (1, 4, 16, 17, 64, 100):
+        bm, kb_per_split, n_split = dbb_matmul.int8_plan(m, k, n)
+        assert bm == (16 if m <= 16 else 64)
+        assert kb_per_split % step == 0
+        assert (n_split - 1) * kb_per_split < kb <= n_split * kb_per_split
+        assert (kb - (n_split - 1) * kb_per_split) % step == 0
+        assert 1 <= n_split <= dbb_matmul.MAX_SPLIT == 8
+    assert dbb_matmul.int8_body_error(kb, n, 4, (0, 16, 32, 256)) is None
+
+
+def test_int8_body_rule():
+    """What the int8 tc body refuses, by name: K not a multiple of 128, N
+    not a multiple of 16, more than 4 values an 8-block, an operand not
+    16-byte aligned; what it takes: NNZ 1-4, a partial last column tile."""
+    assert "K=136" in dbb_matmul.int8_body_error(17, 64)
+    assert "K=1000" in dbb_matmul.int8_body_error(125, 64)
+    for n in (36, 200, 290):
+        assert f"N={n}" in dbb_matmul.int8_body_error(32, n)
+    assert "NNZ=5" in dbb_matmul.int8_body_error(16, 64, 5)
+    for nnz in (1, 2, 3, 4):
+        assert dbb_matmul.int8_body_error(16, 288, nnz) is None
+    assert dbb_matmul.int8_body_error(16, 16) is None
+    for ptrs in ((8,), (16, 4), (0, 16, 32, 36)):
+        assert "aligned" in dbb_matmul.int8_body_error(16, 64, 4, ptrs)
+
+
+def _byte_perm(word, sel):
+    """``__byte_perm(word, 0, sel)`` on arrays: byte ``i`` of the result is
+    byte ``sel`` nibble ``i`` of ``word`` (0-3), or 0 (4-7: the zero word)."""
+    out = np.zeros_like(word)
+    for i in range(4):
+        nib = (sel >> (4 * i)) & 7
+        byte = np.where(nib < 4, (word >> (8 * np.minimum(nib, 3))) & 0xFF, 0)
+        out |= byte << (8 * i)
+    return out
+
+
+@pytest.mark.parametrize("nnz", [1, 2, 3, 4])
+def test_int8_decode_table(nnz):
+    """The int8 tc body's decode table against the plain and JAX decodes,
+    for all 256 masks at ``nnz`` values an 8-block: two byte permutes of an
+    8-block's value word (slots past ``nnz`` hold garbage the table never
+    selects) give its dense low and high words, masks with more set bits
+    than values clamped like the oracle's gather."""
+    table = dbb_matmul.int8_decode_table()
+    assert table.shape == (4, 256) and table.dtype == torch.int32
+    e = table[nnz - 1].numpy().astype(np.int64)
+    rng = np.random.default_rng(30 + nnz)
+    vals = rng.integers(-128, 128, size=(256, 4)).astype(np.int8)  # [mask, slot]
+    word = vals.view(np.uint8).astype(np.int64) @ (1 << (8 * np.arange(4)))
+    lo, hi = _byte_perm(word, e & 0xFFFF), _byte_perm(word, e >> 16)
+    got = (np.stack([lo, hi], -1)[..., None] >> (8 * np.arange(4))) & 0xFF
+    got = got.astype(np.uint8).view(np.int8).reshape(256, 8)  # [mask, position]
+    masks = np.arange(256, dtype=np.uint8)
+    cfg_t, cfg_j = tdbb.DBBConfig(nnz, 8), jdbb.DBBConfig(nnz, 8)
+    # weights: w_vals [KB=256, nnz, N=1], one 8-block a mask
+    want_w = tref.decode_w(_t(vals[:, :nnz, None]), _t(masks[:, None]), cfg_t)
+    np.testing.assert_array_equal(got, want_w.numpy().reshape(256, 8))
+    want_wj = jref.decode_w(jnp.asarray(vals[:, :nnz, None]), jnp.asarray(masks[:, None]), cfg_j)
+    np.testing.assert_array_equal(got, np.asarray(want_wj).reshape(256, 8))
+    # activations: x_vals [M=256, KB=1, nnz]
+    want_a = tref.decode_a(_t(vals[:, None, :nnz]), _t(masks[:, None]), cfg_t)
+    np.testing.assert_array_equal(got, want_a.numpy())
+
+
 # ------------------------------------------------------------- dispatch
 
 
