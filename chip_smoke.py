@@ -30,10 +30,11 @@ non-zero and prints no result:
    keyless rows included, in bf16 through the latent tensor-core kernel
    and in f32 through the scalar one; both tensor-core kernels at pages of
    72 slots (64-slot sub-pages) and the latent one at minicpm3-4b's smoke
-   latent of 40 (zero-padded to 48); DAP (#5) bit for bit at every
-   dense-input width of the three paths, NaN, infinities, ties and -0.0
-   included; a bf16 smoke minicpm3-4b engine served at pages of 16 and 72
-   slots;
+   latent of 40 (zero-padded to 48); DAP (#5) bit for bit in each of its
+   four forms (pruned dense, native-packed, int8 dense, int8-packed) at
+   every width it serves on the three paths, NaN, infinities, ties and
+   -0.0 included; a bf16 smoke minicpm3-4b engine served at pages of 16
+   and 72 slots;
 4. the main paths, each driven with the launch counters set to 0 just
    before and read just after: full-width granite-3-8b (40 layers, int8
    DBB wire, int8 KV), full-width minicpm3-4b (62 layers, native DBB
@@ -41,7 +42,8 @@ non-zero and prints no result:
    experts top-8, native wire and KV: the reference's default), seeded
    random weights in bf16, each serving 8 requests continuously through
    ``Engine.generate_requests``; the counters show every packed linear,
-   every attention call and every DAP went through the kernels, every
+   every attention call and every DAP call site (each in its form, one
+   launch a call) went through the kernels, every
    bf16 GQA attention call through the tensor-core kernel, every bf16
    latent call through the latent tensor-core kernel, every bf16 #1 and
    #4 call through their tc body and every #2 and #3 call through the int8
@@ -76,9 +78,31 @@ SERVE_SHAPE = dict(
 # the main paths: (architecture, wire, KV dtype)
 PATHS = (("granite_3_8b", "int8", "int8"), ("minicpm3_4b", "native", "native"),
          ("granite_moe_1b_a400m", "native", "native"))
-# (K, name) of the dense-input widths that DAP (#5) prunes on the main paths
-DAP_WIDTHS = ((768, "minicpm3 q_up"), (1024, "granite-moe wo and MoE input"),
-              (2560, "minicpm3 wo"), (4096, "granite-3-8b wo"))
+# (K, call sites, forms of DAP (#5) served there) on the main paths
+DAP_WIDTHS = (
+    (768, "minicpm3 q_up input", ("dap_prune",)),
+    (1024, "granite-moe wo and MoE input; attention input", ("dap_prune", "dap_pack")),
+    (2560, "minicpm3 wo input; attention and MLP input", ("dap_prune", "dap_pack")),
+    (4096, "granite-3-8b wo input; attention and MLP input", ("dap_prune_int8",
+                                                               "dap_pack_int8")),
+    (6400, "minicpm3 down input", ("dap_pack",)),
+    (12800, "granite-3-8b down input", ("dap_pack_int8",)),
+)
+# DAP's forms: (wrapper in kernels/dap_prune.py, plain version in kernels/ref.py)
+DAP_FORMS = {
+    "dap_prune": ("dap_prune_cuda", "dap_prune_ref"),
+    "dap_prune_int8": ("dap_prune_int8_cuda", "dap_prune_int8_ref"),
+    "dap_pack": ("dap_pack_cuda", "dap_pack_ref"),
+    "dap_pack_int8": ("dap_pack_int8_cuda", "dap_pack_int8_ref"),
+}
+# the JSON record of each form: one mixed-step pass (M = 64) of one arch,
+# {K: calls a pass}
+DAP_RECORD = {
+    "dap_prune": ("granite-moe-1b-a400m", {1024: 48}),
+    "dap_prune_int8": ("granite-3-8b", {4096: 40}),
+    "dap_pack": ("minicpm3-4b", {2560: 124, 6400: 62}),
+    "dap_pack_int8": ("granite-3-8b", {4096: 80, 12800: 40}),
+}
 # (name, kernel, act on the main path, K, N) of granite-3-8b's linears
 LINEARS = (
     ("wq", "aw", None, 4096, 4096),
@@ -154,6 +178,18 @@ KERNELS = {
     "dap_prune": dict(
         source="src/repro_torch/kernels/csrc/dap_prune.cu",
         replaces="src/repro/kernels/dap_prune.py:54",
+    ),
+    "dap_prune_int8": dict(
+        source="src/repro_torch/kernels/csrc/dap_prune.cu",
+        replaces="src/repro/kernels/dap_prune.py:54",
+    ),
+    "dap_pack": dict(
+        source="src/repro_torch/kernels/csrc/dap_prune.cu",
+        replaces="src/repro/kernels/ops.py:198",
+    ),
+    "dap_pack_int8": dict(
+        source="src/repro_torch/kernels/csrc/dap_prune.cu",
+        replaces="src/repro/kernels/ops.py:214",
     ),
 }
 
@@ -745,13 +781,16 @@ def phase_latent_attention(torch, run_ms):
         kw = dict(kv_heads=1, softmax_scale=scale, k_scale=k_scale, latent_dv=dv)
         pages32 = pages if k_scale is not None else pages.float()
         # library yardstick: SDPA over the gathered, dequantized latent
-        # window, shared by the 40 heads (the gather is set-up)
+        # window, copied for each of the 40 heads (the gather and the copies
+        # are set-up).  After SDPA on stride-0, column-sliced views of one
+        # window, a later, unrelated kernel faulted with an illegal
+        # instruction (H100, torch 2.11); on contiguous copies it does not.
         win = pages[tables.long()].reshape(b, p_cnt * ps, dk)
         if k_scale is not None:
             win = quant.dequantize_rows(win, k_scale[tables.long()].reshape(b, -1),
                                         torch.bfloat16)
-        kk = win[:, None].expand(b, h, p_cnt * ps, dk)
-        vv = win[:, None, :, :dv].expand(b, h, p_cnt * ps, dv)
+        kk = win[:, None].expand(b, h, p_cnt * ps, dk).contiguous()
+        vv = win[:, None, :, :dv].expand(b, h, p_cnt * ps, dv).contiguous()
         kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
         for s, pattern in ((1, "decode"), (16, "chunks"), (16, "mixed")):
             q = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
@@ -821,70 +860,106 @@ def phase_latent_attention(torch, run_ms):
     return stats
 
 
+def dap_inputs(torch, gen, m, k, dtype):
+    """``m`` normal rows of ``k`` with the hard cases planted in the first
+    three: a NaN, zeros of both signs and ties in block 0 and a NaN block
+    (row 0), ties of small integers and a -0.0 block (row 1), +-inf (row
+    2: an int8 form's scale is inf there)."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    inf, nan = float("inf"), float("nan")
+    x[0, :8] = torch.tensor([3.0, -3.0, 0.0, -0.0, nan, -3.0, -inf, 1.0], device="cuda")
+    x[0, 8:16] = nan
+    x[1] = torch.randint(-2, 3, (k,), generator=gen, device="cuda").float()
+    x[1, :8] = -0.0
+    x[2, :8] = torch.tensor([inf, -inf, 1.0, -inf, 2.0, inf, 0.5, -1.0], device="cuda")
+    return x.to(dtype)
+
+
 def phase_dap_prune(torch, run_ms):
-    """Kernel #5 bit for bit against its plain version at M in {4, 64}
-    rows of every dense-input width in bf16 and f32, with a NaN block,
-    +-inf, ties and -0.0 planted in the first rows, and timed (no library
-    call computes it: ``torch.topk`` breaks ties in no fixed order)."""
+    """Kernel #5's four forms (dense, pack, dense_int8, pack_int8) bit for
+    bit against their plain versions at every width each serves on the
+    main paths, bf16 and f32, M = 1, 4 and 64 (a row's bits the same at
+    every M), with a NaN block, +-inf, ties and -0.0 planted; timed in
+    bf16 at M = 4 and 64 beside the plain version and the bytes bound (no
+    library call computes DAP: ``torch.topk`` breaks ties in no fixed
+    order).  dense_int8 is also timed beside the chain it replaces on
+    granite's wo (#5's dense form, then the plain per-row quantize)."""
     from repro_torch.kernels import dap_prune, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    special = torch.tensor([3.0, -3.0, 0.0, -0.0, float("inf"), -3.0, -float("inf"), 1.0],
-                           device="cuda")
-    stats = dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, bytes=0.0)
-    for k, what in DAP_WIDTHS:
-        for dtype in (torch.bfloat16, torch.float32):
-            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            for m in (4, 64):
-                x = torch.randn((m, k), generator=gen, device="cuda")
-                x[0, :8] = special
-                x[0, 8:16] = float("nan")
-                x[0, 19] = float("nan")
-                x[1] = torch.randint(-2, 3, (k,), generator=gen, device="cuda").float()
-                x[1, :8] = -0.0
-                x = x.to(dtype)
-                got_p, got_m = dap_prune.dap_prune_cuda(x, 4)
-                want_p, want_m = ref.dap_prune_ref(x, 4)
-                check(torch.equal(got_p.view(view), want_p.view(view))
-                      and torch.equal(got_m, want_m),
-                      f"dap_prune K={k} M={m} {dtype}: differs from its plain version")
-                check(not got_p[0, 8:24].any(), f"dap_prune K={k}: a NaN block kept a value")
-                finite = torch.isfinite(got_p) & torch.isfinite(want_p)
-                err = (got_p.float() - want_p.float())[finite].abs().max().item()
-                stats["max_abs_err"] = max(stats["max_abs_err"], err)
-                t_k = run_ms(lambda: dap_prune.dap_prune_cuda(x, 4), iters=10)
-                t_p = run_ms(lambda: ref.dap_prune_ref(x, 4), iters=2)
-                nbytes = 2 * m * k * x.element_size() + m * k // 8
-                bound = nbytes / HBM_BYTES_PER_S * 1e3
-                say(f"kernel dap_prune M={m} K={k} ({what}) {str(dtype)[6:]}: kernel_ms "
-                    f"{t_k:.4f} plain_ms {t_p:.3f} library_ms none bound_ms {bound:.5f} "
-                    f"(bytes) bit-exact, max_abs_err {err:.3g} over the finite entries")
-                if m == 64 and k == 1024 and dtype == torch.bfloat16:
-                    # the JSON record: one granite-moe mixed-step pass, 24
-                    # layers x (wo input, MoE input)
-                    stats.update(ms=48 * t_k, plain_ms=48 * t_p, bytes=48 * nbytes)
-    stats["bound_ms"] = stats["bytes"] / HBM_BYTES_PER_S * 1e3
-    stats["bound_by"] = "bytes"
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    stats = {name: dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, bytes=0.0)
+             for name in DAP_FORMS}
+    for k, what, served in DAP_WIDTHS:
+        for name in served:
+            kern, plain = getattr(dap_prune, DAP_FORMS[name][0]), getattr(ref, DAP_FORMS[name][1])
+            for dtype in (torch.bfloat16, torch.float32):
+                x = dap_inputs(torch, gen, 64, k, dtype)
+                full = kern(x, 4)
+                for m in (1, 4, 64):
+                    got, want = kern(x[:m], 4), plain(x[:m], 4)
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        v = view.get(g.dtype, g.dtype)
+                        check(g.dtype == w.dtype and g.shape == w.shape
+                              and torch.equal(g.view(v), w.view(v)),
+                              f"{name} K={k} M={m} {dtype} output {i}: differs from its plain "
+                              f"version")
+                        check(torch.equal(g.view(v), full[i][:m].view(v)),
+                              f"{name} K={k} M={m} {dtype} output {i}: a row's bits depend on M")
+                if dtype != torch.bfloat16:
+                    continue
+                for m in (4, 64):
+                    xm = x[:m]
+                    out = kern(xm, 4)
+                    t_k = run_ms(lambda: kern(xm, 4), iters=15)
+                    t_p = run_ms(lambda: plain(xm, 4), iters=3)
+                    chain = ""
+                    if name == "dap_prune_int8":
+                        t_c = run_ms(lambda: ref.quantize_act_int8(
+                            dap_prune.dap_prune_cuda(xm, 4)[0], per_row=True), iters=15)
+                        chain = f" (the chain it replaces: #5 dense + plain quantize {t_c:.4f})"
+                    nbytes = xm.numel() * xm.element_size() + sum(
+                        t.numel() * t.element_size() for t in out)
+                    bound = nbytes / HBM_BYTES_PER_S * 1e3
+                    say(f"kernel {name} M={m} K={k} ({what}) bf16: kernel_ms {t_k:.4f} "
+                        f"plain_ms {t_p:.3f}{chain} library_ms none bound_ms {bound:.5f} (bytes) "
+                        f"bit-exact (bf16, f32 at M=1, 4, 64), max_abs_err 0")
+                    _, per_pass = DAP_RECORD[name]
+                    if m == 64 and k in per_pass:  # the JSON record: one mixed-step pass
+                        st = stats[name]
+                        st["ms"] += per_pass[k] * t_k
+                        st["plain_ms"] += per_pass[k] * t_p
+                        st["bytes"] += per_pass[k] * nbytes
+    for st in stats.values():
+        st["bound_ms"] = st["bytes"] / HBM_BYTES_PER_S * 1e3
+        st["bound_by"] = "bytes"
     return stats
 
 
 def expected_launches(cfg, wire):
     """Kernel launches of one forward pass of ``cfg`` on ``wire``.  Every
-    dense-input linear but the head DAP-prunes its input (#5), and so
-    does the MoE FFN before its router."""
+    dense-input linear but the head DAP-prunes its input (#5's dense form;
+    on the int8 wire its int8 dense form, which quantizes in the same
+    launch), the MoE FFN its input before the router (dense form), and
+    every packed input is DAP-packed once for the linears that share it
+    (#5's packed form of the wire): the attention input and, but under
+    MoE, the MLP's input and hidden state."""
     n_l = cfg.n_layers
+    moe_dap = 0
     if cfg.mla is not None:  # q_down, kv_down, gate, up, down packed; q_up, wo dense
-        packed, dense, attn = 5 * n_l, 2 * n_l, ("paged_attn_latent", n_l)
-        dap = dense
+        packed, dense, attn, packs = 5 * n_l, 2 * n_l, ("paged_attn_latent", n_l), 3 * n_l
     elif cfg.moe is not None:  # wq, wk, wv packed; wo dense; dense experts
-        packed, dense, attn = 3 * n_l, n_l, ("paged_attn", n_l)
-        dap = dense + n_l
+        packed, dense, attn, packs = 3 * n_l, n_l, ("paged_attn", n_l), n_l
+        moe_dap = n_l
     else:  # wq, wk, wv, gate, up, down packed; wo dense
-        packed, dense, attn = 6 * n_l, n_l, ("paged_attn", n_l)
-        dap = dense
-    names = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if wire == "int8"
+        packed, dense, attn, packs = 6 * n_l, n_l, ("paged_attn", n_l), 3 * n_l
+    int8 = wire == "int8"
+    names = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if int8
              else ("dbb_matmul_aw", "dbb_matmul"))
-    return {names[0]: packed, names[1]: dense + 1, attn[0]: attn[1], "dap_prune": dap}
+    return {names[0]: packed, names[1]: dense + 1, attn[0]: attn[1],
+            "dap_prune": moe_dap + (0 if int8 else dense),
+            "dap_prune_int8": dense if int8 else 0,
+            "dap_pack_int8" if int8 else "dap_pack": packs}
 
 
 def phase_main_path(torch, np, arch, wire, kv_dtype):
@@ -1113,7 +1188,7 @@ def main():
     stats["paged_attn"] = phase_attention(torch, run_ms)
     stats.update(phase_native_matmuls(torch, run_ms))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
-    stats["dap_prune"] = phase_dap_prune(torch, run_ms)
+    stats.update(phase_dap_prune(torch, run_ms))
     phase_smoke_latent_engine(torch, np)
     del flush
     torch.cuda.empty_cache()
@@ -1137,9 +1212,10 @@ def main():
     say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
         "query tokens per request; attention on a mixed step's rows: decode rows and a "
         "chunk tail padded to S), summed over its launches, of granite-3-8b for "
-        "dbb_matmul_int8, dbb_matmul_aw_int8 and paged_attn, of minicpm3-4b for "
-        "dbb_matmul, dbb_matmul_aw and paged_attn_latent, of granite-moe-1b-a400m for "
-        "dap_prune; launches summed over the main paths")
+        "dbb_matmul_int8, dbb_matmul_aw_int8, paged_attn, dap_prune_int8 and dap_pack_int8, "
+        "of minicpm3-4b for "
+        "dbb_matmul, dbb_matmul_aw, paged_attn_latent and dap_pack, of granite-moe-1b-a400m "
+        "for dap_prune; launches summed over the main paths")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

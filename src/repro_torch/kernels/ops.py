@@ -14,7 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import dbb
+from repro_torch.core import dbb, quant
 from repro_torch.kernels import dap_prune as dap_mod
 from repro_torch.kernels import dbb_matmul as dbb_mm
 from repro_torch.kernels import native, paged_attn, ref
@@ -30,6 +30,9 @@ def counters() -> Dict[str, native.Counter]:
         "paged_attn": paged_attn.PAGED_ATTN,
         "paged_attn_latent": paged_attn.PAGED_ATTN_LATENT,
         "dap_prune": dap_mod.DAP_PRUNE,
+        "dap_prune_int8": dap_mod.DAP_PRUNE_INT8,
+        "dap_pack": dap_mod.DAP_PACK,
+        "dap_pack_int8": dap_mod.DAP_PACK_INT8,
     }
 
 
@@ -187,20 +190,52 @@ def dap_prune(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
     return pruned.reshape(shape), mask.reshape(*shape[:-1], shape[-1] // bz)
 
 
+def dap_prune_int8(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
+    """DAP, then int8 with one scale a row (#5's int8 dense form): ``(q
+    [..., K] int8, scale [...] f32)``, the reference's ``quant.quantize(
+    dap_prune(x)[0], axis=-1)``.  The int8 wire's dense-input linears hand
+    it to :func:`dbb_matmul_int8` (kernel #2)."""
+    shape = x.shape
+    if _on_cuda(x):
+        q, scale = dap_mod.dap_prune_int8_cuda(x.reshape(-1, shape[-1]).contiguous(), nnz, bz)
+        return q.reshape(shape), scale.reshape(shape[:-1])
+    dap_mod.DAP_PRUNE_INT8.plain += 1
+    return ref.dap_prune_int8_ref(x, nnz, bz)
+
+
 def dap_pack_int8(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ,
                   act_scale: str = "per_tensor"):
     """Fused DAP-prune + pack + quantize: dense ``[..., K]`` -> int8 wire
     ``(vals [..., K//bz, nnz], mask [..., K//bz], scale)``; the scale is one
-    scalar or, with ``act_scale="per_row"``, one per token."""
-    scale_axis = (-2, -1) if act_scale == "per_row" else None
-    return dbb.pack_bitmask_int8(x, dbb.DBBConfig(nnz, bz), scale_axis=scale_axis)
+    scalar or, with ``act_scale="per_row"``, one per token.  On CUDA the
+    per-row scale is #5's int8 packed form, one launch; a per-tensor scale
+    (on no served path) takes #5's packed form and then the plain
+    per-tensor quantization, the reference's order."""
+    per_row = act_scale == "per_row"
+    if not _on_cuda(x):
+        dap_mod.DAP_PACK_INT8.plain += 1
+        return ref.dap_pack_int8_ref(x, nnz, bz, per_row=per_row)
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).contiguous()
+    if per_row:
+        q, mask, scale = dap_mod.dap_pack_int8_cuda(x2, nnz, bz)
+        scale = scale.reshape(lead)
+    else:
+        vals, mask = dap_mod.dap_pack_cuda(x2, nnz, bz)
+        q, scale = quant.quantize(vals)
+    return q.reshape(*lead, k // bz, nnz), mask.reshape(*lead, k // bz), scale
 
 
 def dap_pack(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
     """Fused DAP-prune + pack: dense ``[..., K]`` -> native wire ``(vals
     [..., K//bz, nnz], mask [..., K//bz] uint8)`` in ``x``'s dtype; the
-    pruned dense tensor is never materialized."""
-    return dbb.pack_bitmask(x, dbb.DBBConfig(nnz, bz))
+    pruned dense tensor is never materialized (#5's packed form on CUDA)."""
+    if not _on_cuda(x):
+        dap_mod.DAP_PACK.plain += 1
+        return ref.dap_pack_ref(x, nnz, bz)
+    lead, k = x.shape[:-1], x.shape[-1]
+    vals, mask = dap_mod.dap_pack_cuda(x.reshape(-1, k).contiguous(), nnz, bz)
+    return vals.reshape(*lead, k // bz, nnz), mask.reshape(*lead, k // bz)
 
 
 def expand_act(vals: torch.Tensor, mask: torch.Tensor, cfg: dbb.DBBConfig) -> torch.Tensor:

@@ -159,6 +159,28 @@ def dap_prune_ref(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
     return pruned, bitmask
 
 
+def dap_prune_int8_ref(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
+    """Plain version of #5's int8 dense form: ``(q [..., K] int8, scale
+    [...] f32)``, :func:`dap_prune_ref`'s pruned tensor quantized with one
+    scale a row."""
+    return quant.quantize(dap_prune_ref(x, nnz, bz)[0], axis=-1)
+
+
+def dap_pack_ref(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
+    """Plain version of #5's packed form: ``(vals [..., K//bz, nnz],
+    bitmask [..., K//bz] uint8)``, :func:`dbb.pack_bitmask`."""
+    return dbb.pack_bitmask(x, dbb.DBBConfig(nnz, bz))
+
+
+def dap_pack_int8_ref(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ,
+                      per_row: bool = True):
+    """Plain version of #5's int8 packed form: ``(q [..., K//bz, nnz] int8,
+    bitmask, scale)``, :func:`dbb.pack_bitmask_int8` with one scale a row
+    (``[...]``) or, with ``per_row=False``, one scalar."""
+    scale_axis = (-2, -1) if per_row else None
+    return dbb.pack_bitmask_int8(x, dbb.DBBConfig(nnz, bz), scale_axis=scale_axis)
+
+
 def paged_attn_ref(
     q: torch.Tensor,  # [B, S, H, Dk]
     k_pages: torch.Tensor,  # [N, PS, KV*Dk] (latent: [N, PS, Dk], KV == 1)

@@ -131,7 +131,9 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     * packed input and native wire weights: the native joint A/W-DBB
       matmul (kernel #4); an int8-packed input is dequantized first;
     * dense input and int8 wire weights: DAP (when active), dynamic
-      activation quantization, then the W-DBB matmul (kernel #2);
+      activation quantization, then the W-DBB matmul (kernel #2); with
+      per-row scales DAP and the quantization are one step
+      (``ops.dap_prune_int8``);
     * dense input and native wire weights: DAP (when active), then the
       native W-DBB matmul (kernel #1);
     * packed input and dense weights: expand the wire format, then the
@@ -139,6 +141,7 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     * dense weights: a plain matmul.
     """
     sp = sparsity
+    dtype, x_scale = x.dtype, None
     if isinstance(x, PackedAct):
         if "w_vals" in p:
             cfg_w = dbb.DBBConfig(sp.w_nnz, sp.bz) if sp else dbb.DBBConfig(4, 8)
@@ -173,7 +176,10 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
         x = ops.expand_act(vals, x.mask, x.cfg)
     elif dap_input:
         spec = _active_dap_spec(sp, x, layer_idx, first_layer)
-        if spec is not None:
+        if spec is not None and "w_scale" in p and sp.act_scale == "per_row":
+            # DAP and the per-row quantization in one step (#5's int8 dense form)
+            x, x_scale = ops.dap_prune_int8(x, spec.nnz, spec.bz)
+        elif spec is not None:
             x = apply_dap(x, spec)
 
     if "w_vals" in p:
@@ -183,13 +189,14 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
         if "w_scale" in p:
             y2 = ops.dbb_matmul_int8(
                 x2, p["w_vals"], p["w_mask"], p["w_scale"], cfg,
-                bias=p.get("b"), act=act, out_dtype=x.dtype,
+                x_scale=None if x_scale is None else x_scale.reshape(-1),
+                bias=p.get("b"), act=act, out_dtype=dtype,
                 act_scale=sp.act_scale if sp else "per_tensor",
             )
         else:
             y2 = ops.dbb_matmul(
                 x2, p["w_vals"], p["w_mask"], cfg, bias=p.get("b"), act=act,
-                out_dtype=x.dtype,
+                out_dtype=dtype,
             )
         return y2.reshape(*lead, y2.shape[-1])
     y = torch.matmul(x, p["w"].to(x.dtype))

@@ -852,3 +852,144 @@ def test_dap_prune_kernel_bit_exact(cuda, m, k, dtype, nnz):
         assert torch.equal(got_p.view(view), want_p.view(view))
         assert torch.equal(got_m, want_m)
     assert dap_prune.DAP_PRUNE.launches > 0
+
+
+# ---------------------------------------------------------------- DAP's four forms
+
+# form -> (kernel wrapper, plain version); each returns a tuple of tensors
+DAP_FORMS = {
+    "dense": (dap_prune.dap_prune_cuda, ref.dap_prune_ref),
+    "pack": (dap_prune.dap_pack_cuda, ref.dap_pack_ref),
+    "dense_int8": (dap_prune.dap_prune_int8_cuda, ref.dap_prune_int8_ref),
+    "pack_int8": (dap_prune.dap_pack_int8_cuda, ref.dap_pack_int8_ref),
+}
+# every DAP width of the three served paths, then odd ones
+DAP_KS = [768, 1024, 2560, 4096, 6400, 12800, 8, 40, 136]
+
+
+def _dap_rows(gen, m, k, dtype):
+    """Normal rows with the hard cases planted in the first four: a NaN in
+    block 0 and a NaN block (row 0), ties of small integers and a -0.0
+    block (row 1), +-inf (row 2: its int8 scale is inf, a kept infinity's
+    quotient NaN, which the card casts to code 0 on both sides), zeros
+    of both signs around one non-zero (row 3)."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    inf, nan = float("inf"), float("nan")
+    rows = [[3.0, -3.0, 0.0, -0.0, inf, -3.0, nan, 1.0],
+            None,
+            [inf, -inf, 1.0, -inf, 2.0, inf, 0.5, -1.0],
+            [0.0, -0.0, 0.0, 1.5, -0.0, 0.0, 0.0, -0.0]]
+    for i, row in enumerate(rows[:m]):
+        if i == 1:
+            x[1] = torch.randint(-2, 3, (k,), generator=gen, device="cuda").float()
+            x[1, :8] = -0.0
+            continue
+        x[i, :8] = torch.tensor(row, device="cuda")
+        if k >= 16:
+            x[i, 8:16] = nan if i == 0 else -0.0
+    return x.to(dtype)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(a.dtype, a.dtype)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("form", sorted(DAP_FORMS))
+@pytest.mark.parametrize("k", DAP_KS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nnz", [1, 2, 3, 4, 5, 8])
+def test_dap_forms_bit_exact(cuda, form, k, dtype, nnz):
+    """Each of #5's forms against its plain version on the card, bit for
+    bit (values, masks, codes, scales; NaNs included), at M = 1 to 100
+    rows of every main-path width; a row's bits are the same at M = 1, 4,
+    64 and 100, and a misaligned input (an offset view) goes through an
+    aligned copy."""
+    kern, plain = DAP_FORMS[form]
+    x = _dap_rows(cuda, 100, k, dtype)
+    before = {name: c.launches for name, c in ops.counters().items()}
+    full = kern(x, nnz)
+    for m in (1, 3, 4, 17, 64, 100):
+        got = kern(x[:m], nnz)
+        want = plain(x[:m], nnz)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert _bits_equal(g, w), f"{form} M={m} output {i} differs from its plain version"
+            assert _bits_equal(g, full[i][:m]), f"{form} M={m} output {i}: rows depend on M"
+    buf = torch.empty(64 * k + 4, dtype=dtype, device="cuda")
+    buf[4:] = x[:64].reshape(-1)
+    for g, w in zip(kern(buf[4:].view(64, k), nnz), full):
+        assert _bits_equal(g, w[:64]), f"{form}: the misaligned input differs"
+    name = {"dense": "dap_prune", "pack": "dap_pack", "dense_int8": "dap_prune_int8",
+            "pack_int8": "dap_pack_int8"}[form]
+    assert ops.counters()[name].launches == before[name] + 8
+
+
+@pytest.mark.parametrize("form", ["dense_int8", "pack_int8"])
+@pytest.mark.parametrize("k", DAP_KS[:6])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_dap_row_forms_any_cluster(cuda, monkeypatch, form, k, cluster):
+    """The per-row forms at 1, 2, 4 and 8 blocks a row (a thread-block
+    cluster exchanging partial maxima through distributed shared memory):
+    the same bits as the plain version at M = 4 and 64."""
+    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", cluster)
+    kern, plain = DAP_FORMS[form]
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _dap_rows(cuda, 64, k, dtype)
+        for m in (4, 64):
+            for g, w in zip(kern(x[:m], 4), plain(x[:m], 4)):
+                assert _bits_equal(g, w), f"{form} K={k} cluster {cluster} M={m} {dtype}"
+
+
+def test_dap_pack_int8_per_tensor_on_cuda(cuda):
+    """Off the served paths: ``act_scale="per_tensor"`` on CUDA is #5's
+    packed form, then the plain per-tensor quantization."""
+    x = _dap_rows(cuda, 64, 4096, torch.bfloat16)[4:]
+    before = (dap_prune.DAP_PACK.launches, dap_prune.DAP_PACK_INT8.launches)
+    got = ops.dap_pack_int8(x, 4, 8)
+    want = ref.dap_pack_int8_ref(x, 4, 8, per_row=False)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+    assert (dap_prune.DAP_PACK.launches, dap_prune.DAP_PACK_INT8.launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("arch,wire", [("granite_3_8b", "int8"), ("minicpm3_4b", "native"),
+                                       ("granite_moe_1b_a400m", "native")])
+def test_engine_dap_forms_on_the_kernel(cuda, monkeypatch, arch, wire):
+    """A bf16 smoke engine on each served path: every DAP call site runs
+    #5 (no plain DAP counter moves), in the wire's forms, and its tokens
+    equal those of the route before the packed forms existed (the packs
+    in plain ops on the card, wo's DAP as #5's dense form then the plain
+    per-row quantization).  An MoE step couples its tokens through expert
+    capacity, so the comparison holds the same requests and arrivals."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), n_layers=2, dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    scfg = ServeConfig(max_seq=64, page_size=16, max_batch=2, prefill_chunk=8, wire_dtype=wire,
+                       kv_dtype=wire)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 20)]
+    ops.reset_counters()
+    got = Engine(params, cfg, scfg, device="cuda").generate_requests(prompts, 6,
+                                                                     arrivals=[0, 3, 1])
+    counts = {name: (c.launches, c.plain) for name, c in ops.counters().items()
+              if name.startswith("dap")}
+    assert all(plain == 0 for _, plain in counts.values()), counts
+    used = {"int8": {"dap_pack_int8", "dap_prune_int8"},
+            "native": {"dap_pack", "dap_prune"}}[wire]
+    assert {name for name, (n, _) in counts.items() if n > 0} == used, counts
+    monkeypatch.setattr(dap_prune, "dap_pack_cuda", ref.dap_pack_ref)
+    monkeypatch.setattr(dap_prune, "dap_pack_int8_cuda", ref.dap_pack_int8_ref)
+    monkeypatch.setattr(dap_prune, "dap_prune_int8_cuda", lambda x, nnz, bz=8: (
+        ref.quantize_act_int8(dap_prune.dap_prune_cuda(x, nnz, bz)[0], per_row=True)))
+    want = Engine(params, cfg, scfg, device="cuda").generate_requests(prompts, 6,
+                                                                      arrivals=[0, 3, 1])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

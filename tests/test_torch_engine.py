@@ -50,11 +50,11 @@ def test_engine_tokens_match_reference(weights, kv_dtype):
 def test_engine_invariants_byte_exact(weights):
     _, tcfg, _, tparams = weights
     counts, eng = invariants_byte_exact(tcfg, tparams, "int8", "int8")
-    # the int8 wire's kernels and DAP (wo's input), their plain versions
-    # on the CPU
+    # the int8 wire's kernels and DAP (#5's int8 forms: wo's input, the
+    # packed inputs), their plain versions on the CPU
     assert all(launches == 0 for launches, _ in counts.values())
     assert {k for k, (_, plain) in counts.items() if plain > 0} == {
-        "dbb_matmul_int8", "dbb_matmul_aw_int8", "paged_attn", "dap_prune"}
+        "dbb_matmul_int8", "dbb_matmul_aw_int8", "paged_attn", "dap_prune_int8", "dap_pack_int8"}
     # every page is back in the pool (no prefix cache holds any), and every
     # dirty page is a free one
     alloc = eng._cont["allocator"]

@@ -477,7 +477,7 @@ def test_cpu_dispatch_counts_plain_calls_only():
     assert {k: (c.launches, c.plain) for k, c in counts.items()} == {
         "dbb_matmul": (0, 1), "dbb_matmul_int8": (0, 1), "dbb_matmul_aw_int8": (0, 1),
         "dbb_matmul_aw": (0, 1), "paged_attn": (0, 1), "paged_attn_latent": (0, 1),
-        "dap_prune": (0, 1),
+        "dap_prune": (0, 1), "dap_prune_int8": (0, 0), "dap_pack": (0, 1), "dap_pack_int8": (0, 0),
     }
     ops.reset_counters()
     assert all(c.launches == 0 and c.plain == 0 for c in ops.counters().values())

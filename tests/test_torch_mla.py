@@ -273,14 +273,15 @@ def test_mla_engine_matches_reference(weights, wire, kv_dtype):
     """minicpm3 served continuously on either wire and KV dtype: tokens
     equal to the reference's continuous engine, logits within 1e-4; every
     packed linear through #1/#4 (native) or #2/#3 (int8), every
-    attention through #6's latent mode and the dense-input linears' DAP
-    (q_up, wo) through #5."""
+    attention through #6's latent mode and every DAP through #5: the
+    dense-input linears' (q_up, wo) and the packed inputs, in the wire's
+    forms."""
     jcfg, tcfg, params, tparams, _ = weights
     counts = engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype)
-    mm = {"native": {"dbb_matmul", "dbb_matmul_aw"},
-          "int8": {"dbb_matmul_int8", "dbb_matmul_aw_int8"}}[wire]
-    assert {k for k, (_, plain) in counts.items() if plain > 0} == mm | {
-        "paged_attn_latent", "dap_prune"}
+    mm = {"native": {"dbb_matmul", "dbb_matmul_aw", "dap_prune", "dap_pack"},
+          "int8": {"dbb_matmul_int8", "dbb_matmul_aw_int8", "dap_prune_int8",
+                   "dap_pack_int8"}}[wire]
+    assert {k for k, (_, plain) in counts.items() if plain > 0} == mm | {"paged_attn_latent"}
 
 
 @pytest.mark.parametrize("kv_dtype", ["native", "int8"])
@@ -288,7 +289,7 @@ def test_mla_native_wire_invariants_byte_exact(weights, kv_dtype):
     _, tcfg, _, tparams, _ = weights
     counts, _ = invariants_byte_exact(tcfg, tparams, "native", kv_dtype)
     assert {k for k, (_, plain) in counts.items() if plain > 0} == {
-        "dbb_matmul", "dbb_matmul_aw", "paged_attn_latent", "dap_prune"}
+        "dbb_matmul", "dbb_matmul_aw", "paged_attn_latent", "dap_prune", "dap_pack"}
 
 
 def test_minicpm3_full_config_kernel_shapes():

@@ -234,21 +234,28 @@ def test_moe_engine_matches_reference(weights, monkeypatch, wire, kv_dtype):
     capacity that drops pairs, with idle rows in the batch: tokens equal
     to the reference's continuous engine, replay logits within 1e-4; the
     attention linears through #1/#4 or #2/#3, attention through #6, and
-    the DAP of wo and of the MoE input through #5."""
+    the DAP of wo, of the attention input and of the MoE input through
+    #5, in the wire's forms."""
     jcfg, tcfg, params, tparams = weights
     counter = _Drops(monkeypatch)
     counts = engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype, serve=SERVE_MOE)
     assert counter.n > 0
-    mm = {"native": {"dbb_matmul", "dbb_matmul_aw"},
-          "int8": {"dbb_matmul_int8", "dbb_matmul_aw_int8"}}[wire]
+    mm = {"native": {"dbb_matmul", "dbb_matmul_aw", "dap_pack"},
+          "int8": {"dbb_matmul_int8", "dbb_matmul_aw_int8", "dap_prune_int8",
+                   "dap_pack_int8"}}[wire]
     assert {k for k, (_, plain) in counts.items() if plain > 0} == mm | {
         "paged_attn", "dap_prune"}
-    # per forward pass: wo and lm_head take dense input; wo's input and
-    # the MoE input are DAP-pruned
-    passes = counts["paged_attn"][1] // tcfg.n_layers
+    # per forward pass: wo and lm_head take dense input; wo's input (on the
+    # int8 wire quantized in the same step) and the MoE input are
+    # DAP-pruned, the attention input DAP-packed
+    n_l = tcfg.n_layers
+    passes = counts["paged_attn"][1] // n_l
     dense = "dbb_matmul" if wire == "native" else "dbb_matmul_int8"
-    assert counts[dense][1] == (tcfg.n_layers + 1) * passes
-    assert counts["dap_prune"][1] == 2 * tcfg.n_layers * passes
+    assert counts[dense][1] == (n_l + 1) * passes
+    assert counts["dap_prune"][1] == (2 if wire == "native" else 1) * n_l * passes
+    assert counts["dap_prune_int8"][1] == (0 if wire == "native" else n_l * passes)
+    pack = "dap_pack" if wire == "native" else "dap_pack_int8"
+    assert counts[pack][1] == n_l * passes
 
 
 @pytest.mark.parametrize("wire", ["native", "int8"])

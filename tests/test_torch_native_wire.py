@@ -204,18 +204,18 @@ def test_native_packed_params_bit_exact(weights):
 def test_granite_native_wire_engine_matches_reference(weights, kv_dtype):
     """granite-3-8b on the native wire: every packed linear takes #1 or
     #4 (their plain versions here), every attention #6 in GQA mode and
-    wo's DAP #5."""
+    every DAP #5 (wo's input pruned, the packed inputs packed)."""
     jcfg, tcfg, params, tparams = weights
     counts = engines_match(jcfg, tcfg, params, tparams, "native", kv_dtype)
     used = {k for k, (_, plain) in counts.items() if plain > 0}
-    assert used == {"dbb_matmul", "dbb_matmul_aw", "paged_attn", "dap_prune"}
+    assert used == {"dbb_matmul", "dbb_matmul_aw", "paged_attn", "dap_prune", "dap_pack"}
 
 
 def test_granite_native_wire_invariants_byte_exact(weights):
     _, tcfg, _, tparams = weights
     counts, _ = invariants_byte_exact(tcfg, tparams, "native", "int8")
     assert {k for k, (_, plain) in counts.items() if plain > 0} == {
-        "dbb_matmul", "dbb_matmul_aw", "paged_attn", "dap_prune"}
+        "dbb_matmul", "dbb_matmul_aw", "paged_attn", "dap_prune", "dap_pack"}
 
 
 def test_init_params_native_packs_as_drawn():
