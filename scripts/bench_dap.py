@@ -4,11 +4,10 @@ site of the three served paths, beside the chain of operations each form
 replaced on the card, for this checkout of the port.
 
     python3 scripts/bench_dap.py [--root DIR] [--label NAME] [--iters 20]
-        [--clusters auto,1,2,4,8] [--threads 256,512]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
-variant of the kernel (a copy of ``src/`` with its source edited) times
-beside it in one call.
+variant of the kernel (a copy of ``src/`` with its source or its launch
+plan, ``dap_prune.row_plan``, edited) times beside it in one call.
 
 For each call site (granite-3-8b on the int8 wire: the attention, MLP and
 down inputs packed (``dap_pack_int8``), wo's input pruned and quantized
@@ -29,12 +28,9 @@ M = 64 (a mixed step), bf16, NNZ 4, it prints:
   over 3.35 TB/s.
 
 Then, per forward pass of each arch (each site times its calls a pass),
-the kernel's and the chain's device time and device operations.  Last,
-the variants of the per-row forms (``dap_prune_int8``, ``dap_pack_int8``):
-the plan's rule (``auto``), one block or a cluster of 2, 4, 8 blocks a row
-(``--clusters``, ``dap_prune.ROW_CLUSTER``) and the threads a block takes
-before a thread takes more 8-blocks (``--threads``,
-``dap_prune.ROW_THREADS``), each per granite-3-8b pass at M = 4 and 64.
+the kernel's and the chain's device time and device operations, and the
+per-row forms' launch plans (``dap_prune.row_plan``) at granite-3-8b's
+widths.
 """
 
 import argparse
@@ -62,8 +58,6 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--clusters", default="auto,1,2,4,8")
-    ap.add_argument("--threads", default="256,512")
     args = ap.parse_args()
     import torch
 
@@ -149,22 +143,10 @@ def main():
               f"operations; the chains before {t_c:.4f} ms in {n_c:g}; bound {bound:.4f} ms",
               flush=True)
 
-    clusters = [None if c == "auto" else int(c) for c in args.clusters.split(",") if c]
-    threads = [int(t) for t in args.threads.split(",") if t]
-    for t in threads:
-        for c in clusters:
-            dap_prune.ROW_THREADS, dap_prune.ROW_CLUSTER = t, c
-            for m in (4, 64):
-                total, plans = 0.0, []
-                for arch, form, k, count, site in SITES:
-                    if arch != "granite-3-8b":
-                        continue
-                    x = inputs[k][:m]
-                    total += count * time_ms(lambda: kernels[form](x, 4))
-                    plans.append(f"K={k} {dap_prune.row_plan(m, k)}")
-                print(f"{args.label}: variant threads {t} cluster {c or 'auto'}: granite-3-8b "
-                      f"int8 DAP per pass M={m} {total:.4f} ms (plans (cluster, threads, per, "
-                      f"per_block): {', '.join(plans)})", flush=True)
+    for m in (4, 64):
+        plans = [f"K={k} {dap_prune.row_plan(m, k)}" for k in (4096, 12800)]
+        print(f"{args.label}: per-row plans (cluster, threads, per, per_block) at M={m}: "
+              f"{', '.join(plans)}", flush=True)
     return 0
 
 

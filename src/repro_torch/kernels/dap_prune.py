@@ -23,7 +23,6 @@ tensors to the plain versions.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -35,12 +34,9 @@ DAP_PRUNE_INT8 = native.Counter()  # kernel #5, int8 dense form
 DAP_PACK_INT8 = native.Counter()  # kernel #5, int8 packed form
 
 _ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
-ROW_MAX_THREADS = 512  # csrc/dap_prune.cu: the most threads a row block takes
-# threads a row block takes before a thread takes more 8-blocks, and
-# blocks a row (a thread-block cluster) of the per-row forms (None: the
-# plan's rule); both measured by scripts/bench_dap.py
-ROW_THREADS = 512
-ROW_CLUSTER: Optional[int] = None
+# csrc/dap_prune.cu: the most threads a row block takes; a thread takes
+# more than one 8-block only past them
+ROW_MAX_THREADS = 512
 MAX_CLUSTER = 8  # blocks a row at most (the portable cluster size)
 SMS = 132  # the H100's SMs, which the plan spreads a call's rows over
 _fns = {}
@@ -70,17 +66,12 @@ def row_plan(m: int, k: int):
     (one a thread of a warp).  A row's bits do not depend on the plan (its
     amax is an integer max), so it may depend on M."""
     nb = k // 8
-    cluster = ROW_CLUSTER
-    if cluster is None:
-        cluster = 1
-        while cluster < MAX_CLUSTER and 2 * cluster * m <= SMS and nb >= 64 * cluster:
-            cluster *= 2
-    if not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"cluster must be in [1, {MAX_CLUSTER}], got {cluster}")
-    per_block = -(-nb // min(cluster, nb))
-    cluster = -(-nb // per_block)  # no block without an 8-block
+    cluster = 1
+    while cluster < MAX_CLUSTER and 2 * cluster * m <= SMS and nb >= 64 * cluster:
+        cluster *= 2
+    per_block = -(-nb // cluster)  # >= 64: no block is left without an 8-block
     per = 1
-    while per < 8 and -(-per_block // per) > ROW_THREADS:
+    while per < 8 and -(-per_block // per) > ROW_MAX_THREADS:
         per *= 2
     threads = 32 * -(-per_block // (32 * per))
     if threads > ROW_MAX_THREADS:

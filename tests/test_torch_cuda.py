@@ -927,18 +927,20 @@ def test_dap_forms_bit_exact(cuda, form, k, dtype, nnz):
 
 @pytest.mark.parametrize("form", ["dense_int8", "pack_int8"])
 @pytest.mark.parametrize("k", DAP_KS[:6])
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_dap_row_forms_any_cluster(cuda, monkeypatch, form, k, cluster):
-    """The per-row forms at 1, 2, 4 and 8 blocks a row (a thread-block
-    cluster exchanging partial maxima through distributed shared memory):
-    the same bits as the plain version at M = 4 and 64."""
-    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", cluster)
+@pytest.mark.parametrize("m", [100, 64, 32, 16])
+def test_dap_row_forms_any_cluster(cuda, form, k, m):
+    """The per-row forms at every cluster size the plan takes (at K >=
+    2560: 1, 2, 4 and 8 blocks a row at M = 100, 64, 32 and 16; a cluster
+    exchanges partial maxima through distributed shared memory): the same
+    bits as the plain version, and a row's bits the same as at M = 4."""
     kern, plain = DAP_FORMS[form]
+    cluster = dap_prune.row_plan(m, k)[0]
     for dtype in (torch.bfloat16, torch.float32):
-        x = _dap_rows(cuda, 64, k, dtype)
-        for m in (4, 64):
-            for g, w in zip(kern(x[:m], 4), plain(x[:m], 4)):
-                assert _bits_equal(g, w), f"{form} K={k} cluster {cluster} M={m} {dtype}"
+        x = _dap_rows(cuda, m, k, dtype)
+        got = kern(x, 4)
+        for g, w, g4 in zip(got, plain(x, 4), kern(x[:4], 4)):
+            assert _bits_equal(g, w), f"{form} K={k} cluster {cluster} M={m} {dtype}"
+            assert _bits_equal(g[:4], g4), f"{form} K={k} cluster {cluster} M={m}: rows vary"
 
 
 def test_dap_pack_int8_per_tensor_on_cuda(cuda):

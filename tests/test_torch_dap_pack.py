@@ -224,47 +224,36 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("k", [8, 40] + [k for k, _ in MAIN_WIDTHS] + [32768])
-@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
-def test_row_plan(monkeypatch, k, cluster):
+@pytest.mark.parametrize("m", [1, 4, 32, 64, 100])
+def test_row_plan(k, m):
     """The per-row forms' launch plan covers a row exactly: ``cluster``
     blocks of ``per_block`` 8-blocks each, ``threads`` (a multiple of 32,
-    at most the kernel's 512) of up to ``per`` (1, 2, 4 or 8) 8-blocks;
-    by default (``ROW_CLUSTER`` None) 8 blocks a row at M = 4 on K = 4096,
-    2 at M = 64, 1 at M = 1 on K = 8."""
-    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", cluster)
+    at most the kernel's 512) of up to ``per`` (1, 2, 4 or 8) 8-blocks.
+    The rule spreads the rows over the SMs, at least 32 8-blocks a block:
+    on K = 4096, 8 blocks a row at M = 1 and 4, 4 at 32, 2 at 64, 1 at
+    100."""
     nb = k // 8
-    for m in (1, 4, 64):
-        c, threads, per, per_block = dap_prune.row_plan(m, k)
-        if cluster is None:  # the rule: rows spread over the SMs, >= 32 8-blocks a block
-            want = 1
-            while want < 8 and 2 * want * m <= dap_prune.SMS and nb >= 64 * want:
-                want *= 2
-            assert c == want
-        else:
-            assert c <= min(cluster, nb) and (c > 1 or cluster == 1 or nb == 1)
-        assert per in (1, 2, 4, 8) and threads % 32 == 0
-        assert 32 <= threads <= dap_prune.ROW_MAX_THREADS
-        assert c * per_block >= nb > (c - 1) * per_block
-        assert per_block <= threads * per
-        # no more threads, and no more 8-blocks a thread, than it takes
-        assert threads - 32 < -(-per_block // per)
-        assert per == 1 or -(-per_block // (per // 2)) > dap_prune.ROW_THREADS
-    if cluster is None:
-        assert dap_prune.row_plan(4, 4096)[0] == 8 and dap_prune.row_plan(64, 4096)[0] == 2
-        assert dap_prune.row_plan(100, 4096)[0] == 1 and dap_prune.row_plan(1, 8)[0] == 1
+    c, threads, per, per_block = dap_prune.row_plan(m, k)
+    want = 1
+    while want < 8 and 2 * want * m <= dap_prune.SMS and nb >= 64 * want:
+        want *= 2
+    assert c == want
+    assert per in (1, 2, 4, 8) and threads % 32 == 0
+    assert 32 <= threads <= dap_prune.ROW_MAX_THREADS
+    assert c * per_block >= nb > (c - 1) * per_block
+    assert per_block <= threads * per
+    # no more threads, and no more 8-blocks a thread, than it takes
+    assert threads - 32 < -(-per_block // per)
+    assert per == 1 or -(-per_block // (per // 2)) > dap_prune.ROW_MAX_THREADS
+    assert dap_prune.row_plan(m, 4096)[0] == {1: 8, 4: 8, 32: 4, 64: 2, 100: 1}[m]
 
 
-def test_row_plan_refuses_what_the_kernel_cannot_hold(monkeypatch):
+def test_row_plan_refuses_what_the_kernel_cannot_hold():
     k = 8 * 8 * 513  # 4104 8-blocks: more than 512 threads x 8 a block
     assert dap_prune.row_plan(4, k)[0] == 8  # the rule spreads it over a cluster
-    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", 2)
-    assert dap_prune.row_plan(4, k)[0] == 2
-    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", 1)
+    assert dap_prune.row_plan(64, k)[0] == 2
     with pytest.raises(ValueError, match="8-blocks a block"):
-        dap_prune.row_plan(4, k)
-    monkeypatch.setattr(dap_prune, "ROW_CLUSTER", 9)
-    with pytest.raises(ValueError, match="cluster"):
-        dap_prune.row_plan(4, 4096)
+        dap_prune.row_plan(100, k)  # one block a row
 
 
 @pytest.mark.parametrize("arch,wire", [("granite_3_8b", "int8"), ("minicpm3_4b", "native"),
