@@ -11,46 +11,56 @@ non-zero and prints no result:
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled
    with nvcc for sm_90a, all at once, and its time;
 3. each kernel held against its plain PyTorch version on the card at its
-   main path's full widths, and timed beside its plain version, a
+   main paths' full widths, and timed beside its plain version, a
    PyTorch library call computing the same function, and its bound
    (bytes over 3.35 TB/s or operations over the peak rate): the int8
    matmuls (#2, #3) through their int8 tc body, bit for bit, with a check
-   that a row's bits do not depend on M, at granite-3-8b's shapes (timed
-   beside ``torch._int_mm`` with the weight row-major and column-major) and
-   at minicpm3-4b's and granite-moe-1b-a400m's int8-wire shapes (held, not
-   timed); GQA paged attention (#6)
-   at granite-3-8b's (int8 KV) and granite-moe-1b-a400m's (native KV),
-   with the padding and idle rows of a mixed step, in bf16 through the
-   tensor-core kernel and in f32 through the scalar one, and bf16 calls at
-   pages of 4 and 2 slots; the native-wire
-   matmuls (#1, #4) through their tc body, with a check that a row's bits
-   do not depend on M, at minicpm3-4b's and granite-moe-1b-a400m's;
-   latent paged attention
-   (#6, MLA) at minicpm3-4b's on decode, whole-chunk and mixed steps,
-   keyless rows included, in bf16 through the latent tensor-core kernel
-   and in f32 through the scalar one; both tensor-core kernels at pages of
-   72 slots (64-slot sub-pages) and the latent one at minicpm3-4b's smoke
-   latent of 40 (zero-padded to 48); DAP (#5) bit for bit in each of its
-   four forms (pruned dense, native-packed, int8 dense, int8-packed) at
-   every width it serves on the three paths, NaN, infinities, ties and
-   -0.0 included; a bf16 smoke minicpm3-4b engine served at pages of 16
-   and 72 slots;
+   that a row's bits do not depend on M, at granite-3-8b's and
+   qwen2-vl-72b's shapes (timed beside ``torch._int_mm`` with the weight
+   row-major and column-major) and at minicpm3-4b's,
+   granite-moe-1b-a400m's and qwen1.5-110b's int8-wire shapes (held, not
+   timed), a random bias on every biased wq, wk and wv; GQA paged
+   attention (#6) at granite-3-8b's and qwen2-vl-72b's heads (int8 KV),
+   granite-moe-1b-a400m's and starcoder2-15b's (native KV; 12 query heads
+   a KV head, its 4096-token window over tables of 5120 slots), with the
+   padding and idle rows of a mixed step, in bf16 through the tensor-core
+   kernel and in f32 through the scalar one, and bf16 calls at pages of 4
+   and 2 slots; the native-wire matmuls (#1, #4) through their tc body,
+   with a check that a row's bits do not depend on M, at minicpm3-4b's and
+   granite-moe-1b-a400m's shapes (timed) and starcoder2-15b's (its gelu
+   ``up`` included), phi3.5-moe's and qwen2-vl-72b's (held); latent paged
+   attention (#6, MLA) at minicpm3-4b's on decode, whole-chunk and mixed
+   steps, keyless rows included, in bf16 through the latent tensor-core
+   kernel and in f32 through the scalar one; both tensor-core kernels at
+   pages of 72 slots (64-slot sub-pages) and the latent one at
+   minicpm3-4b's smoke latent of 40 (zero-padded to 48); DAP (#5) bit for
+   bit in each of its four forms (pruned dense, native-packed, int8
+   dense, int8-packed) at every width it serves on the paths and at
+   qwen1.5-110b's down input (K = 49152, also at M = 512), NaN,
+   infinities, ties and -0.0 included; one line of qwen2-vl-72b's kernel
+   times over a mixed-step pass; a bf16 smoke minicpm3-4b engine served at
+   pages of 16 and 72 slots;
 4. the main paths, each driven with the launch counters set to 0 just
    before and read just after: full-width granite-3-8b (40 layers, int8
    DBB wire, int8 KV), full-width minicpm3-4b (62 layers, native DBB
-   wire, native KV) and full-width granite-moe-1b-a400m (24 layers, 32
-   experts top-8, native wire and KV: the reference's default), seeded
-   random weights in bf16, each serving 8 requests continuously through
-   ``Engine.generate_requests``; the counters show every packed linear,
-   every attention call and every DAP call site (each in its form, one
-   launch a call) went through the kernels, every
+   wire, native KV), full-width granite-moe-1b-a400m (24 layers, 32
+   experts top-8, native wire and KV: the reference's default),
+   full-width qwen2-vl-72b (80 layers, M-RoPE, QKV bias, int8 wire and
+   KV), full-width starcoder2-15b (40 layers, gelu MLP, QKV bias, a
+   4096-token window, native wire and KV) and phi3.5-moe-42b-a6.6b at
+   full width and 8 of its 32 layers (16 experts top-2, native wire and
+   KV), seeded random weights in bf16, each serving 8 requests
+   continuously through ``Engine.generate_requests``; the counters show
+   every packed linear, every attention call and every DAP call site
+   (each in its form, one launch a call) went through the kernels, every
    bf16 GQA attention call through the tensor-core kernel, every bf16
    latent call through the latent tensor-core kernel, every bf16 #1 and
    #4 call through their tc body and every #2 and #3 call through the int8
-   tc body.  A dense
-   arch's request re-served alone is byte-identical; an MoE token
-   depends on its co-batch (expert capacity), so there a fresh engine
-   re-serves the same requests and arrivals byte-identically.
+   tc body.  A dense arch's request re-served alone is byte-identical; an
+   MoE token depends on its co-batch (expert capacity), so there a fresh
+   engine re-serves the same requests and arrivals byte-identically.
+   Each path prints its init time, peak memory after init and after
+   serving, wall, tokens/s and TTFT.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,19 +85,37 @@ SERVE_SHAPE = dict(
     prefill_mode="continuous", pack_weights=True, max_seq=1024, page_size=16, max_batch=4,
     prefill_chunk=16, decode_block=16,
 )
-# the main paths: (architecture, wire, KV dtype)
-PATHS = (("granite_3_8b", "int8", "int8"), ("minicpm3_4b", "native", "native"),
-         ("granite_moe_1b_a400m", "native", "native"))
-# (K, call sites, forms of DAP (#5) served there) on the main paths
+# the main paths: (architecture, wire, KV dtype, layers served or None for
+# all); phi3.5-moe's dense bf16 experts take 2.52 GB a layer, 80.5 GB at
+# its 32 layers, so it serves 8 at full width
+PATHS = (("granite_3_8b", "int8", "int8", None), ("minicpm3_4b", "native", "native", None),
+         ("granite_moe_1b_a400m", "native", "native", None),
+         ("qwen2_vl_72b", "int8", "int8", None), ("starcoder2_15b", "native", "native", None),
+         ("phi3_5_moe_42b_a6_6b", "native", "native", 8))
+# the archs whose wq, wk and wv carry a bias: the kernel phases give those a
+# random non-zero one (the inits draw zeros)
+QKV_BIAS_ARCHS = ("qwen2-vl-72b", "qwen1.5-110b", "starcoder2-15b")
+# (K, call sites, forms of DAP (#5) served there) on the main paths and at
+# qwen1.5-110b's down input
 DAP_WIDTHS = (
     (768, "minicpm3 q_up input", ("dap_prune",)),
     (1024, "granite-moe wo and MoE input; attention input", ("dap_prune", "dap_pack")),
     (2560, "minicpm3 wo input; attention and MLP input", ("dap_prune", "dap_pack")),
     (4096, "granite-3-8b wo input; attention and MLP input", ("dap_prune_int8",
                                                                "dap_pack_int8")),
+    (4096, "phi3.5-moe wo and MoE input; attention input", ("dap_prune", "dap_pack")),
+    (6144, "starcoder2 wo input; attention and MLP input", ("dap_prune", "dap_pack")),
     (6400, "minicpm3 down input", ("dap_pack",)),
+    (8192, "qwen2-vl and qwen1.5 wo input; attention and MLP input", ("dap_prune_int8",
+                                                                      "dap_pack_int8")),
     (12800, "granite-3-8b down input", ("dap_pack_int8",)),
+    (24576, "starcoder2 down input", ("dap_pack",)),
+    (29568, "qwen2-vl down input", ("dap_pack_int8",)),
+    (49152, "qwen1.5-110b down input", ("dap_pack_int8",)),
 )
+# the widths whose per-row forms are also held at M = 512 (a solo prefill's
+# rows), rows bitwise equal to M = 4's: K = 49152 takes two blocks a row
+DAP_LONG_ROWS = (29568, 49152)
 # DAP's forms: (wrapper in kernels/dap_prune.py, plain version in kernels/ref.py)
 DAP_FORMS = {
     "dap_prune": ("dap_prune_cuda", "dap_prune_ref"),
@@ -103,6 +131,8 @@ DAP_RECORD = {
     "dap_pack": ("minicpm3-4b", {2560: 124, 6400: 62}),
     "dap_pack_int8": ("granite-3-8b", {4096: 80, 12800: 40}),
 }
+# qwen2-vl-72b's int8 DAP calls a mixed-step pass (80 layers), {form: {K: calls}}
+QWEN2_VL_DAP = {"dap_prune_int8": {8192: 80}, "dap_pack_int8": {8192: 160, 29568: 80}}
 # (name, kernel, act on the main path, K, N) of granite-3-8b's linears
 LINEARS = (
     ("wq", "aw", None, 4096, 4096),
@@ -115,7 +145,9 @@ LINEARS = (
     ("lm_head", "w", None, 4096, 49408),
 )
 # (arch, name, kernel, act on the main path, K, N) of the int8-wire linears
-# of the two other archs: held bit for bit in phase 3, not in the record
+# of the other archs: held bit for bit in phase 3; qwen2-vl-72b's also timed
+# (its main path's pass), not in the record; qwen1.5-110b shares every
+# shape but the MLP's with qwen2-vl
 INT8_OTHER_LINEARS = (
     ("minicpm3-4b", "q_down", "aw", None, 2560, 768),
     ("minicpm3-4b", "kv_down", "aw", None, 2560, 288),
@@ -130,26 +162,62 @@ INT8_OTHER_LINEARS = (
     ("granite-moe-1b-a400m", "wv", "aw", None, 1024, 512),
     ("granite-moe-1b-a400m", "wo", "w", None, 1024, 1024),
     ("granite-moe-1b-a400m", "lm_head", "w", None, 1024, 49408),
+    ("qwen2-vl-72b", "wq", "aw", None, 8192, 8192),
+    ("qwen2-vl-72b", "wk", "aw", None, 8192, 1024),
+    ("qwen2-vl-72b", "wv", "aw", None, 8192, 1024),
+    ("qwen2-vl-72b", "wo", "w", None, 8192, 8192),
+    ("qwen2-vl-72b", "gate", "aw", "silu", 8192, 29568),
+    ("qwen2-vl-72b", "up", "aw", None, 8192, 29568),
+    ("qwen2-vl-72b", "down", "aw", None, 29568, 8192),
+    ("qwen2-vl-72b", "lm_head", "w", None, 8192, 152064),
+    ("qwen1.5-110b", "gate", "aw", "silu", 8192, 49152),
+    ("qwen1.5-110b", "up", "aw", None, 8192, 49152),
+    ("qwen1.5-110b", "down", "aw", None, 49152, 8192),
 )
-# (name, kernel, act on the main path, DAP-pruned input, K, N) of the
+# int8-wire archs whose linears phase 3 times at M = 4 and 64
+INT8_TIMED = {"granite-3-8b": 40, "qwen2-vl-72b": 80}  # arch: layers
+# (arch, name, kernel, act on the main path, DAP-pruned input, K, N) of the
 # packed linears on the native wire: minicpm3-4b's and granite-moe-1b-a400m's
+# (timed), starcoder2-15b's and phi3.5-moe's (its experts stay dense), and
+# qwen2-vl-72b's, whose native wire (79 GB of layers) one card cannot serve
 NATIVE_LINEARS = (
-    ("q_down", "aw", None, True, 2560, 768),
-    ("kv_down", "aw", None, True, 2560, 288),
-    ("q_up", "w", None, True, 768, 3840),
-    ("wo", "w", None, True, 2560, 2560),
-    ("gate", "aw", "silu", True, 2560, 6400),
-    ("up", "aw", None, True, 2560, 6400),
-    ("down", "aw", None, True, 6400, 2560),
-    ("lm_head", "w", None, False, 2560, 73472),
+    ("minicpm3-4b", "q_down", "aw", None, True, 2560, 768),
+    ("minicpm3-4b", "kv_down", "aw", None, True, 2560, 288),
+    ("minicpm3-4b", "q_up", "w", None, True, 768, 3840),
+    ("minicpm3-4b", "wo", "w", None, True, 2560, 2560),
+    ("minicpm3-4b", "gate", "aw", "silu", True, 2560, 6400),
+    ("minicpm3-4b", "up", "aw", None, True, 2560, 6400),
+    ("minicpm3-4b", "down", "aw", None, True, 6400, 2560),
+    ("minicpm3-4b", "lm_head", "w", None, False, 2560, 73472),
+    ("granite-moe-1b-a400m", "wq", "aw", None, True, 1024, 1024),
+    ("granite-moe-1b-a400m", "wk", "aw", None, True, 1024, 512),
+    ("granite-moe-1b-a400m", "wv", "aw", None, True, 1024, 512),
+    ("granite-moe-1b-a400m", "wo", "w", None, True, 1024, 1024),
+    ("granite-moe-1b-a400m", "lm_head", "w", None, False, 1024, 49408),
+    ("starcoder2-15b", "wq", "aw", None, True, 6144, 6144),
+    ("starcoder2-15b", "wk", "aw", None, True, 6144, 512),
+    ("starcoder2-15b", "wv", "aw", None, True, 6144, 512),
+    ("starcoder2-15b", "wo", "w", None, True, 6144, 6144),
+    ("starcoder2-15b", "up", "aw", "gelu", True, 6144, 24576),
+    ("starcoder2-15b", "down", "aw", None, True, 24576, 6144),
+    ("starcoder2-15b", "lm_head", "w", None, False, 6144, 49152),
+    ("phi3.5-moe-42b-a6.6b", "wq", "aw", None, True, 4096, 4096),
+    ("phi3.5-moe-42b-a6.6b", "wk", "aw", None, True, 4096, 1024),
+    ("phi3.5-moe-42b-a6.6b", "wv", "aw", None, True, 4096, 1024),
+    ("phi3.5-moe-42b-a6.6b", "wo", "w", None, True, 4096, 4096),
+    ("phi3.5-moe-42b-a6.6b", "lm_head", "w", None, False, 4096, 32256),
+    ("qwen2-vl-72b", "wq", "aw", None, True, 8192, 8192),
+    ("qwen2-vl-72b", "wk", "aw", None, True, 8192, 1024),
+    ("qwen2-vl-72b", "wv", "aw", None, True, 8192, 1024),
+    ("qwen2-vl-72b", "wo", "w", None, True, 8192, 8192),
+    ("qwen2-vl-72b", "gate", "aw", "silu", True, 8192, 29568),
+    ("qwen2-vl-72b", "up", "aw", None, True, 8192, 29568),
+    ("qwen2-vl-72b", "down", "aw", None, True, 29568, 8192),
+    ("qwen2-vl-72b", "lm_head", "w", None, False, 8192, 152064),
 )
-MOE_NATIVE_LINEARS = (
-    ("wq", "aw", None, True, 1024, 1024),
-    ("wk", "aw", None, True, 1024, 512),
-    ("wv", "aw", None, True, 1024, 512),
-    ("wo", "w", None, True, 1024, 1024),
-    ("lm_head", "w", None, False, 1024, 49408),
-)
+# native-wire archs whose linears phase 3 times at M = 4 and 64 (the record
+# holds minicpm3-4b's pass)
+NATIVE_TIMED = {"minicpm3-4b": 62, "granite-moe-1b-a400m": 24}  # arch: layers
 KERNELS = {
     "dbb_matmul": dict(
         source="src/repro_torch/kernels/csrc/dbb_matmul_native.cu",
@@ -247,23 +315,47 @@ def timer(torch, flush_buf):
     return run
 
 
-def phase_matmuls(torch, run_ms):
+def new_pass():
+    """Per-kernel sums over one mixed-step pass: device ms, plain ms,
+    library ms, bytes and operations."""
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
+
+
+def finish_bound(agg, ops_per_s):
+    """``agg``'s bound: the larger of its bytes over the memory rate and its
+    operations over ``ops_per_s``."""
+    t_bytes = agg["bytes"] / HBM_BYTES_PER_S
+    t_ops = agg["ops"] / ops_per_s
+    agg["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    agg["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return agg
+
+
+def random_bias(torch, gen, arch, name, n):
+    """A random non-zero bf16 bias for the biased Q/K/V linears, else None."""
+    if arch in QKV_BIAS_ARCHS and name in ("wq", "wk", "wv"):
+        return torch.randn((n,), generator=gen, device="cuda").to(torch.bfloat16)
+    return None
+
+
+def phase_matmuls(torch, run_ms, qwen):
     """Kernels #2 and #3 at granite-3-8b's full-width shapes (the record)
-    and, for correctness only, at minicpm3-4b's and granite-moe-1b-a400m's
+    and qwen2-vl-72b's (its pass, into ``qwen``), and, for correctness
+    only, at minicpm3-4b's, granite-moe-1b-a400m's and qwen1.5-110b's
     int8-wire shapes: every call through the int8 tc body, int32
-    accumulators and the act=None f32 output bit for bit against the plain
-    versions at M = 1, 4 and 64, a row's bits the same at every M; granite's
-    timed at M = 4 and 64 beside torch._int_mm on the decoded operands with
-    the weight row-major and column-major (the faster is the library time)."""
+    accumulators and the act=None f32 output (with a random bias on a
+    biased wq, wk, wv) bit for bit against the plain versions at M = 1, 4
+    and 64, a row's bits the same at every M; the timed archs at M = 4 and
+    64 beside torch._int_mm on the decoded operands with the weight
+    row-major and column-major (the faster is the library time)."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = dbb.DBBConfig(4, 8)
-    per_kernel = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-                          bytes=0.0, ops=0.0)
-                  for k in ("dbb_matmul_aw_int8", "dbb_matmul_int8")}
+    per_kernel = {k: new_pass() for k in ("dbb_matmul_aw_int8", "dbb_matmul_int8")}
+    qwen.update({k: new_pass() for k in per_kernel})
     counters = (dbb_matmul.INT8, dbb_matmul.INT8_TC, dbb_matmul.AW_INT8, dbb_matmul.AW_INT8_TC)
     start = [c.launches for c in counters]
     linears = [("granite-3-8b",) + row for row in LINEARS] + list(INT8_OTHER_LINEARS)
@@ -274,15 +366,16 @@ def phase_matmuls(torch, run_ms):
         w_dense = ref.decode_w(wv, wm, cfg)
         w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
         kname = "dbb_matmul_aw_int8" if kind == "aw" else "dbb_matmul_int8"
-        count = 1 if name == "lm_head" else 40  # launches per forward pass
+        bias = random_bias(torch, gen, arch, name, n)
         x = torch.randn((64, k), generator=gen, device="cuda").to(torch.bfloat16)
         if kind == "aw":
             xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
             x_dense = ref.decode_a(xv, xm, cfg)
             kern = lambda m, a, o, acc=None: dbb_matmul.dbb_matmul_aw_int8_cuda(  # noqa: E731
-                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, act=a, out_dtype=o, acc_out=acc)
+                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, bias=bias, act=a, out_dtype=o,
+                acc_out=acc)
             plain = lambda m, a, o: ref.dbb_matmul_aw_int8_ref(  # noqa: E731
-                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, act=a, out_dtype=o)
+                xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: xv[:m].numel() + xm[:m].numel() + 4 * m  # noqa: E731
             tc = dbb_matmul.AW_INT8_TC
         else:
@@ -291,9 +384,9 @@ def phase_matmuls(torch, run_ms):
             xq, xs = ref.quantize_act_int8(x, per_row=True)
             x_dense = xq
             kern = lambda m, a, o, acc=None: dbb_matmul.dbb_matmul_int8_cuda(  # noqa: E731
-                xq[:m], xs[:m], wv, wm, ws, cfg, act=a, out_dtype=o, acc_out=acc)
+                xq[:m], xs[:m], wv, wm, ws, cfg, bias=bias, act=a, out_dtype=o, acc_out=acc)
             plain = lambda m, a, o: ref.dbb_matmul_int8_ref(  # noqa: E731
-                xq[:m], xs[:m], wv, wm, ws, cfg, act=a, out_dtype=o)
+                xq[:m], xs[:m], wv, wm, ws, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: xq[:m].numel() + 4 * m  # noqa: E731
             tc = dbb_matmul.INT8_TC
         # exact: int32 accumulators and the act=None f32 output; a row's bits
@@ -312,12 +405,14 @@ def phase_matmuls(torch, run_ms):
               f"{arch} {name}: a row's output differs between M=1, 4 and 64")
         bm, kb_per_split, n_split = dbb_matmul.int8_plan(64, k, n)
         path = f"path: tc body, {n_split} splits of {kb_per_split} 8-blocks at M=64"
-        if arch != "granite-3-8b":
+        with_bias = "" if bias is None else " with a random bias"
+        if arch not in INT8_TIMED:
             say(f"kernel {kname} {arch} {name} K={k} N={n} ({path}): int32 accumulators and "
-                f"act=None f32 output bit-exact at M=1, 4 and 64, rows bitwise equal")
+                f"act=None f32 output{with_bias} bit-exact at M=1, 4 and 64, rows bitwise equal")
             del wv, wm, ws, w_dense, x_dense, y
             torch.cuda.empty_cache()
             continue
+        count = 1 if name == "lm_head" else INT8_TIMED[arch]  # launches per forward pass
         w_cm = w_dense.t().contiguous().t()  # the column-major ("TN") weight for _int_mm
         for m in (4, 64):
             # silu and bf16: the f32 silu within 1e-6; bf16 within one bf16 ulp
@@ -326,12 +421,12 @@ def phase_matmuls(torch, run_ms):
             ys_ref = plain(m, "silu", torch.float32)
             err32 = (ys - ys_ref).abs()
             check(bool((err32 <= 1e-6 + 1e-6 * ys_ref.abs()).all()),
-                  f"{name} M={m}: silu f32 off by {err32.max().item():.3g}")
+                  f"{arch} {name} M={m}: silu f32 off by {err32.max().item():.3g}")
             yb = kern(m, "silu", torch.bfloat16).float()
             yb_ref = plain(m, "silu", torch.bfloat16).float()
             errb = (yb - yb_ref).abs()
             check(bool((errb <= 2.0 ** -7 * yb_ref.abs() + 1e-6).all()),
-                  f"{name} M={m}: silu bf16 off by {errb.max().item():.3g}")
+                  f"{arch} {name} M={m}: silu bf16 off by {errb.max().item():.3g}")
             err = max(err32.max().item(), errb.max().item())
             # times at the main path's call: bf16 out, its own activation
             t_k = run_ms(lambda: kern(m, act, torch.bfloat16), iters=10)
@@ -342,25 +437,28 @@ def phase_matmuls(torch, run_ms):
                 t_cm = run_ms(lambda: torch._int_mm(x_dense[:m], w_cm), iters=10)
                 t_lib = min(t_rm, t_cm)
             nbytes = x_bytes(m) + wv.numel() + wm.numel() + 4 * n + 2 * m * n
+            if bias is not None:
+                nbytes += 2 * n
             x_nz = (x_dense[:m] != 0).sum(dim=0).double()
             nops = 2.0 * float((x_nz * w_nz).sum())  # non-zero products only
             bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT8_OPS_PER_S else "operations"
             lib = ("n/a" if t_lib is None else
                    f"{t_lib:.4f} (_int_mm, weight row-major {t_rm:.4f}, column-major {t_cm:.4f})")
-            say(f"kernel {kname} {name} M={m} K={k} N={n} ({path}): kernel_ms {t_k:.4f} "
-                f"plain_ms {t_p:.3f} library_ms {lib} bound_ms {bound:.4f} ({by}) "
+            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n}{with_bias} ({path}): kernel_ms "
+                f"{t_k:.4f} plain_ms {t_p:.3f} library_ms {lib} bound_ms {bound:.4f} ({by}) "
                 f"max_abs_err {err:.3g}")
-            agg = per_kernel[kname]
+            # one mixed-step forward pass: the record (granite) or qwen2-vl's line
+            agg = (per_kernel if arch == "granite-3-8b" else qwen)[kname]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            if m == 64:  # the JSON record: one mixed-step forward pass
+            if m == 64:
                 agg["ms"] += count * t_k
                 agg["plain_ms"] += count * t_p
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
-        say(f"kernel {kname} {name}: int32 accumulators and act=None f32 output bit-exact at "
-            f"M=1, 4 and 64, rows bitwise equal")
+        say(f"kernel {kname} {arch} {name}: int32 accumulators and act=None f32 output"
+            f"{with_bias} bit-exact at M=1, 4 and 64, rows bitwise equal")
         del wv, wm, ws, w_dense, w_cm, x_dense, y
         torch.cuda.empty_cache()
     # every #2 / #3 call of the phase ran the tc body
@@ -368,11 +466,9 @@ def phase_matmuls(torch, run_ms):
     check(n_int8 == n_int8_tc and n_aw == n_aw_tc,
           f"int8 matmuls: {n_int8_tc} of {n_int8} #2 and {n_aw_tc} of {n_aw} #3 launches on "
           f"the tc body")
-    for agg in per_kernel.values():
-        t_bytes = agg["bytes"] / HBM_BYTES_PER_S
-        t_ops = agg["ops"] / INT8_OPS_PER_S
-        agg["bound_ms"] = max(t_bytes, t_ops) * 1e3
-        agg["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for name in per_kernel:
+        finish_bound(per_kernel[name], INT8_OPS_PER_S)
+        finish_bound(qwen[name], INT8_OPS_PER_S)
     return per_kernel
 
 
@@ -388,25 +484,39 @@ def mixed_q_pos(torch, lengths, s):
     return q_pos
 
 
-def phase_attention(torch, run_ms):
-    """Kernel #6's GQA mode at the main paths' shapes: granite-3-8b (32
-    heads over 8 KV heads of 128, int8 KV) and granite-moe-1b-a400m (16
-    over 8 of 64, native bf16 KV), S=1 and S=16, held against its plain
-    version and timed beside SDPA on the gathered window; at S=16 also
-    on a main-path mixed step, where padding rows have no valid key.  bf16
-    calls must run the tensor-core kernel; f32 calls (the scalar kernel)
-    are held too, and both on rows with no valid key."""
+# #6-GQA cases of phase 3: (path, query heads per KV head, KV heads, head
+# dim, KV dtype, layers, window, pages a table, tokens cached per request,
+# query lengths); starcoder2's table holds more than its 4096-token window
+ATTN_CASES = (
+    ("granite-3-8b", 4, 8, 128, "int8", 40, None, 64, (1000, 517, 64, 250), (1, 16)),
+    ("granite-moe-1b-a400m", 2, 8, 64, "native", 24, None, 64, (1000, 517, 64, 250), (1, 16)),
+    ("qwen2-vl-72b", 8, 8, 128, "int8", 80, None, 64, (1000, 517, 64, 250), (1, 16)),
+    ("starcoder2-15b", 12, 4, 128, "native", 40, 4096, 320, (5000, 4517, 64, 250),
+     (1, 16, 20)),
+)
+
+
+def phase_attention(torch, run_ms, qwen):
+    """Kernel #6's GQA mode at the main paths' shapes (``ATTN_CASES``):
+    granite-3-8b (32 heads over 8 KV heads of 128, int8 KV),
+    granite-moe-1b-a400m (16 over 8 of 64, native bf16 KV), qwen2-vl-72b
+    (64 over 8 of 128, int8 KV) and starcoder2-15b (48 over 4 of 128: 12
+    a KV head, native KV, its 4096-token window over tables of 5120
+    slots), decode and chunks of 16 (starcoder2 also 20) rows, held
+    against its plain version and timed beside SDPA on the gathered
+    window; the chunks also on a main-path mixed step, where padding rows
+    have no valid key.  bf16 calls must run the tensor-core kernel; f32
+    calls (the scalar kernel) are held too, and both on rows with no
+    valid key.  The record holds granite's mixed pass, ``qwen`` qwen2-vl's."""
     from repro_torch.core import quant
     from repro_torch.kernels import paged_attn, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    b, kv, ps, p_cnt = 4, 8, 16, 64
-    n_pages = b * p_cnt + 1
-    lengths = (1000, 517, 64, 250)  # tokens cached per request
-    stats = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
-    # (path, query heads per KV head, head dim, KV dtype, layers)
-    for arch, g, d, kv_dtype, n_layers in (("granite-3-8b", 4, 128, "int8", 40),
-                                           ("granite-moe-1b-a400m", 2, 64, "native", 24)):
+    b, ps = 4, 16
+    stats = new_pass()
+    qwen["paged_attn"] = new_pass()
+    for arch, g, kv, d, kv_dtype, n_layers, window, p_cnt, lengths, sizes in ATTN_CASES:
+        n_pages = b * p_cnt + 1
         kvd = kv * d
         k_f = torch.randn((n_pages, ps, kvd), generator=gen, device="cuda")
         v_f = torch.randn((n_pages, ps, kvd), generator=gen, device="cuda")
@@ -429,8 +539,7 @@ def phase_attention(torch, run_ms):
             for j, page in enumerate(pages[:-1].tolist()):
                 pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
                 pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
-        valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
-        kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s)
+        kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s, window=window)
         # library yardstick: SDPA over the gathered (dequantized) window;
         # the gather is set-up, outside the timed call
         if kv_dtype == "int8":
@@ -441,27 +550,30 @@ def phase_attention(torch, run_ms):
         kk = kk.reshape(b, p_cnt * ps, kv, d).transpose(1, 2)
         vv = vv.reshape(b, p_cnt * ps, kv, d).transpose(1, 2)
         kpos = pos_tbl[tables.long()].reshape(b, 1, 1, p_cnt * ps)
-        for s, pattern in ((1, "decode"), (16, "chunks"), (16, "mixed")):
+        patterns = [(s, pat) for s in sizes for pat in (("decode",) if s == 1
+                                                         else ("chunks", "mixed"))]
+        for s, pattern in patterns:
             q = torch.randn((b, s, kv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
             if pattern == "mixed":
                 q_pos = mixed_q_pos(torch, lengths, s)
             else:
                 q_pos = torch.stack(
                     [torch.arange(t - s, t, device="cuda") for t in lengths]).to(torch.int32)
+            where = f"paged_attn {arch} S={s} {pattern}"
             tc_before = paged_attn.PAGED_ATTN_TC.launches
             out = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
             check(paged_attn.PAGED_ATTN_TC.launches == tc_before + 1,
-                  f"paged_attn {arch} S={s} {pattern} bf16: not the tensor-core kernel")
+                  f"{where} bf16: not the tensor-core kernel")
             want = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw)
             # bf16: the sums run in another order, which can straddle a bf16
             # rounding of a probability or of the output: two bf16 ulps at 1
             err = (out.float() - want.float()).abs().max().item()
-            check(err <= 1.6e-2, f"paged_attn {arch} S={s} {pattern} bf16: max error {err:.3g}")
+            check(err <= 1.6e-2, f"{where} bf16: max error {err:.3g}")
             out32 = paged_attn.paged_attn_cuda(q.float(), k32, v32, pos_tbl, tables, q_pos, **kw)
             want32 = ref.paged_attn_ref(q.float(), k32, v32, pos_tbl, tables, q_pos, **kw)
             err32 = (out32 - want32).abs().max().item()
             check(err32 <= 1e-5 + 1e-5 * want32.abs().max().item(),
-                  f"paged_attn {arch} S={s} {pattern} f32: max error {err32:.3g}")
+                  f"{where} f32: max error {err32:.3g}")
             # rows with no valid key (a padding tail, an idle row over the
             # null page) take the uniform mean over their table, as the plain
             # version
@@ -472,55 +584,54 @@ def phase_attention(torch, run_ms):
             want32 = ref.paged_attn_ref(q.float(), k32, v32, pos_tbl, t_pad, q_pad, **kw)
             err_pad = (out32 - want32).abs().max().item()
             check(err_pad <= 1e-5 + 1e-5 * want32.abs().max().item(),
-                  f"paged_attn {arch} S={s} {pattern} f32 with keyless rows: max error "
-                  f"{err_pad:.3g}")
+                  f"{where} f32 with keyless rows: max error {err_pad:.3g}")
             # the same keyless rows in bf16, through the tensor-core kernel
             out16 = paged_attn.paged_attn_cuda(q, k_p, v_p, pos_tbl, t_pad, q_pad, **kw)
             want16 = ref.paged_attn_ref(q, k_p, v_p, pos_tbl, t_pad, q_pad, **kw)
             err_pad16 = (out16.float() - want16.float()).abs().max().item()
-            check(err_pad16 <= 1.6e-2,
-                  f"paged_attn {arch} S={s} {pattern} bf16 with keyless rows: max error "
+            check(err_pad16 <= 1.6e-2, f"{where} bf16 with keyless rows: max error "
                   f"{err_pad16:.3g}")
             t_k = run_ms(lambda: paged_attn.paged_attn_cuda(
                 q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 20)
             t_p = run_ms(lambda: ref.paged_attn_ref(q, k_p, v_p, pos_tbl, tables, q_pos, **kw), 2)
             qp = q_pos.reshape(b, 1, s, 1)
             mask = (kpos >= 0) & (kpos <= qp)
+            if window is not None:
+                mask &= kpos > qp - window
             qq = q.transpose(1, 2)
             t_lib = run_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask, enable_gqa=True), 20)
-            n_valid_pages = int(valid_pages.sum())
-            # k, v rows (+ their scales), slot positions of the pages with data
+            # the pages this data attends: those with a key some row sees
+            n_pages_read = int(mask.reshape(b, s, p_cnt, ps).any(dim=3).any(dim=1).sum())
+            # k, v rows (+ their scales), slot positions of those pages
             page_bytes = 2 * ps * kvd * k_p.element_size() + 4 * ps
             if kv_dtype == "int8":
                 page_bytes += 2 * 4 * ps
-            nbytes = (2 * q.numel() * 2 + n_valid_pages * page_bytes + tables.numel() * 4
+            nbytes = (2 * q.numel() * 2 + n_pages_read * page_bytes + tables.numel() * 4
                       + q_pos.numel() * 4)
             n_pairs = int(mask.sum())  # (query token, key) pairs this data attends
             nops = 4.0 * kv * g * d * n_pairs  # QK^T and PV
             bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations"
             say(f"kernel paged_attn {arch} B={b} S={s} {pattern} H={kv * g} KV={kv} D={d} "
-                f"P={p_cnt} PS={ps} {kv_dtype}-KV bf16 (path: tensor cores, "
+                f"P={p_cnt} PS={ps} window={window} {kv_dtype}-KV bf16 (path: tensor cores, "
                 f"{paged_attn.PAGES_PER_SPLIT} pages per split): kernel_ms {t_k:.4f} "
                 f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} bound_ms {bound:.4f} ({by}) "
                 f"max_abs_err {err:.3g} (keyless rows {err_pad16:.3g}; f32 path: scalar, "
                 f"{err32:.3g}, keyless rows {err_pad:.3g})")
             stats["max_abs_err"] = max(stats["max_abs_err"], err, err_pad16)
-            if arch == "granite-3-8b" and pattern == "mixed":
-                # the JSON record: one mixed-step forward pass (40 layers)
-                stats.update(ms=n_layers * t_k, plain_ms=n_layers * t_p,
-                             library_ms=n_layers * t_lib, bytes=n_layers * nbytes,
-                             ops=n_layers * nops)
+            if arch in ("granite-3-8b", "qwen2-vl-72b") and (s, pattern) == (16, "mixed"):
+                # one mixed-step forward pass: the record (granite) or qwen2-vl's line
+                agg = stats if arch == "granite-3-8b" else qwen["paged_attn"]
+                agg.update(ms=n_layers * t_k, plain_ms=n_layers * t_p,
+                           library_ms=n_layers * t_lib, bytes=n_layers * nbytes,
+                           ops=n_layers * nops)
         del k_p, v_p, k32, v32, kk, vv
         torch.cuda.empty_cache()
     stats["max_abs_err"] = max(stats["max_abs_err"], small_page_gqa(torch, gen),
                                large_page_attention(torch, gen, latent=False))
-    t_bytes = stats["bytes"] / HBM_BYTES_PER_S
-    t_ops = stats["ops"] / BF16_OPS_PER_S
-    stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    stats["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return stats
+    finish_bound(qwen["paged_attn"], BF16_OPS_PER_S)
+    return finish_bound(stats, BF16_OPS_PER_S)
 
 
 def small_page_gqa(torch, gen):
@@ -643,12 +754,14 @@ def large_page_attention(torch, gen, latent):
 
 
 def phase_native_matmuls(torch, run_ms):
-    """Kernels #1 and #4 at minicpm3-4b's and granite-moe-1b-a400m's
-    full-width shapes, bf16 operands: every call through the tc body, held
-    against their plain versions (float64 products, rounded once) within
-    1e-5 of the largest output in f32, a row's bits checked equal at M=1,
-    4 and 64, and timed at M=4 and 64.  The record holds minicpm3-4b's
-    pass."""
+    """Kernels #1 and #4 at every full-width native-wire shape
+    (``NATIVE_LINEARS``: minicpm3-4b, granite-moe-1b-a400m, starcoder2-15b
+    with its gelu ``up``, phi3.5-moe and qwen2-vl-72b), bf16 operands, a
+    random bias on a biased wq, wk, wv: every call through the tc body,
+    held against their plain versions (float64 products, rounded once)
+    within 1e-5 of the largest output in f32, a row's bits checked equal
+    at M=1, 4 and 64; minicpm3-4b's and granite-moe-1b-a400m's timed at
+    M=4 and 64.  The record holds minicpm3-4b's pass."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -656,18 +769,15 @@ def phase_native_matmuls(torch, run_ms):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     cfg = dbb.DBBConfig(4, 8)
     bf16 = torch.bfloat16
-    per_kernel = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0,
-                          ops=0.0) for k in ("dbb_matmul_aw", "dbb_matmul")}
-    linears = [("minicpm3-4b", 62) + row for row in NATIVE_LINEARS]
-    linears += [("granite-moe-1b-a400m", 24) + row for row in MOE_NATIVE_LINEARS]
-    for arch, n_layers, name, kind, act, dap, k, n in linears:
+    per_kernel = {k: new_pass() for k in ("dbb_matmul_aw", "dbb_matmul")}
+    for arch, name, kind, act, dap, k, n in NATIVE_LINEARS:
         w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
         wv, wm = ops.pack_weight(w, cfg)
         del w
         w_dense = ref.decode_w(wv, wm, cfg)
         w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
         kname = "dbb_matmul_aw" if kind == "aw" else "dbb_matmul"
-        count = 1 if name == "lm_head" else n_layers  # launches per forward pass
+        bias = random_bias(torch, gen, arch, name, n)
         x = torch.randn((64, k), generator=gen, device="cuda").to(bf16)
         if dap:
             x = apply_dap(x, DAPSpec(4, 8))
@@ -675,16 +785,16 @@ def phase_native_matmuls(torch, run_ms):
             xv, xm = ops.dap_pack(x, 4, 8)
             x_dense = ref.decode_a(xv, xm, cfg)
             kern = lambda m, a, o: dbb_matmul.dbb_matmul_aw_cuda(  # noqa: E731
-                xv[:m], xm[:m], wv, wm, cfg, cfg, act=a, out_dtype=o)
+                xv[:m], xm[:m], wv, wm, cfg, cfg, bias=bias, act=a, out_dtype=o)
             plain = lambda m, a, o: ref.dbb_matmul_aw_ref(  # noqa: E731
-                xv[:m], xm[:m], wv, wm, cfg, cfg, act=a, out_dtype=o)
+                xv[:m], xm[:m], wv, wm, cfg, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: 2 * xv[:m].numel() + xm[:m].numel()  # noqa: E731
         else:
             x_dense = x
             kern = lambda m, a, o: dbb_matmul.dbb_matmul_cuda(  # noqa: E731
-                x[:m], wv, wm, cfg, act=a, out_dtype=o)
+                x[:m], wv, wm, cfg, bias=bias, act=a, out_dtype=o)
             plain = lambda m, a, o: ref.dbb_matmul_ref(  # noqa: E731
-                x[:m], wv, wm, cfg, act=a, out_dtype=o)
+                x[:m], wv, wm, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: 2 * m * k  # noqa: E731
         # a row's bits do not depend on M; every call runs the tc body
         tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
@@ -693,6 +803,10 @@ def phase_native_matmuls(torch, run_ms):
         check(tc.launches == tc_before + 3, f"{arch} {name}: not the tc body")
         check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
               f"{arch} {name}: a row's output differs between M=1, 4 and 64")
+        bn, kb_per_split, n_split = dbb_matmul.native_plan(k, n)
+        path = f"path: tc body, BN {bn}, {n_split} splits of {kb_per_split} 8-blocks"
+        served = f" act={act}" + ("" if bias is None else " with a random bias")
+        errs = []
         for m in (4, 64):
             # f32 output within 1e-5 of the largest output; bf16 within that
             # plus one bf16 ulp of the larger of the two outputs (an f32
@@ -709,6 +823,10 @@ def phase_native_matmuls(torch, run_ms):
             check(bool((errb <= ulp + tol32).all()),
                   f"{arch} {name} M={m}: bf16 output off by {errb.max().item():.3g}")
             err = max(err32, errb.max().item())
+            errs.append(err)
+            if arch not in NATIVE_TIMED:
+                continue
+            count = 1 if name == "lm_head" else NATIVE_TIMED[arch]  # launches per pass
             t_k = run_ms(lambda: kern(m, act, bf16), iters=10)
             t_p = run_ms(lambda: plain(m, act, bf16), iters=2)
             t_lib = run_ms(lambda: torch.matmul(x_dense[:m], w_dense), iters=10)
@@ -718,27 +836,24 @@ def phase_native_matmuls(torch, run_ms):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
-            bn, kb_per_split, n_split = dbb_matmul.native_plan(k, n)
-            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16 (path: tc body, BN {bn}, "
-                f"{n_split} splits of {kb_per_split} 8-blocks): kernel_ms {t_k:.4f} "
-                f"plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms {bound:.4f} "
-                f"({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
-            agg = per_kernel[kname]
-            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16 ({path}): kernel_ms "
+                f"{t_k:.4f} plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms "
+                f"{bound:.4f} ({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
             if m == 64 and arch == "minicpm3-4b":  # the JSON record: one mixed-step pass
+                agg = per_kernel[kname]
                 agg["ms"] += count * t_k
                 agg["plain_ms"] += count * t_p
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
-        say(f"kernel {kname} {arch} {name}: rows bitwise equal at M=1, 4 and 64")
+        per_kernel[kname]["max_abs_err"] = max(per_kernel[kname]["max_abs_err"], *errs)
+        say(f"kernel {kname} {arch} {name} K={k} N={n} bf16{served} ({path}): within "
+            f"tolerance at M=4 and 64 (max_abs_err {max(errs):.3g}), rows bitwise equal at "
+            f"M=1, 4 and 64")
         del wv, wm, w_dense, x_dense, y
         torch.cuda.empty_cache()
     for agg in per_kernel.values():
-        t_bytes = agg["bytes"] / HBM_BYTES_PER_S
-        t_ops = agg["ops"] / BF16_OPS_PER_S
-        agg["bound_ms"] = max(t_bytes, t_ops) * 1e3
-        agg["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        finish_bound(agg, BF16_OPS_PER_S)
     return per_kernel
 
 
@@ -777,7 +892,7 @@ def phase_latent_attention(torch, run_ms):
             pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
     valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
     n_valid = int(valid_pages.sum())
-    stats = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, bytes=0.0, ops=0.0)
+    stats = new_pass()
     for kv_name, pages, k_scale in (("native", lat, None), ("int8", lat_q, lat_s)):
         kw = dict(kv_heads=1, softmax_scale=scale, k_scale=k_scale, latent_dv=dv)
         pages32 = pages if k_scale is not None else pages.float()
@@ -856,11 +971,7 @@ def phase_latent_attention(torch, run_ms):
                              bytes=62 * nbytes, ops=62 * nops)
         del win, kk, vv
     stats["max_abs_err"] = max(stats["max_abs_err"], large_page_attention(torch, gen, latent=True))
-    t_bytes = stats["bytes"] / HBM_BYTES_PER_S
-    t_ops = stats["ops"] / BF16_OPS_PER_S
-    stats["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    stats["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return stats
+    return finish_bound(stats, BF16_OPS_PER_S)
 
 
 def dap_inputs(torch, gen, m, k, dtype):
@@ -878,29 +989,35 @@ def dap_inputs(torch, gen, m, k, dtype):
     return x.to(dtype)
 
 
-def phase_dap_prune(torch, run_ms):
+def phase_dap_prune(torch, run_ms, qwen):
     """Kernel #5's four forms (dense, pack, dense_int8, pack_int8) bit for
     bit against their plain versions at every width each serves on the
-    main paths, bf16 and f32, M = 1, 4 and 64 (a row's bits the same at
-    every M), with a NaN block, +-inf, ties and -0.0 planted; timed in
+    main paths (``DAP_WIDTHS``), bf16 and f32, M = 1, 4 and 64 (a row's
+    bits the same at every M; the per-row forms at K 29568 and 49152 also
+    at M = 512), with a NaN block, +-inf, ties and -0.0 planted; timed in
     bf16 at M = 4 and 64 beside the plain version and the bytes bound (no
     library call computes DAP: ``torch.topk`` breaks ties in no fixed
     order).  dense_int8 is also timed beside the chain it replaces on
-    granite's wo (#5's dense form, then the plain per-row quantize)."""
+    granite's wo (#5's dense form, then the plain per-row quantize).  The
+    record holds one form's pass (``DAP_RECORD``), ``qwen`` qwen2-vl-72b's
+    int8 forms' pass."""
     from repro_torch.kernels import dap_prune, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
-    stats = {name: dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, bytes=0.0)
-             for name in DAP_FORMS}
+    stats = {name: dict(new_pass(), library_ms=None) for name in DAP_FORMS}
+    qwen.update({name: dict(new_pass(), library_ms=None) for name in QWEN2_VL_DAP})
     for k, what, served in DAP_WIDTHS:
         for name in served:
             kern, plain = getattr(dap_prune, DAP_FORMS[name][0]), getattr(ref, DAP_FORMS[name][1])
+            rows = (1, 4, 64)
+            if k in DAP_LONG_ROWS and name in ("dap_prune_int8", "dap_pack_int8"):
+                rows += (512,)
             for dtype in (torch.bfloat16, torch.float32):
-                x = dap_inputs(torch, gen, 64, k, dtype)
+                x = dap_inputs(torch, gen, rows[-1], k, dtype)
                 full = kern(x, 4)
                 err = 0.0  # over the finite entries of every output (codes and scales too)
-                for m in (1, 4, 64):
+                for m in rows:
                     got, want = kern(x[:m], 4), plain(x[:m], 4)
                     for i, (g, w) in enumerate(zip(got, want)):
                         v = view.get(g.dtype, g.dtype)
@@ -930,19 +1047,22 @@ def phase_dap_prune(torch, run_ms):
                     nbytes = xm.numel() * xm.element_size() + sum(
                         t.numel() * t.element_size() for t in out)
                     bound = nbytes / HBM_BYTES_PER_S * 1e3
+                    held = ", ".join(str(r) for r in rows)
                     say(f"kernel {name} M={m} K={k} ({what}) bf16: kernel_ms {t_k:.4f} "
                         f"plain_ms {t_p:.3f}{chain} library_ms none bound_ms {bound:.5f} (bytes) "
-                        f"bit-exact (bf16, f32 at M=1, 4, 64), max_abs_err {err:.3g} over the "
+                        f"bit-exact (bf16, f32 at M={held}), max_abs_err {err:.3g} over the "
                         f"finite entries")
-                    _, per_pass = DAP_RECORD[name]
-                    if m == 64 and k in per_pass:  # the JSON record: one mixed-step pass
-                        st = stats[name]
-                        st["ms"] += per_pass[k] * t_k
-                        st["plain_ms"] += per_pass[k] * t_p
-                        st["bytes"] += per_pass[k] * nbytes
-    for st in stats.values():
-        st["bound_ms"] = st["bytes"] / HBM_BYTES_PER_S * 1e3
-        st["bound_by"] = "bytes"
+                    if m != 64:
+                        continue
+                    # one mixed-step pass: the record's arch, and qwen2-vl's line
+                    for st, per_pass in ((stats[name], DAP_RECORD[name][1]),
+                                         (qwen.get(name), QWEN2_VL_DAP.get(name, {}))):
+                        if k in per_pass:
+                            st["ms"] += per_pass[k] * t_k
+                            st["plain_ms"] += per_pass[k] * t_p
+                            st["bytes"] += per_pass[k] * nbytes
+    for st in list(stats.values()) + list(qwen[name] for name in QWEN2_VL_DAP):
+        finish_bound(st, BF16_OPS_PER_S)
     return stats
 
 
@@ -953,16 +1073,18 @@ def expected_launches(cfg, wire):
     launch), the MoE FFN its input before the router (dense form), and
     every packed input is DAP-packed once for the linears that share it
     (#5's packed form of the wire): the attention input and, but under
-    MoE, the MLP's input and hidden state."""
+    MoE, the MLP's input and hidden state.  A swiglu MLP packs gate, up
+    and down, a gelu one up and down."""
     n_l = cfg.n_layers
     moe_dap = 0
-    if cfg.mla is not None:  # q_down, kv_down, gate, up, down packed; q_up, wo dense
-        packed, dense, attn, packs = 5 * n_l, 2 * n_l, ("paged_attn_latent", n_l), 3 * n_l
+    mlp = 3 if cfg.mlp_act == "swiglu" else 2  # packed linears of a dense MLP
+    if cfg.mla is not None:  # q_down, kv_down and the MLP packed; q_up, wo dense
+        packed, dense, attn, packs = (2 + mlp) * n_l, 2 * n_l, ("paged_attn_latent", n_l), 3 * n_l
     elif cfg.moe is not None:  # wq, wk, wv packed; wo dense; dense experts
         packed, dense, attn, packs = 3 * n_l, n_l, ("paged_attn", n_l), n_l
         moe_dap = n_l
-    else:  # wq, wk, wv, gate, up, down packed; wo dense
-        packed, dense, attn, packs = 6 * n_l, n_l, ("paged_attn", n_l), 3 * n_l
+    else:  # wq, wk, wv and the MLP packed; wo dense
+        packed, dense, attn, packs = (3 + mlp) * n_l, n_l, ("paged_attn", n_l), 3 * n_l
     int8 = wire == "int8"
     names = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if int8
              else ("dbb_matmul_aw", "dbb_matmul"))
@@ -972,9 +1094,12 @@ def expected_launches(cfg, wire):
             "dap_pack_int8" if int8 else "dap_pack": packs}
 
 
-def phase_main_path(torch, np, arch, wire, kv_dtype):
-    """One main path: a full-width engine serves 8 requests; the launch
-    counters are set to 0 just before and read just after."""
+def phase_main_path(torch, np, arch, wire, kv_dtype, n_layers=None):
+    """One main path: a full-width engine (``n_layers`` of the config's
+    layers, or all) serves 8 requests; the launch counters are set to 0
+    just before and read just after."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.kernels import dbb_matmul, ops, paged_attn
     from repro_torch.models import lm
@@ -983,7 +1108,12 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
 
     serve = dict(SERVE_SHAPE, wire_dtype=wire, kv_dtype=kv_dtype)
     cfg = configs.get_config(arch)
+    depth = f"{cfg.n_layers} layers"
+    if n_layers is not None and n_layers != cfg.n_layers:
+        depth = f"{n_layers} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, "cuda", wire_dtype=wire)
     torch.cuda.synchronize()
@@ -996,9 +1126,10 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
         return tree.numel() * tree.element_size()
 
     say(f"main path {arch}: init_params {time.perf_counter() - t0:.1f} s, "
-        f"{cfg.n_layers} layers, {wire} DBB wire, {kv_dtype} KV, layer and head weights "
+        f"{depth}, {wire} DBB wire, {kv_dtype} KV, layer and head weights "
         f"{nbytes(params['layers']) + nbytes(params['lm_head'])} B, embedding "
-        f"{nbytes(params['embed'])} B (bf16)")
+        f"{nbytes(params['embed'])} B (bf16), peak memory after init "
+        f"{torch.cuda.max_memory_allocated()} B")
     eng = Engine(params, cfg, ServeConfig(**serve), device="cuda")
 
     rng = np.random.default_rng(SEED)
@@ -1072,7 +1203,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype):
     tok_s = N_REQUESTS * N_NEW / wall
     say(f"main path {arch}: TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
         f"{ttft[-1] * 1e3:.1f} ms (from enqueue; arrivals staggered), decode+prefill "
-        f"throughput {tok_s:.2f} generated tokens/s, peak memory "
+        f"throughput {tok_s:.2f} generated tokens/s, peak memory serving "
         f"{torch.cuda.max_memory_allocated()} B")
 
     k = int(np.argmax(lens))
@@ -1168,6 +1299,20 @@ def phase_smoke_latent_engine(torch, np):
     torch.cuda.empty_cache()
 
 
+def say_pass(arch, n_layers, per_kernel):
+    """One line: ``arch``'s kernels summed over a mixed-step pass."""
+    lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
+           "paged_attn": "SDPA"}
+    parts = []
+    for name, st in per_kernel.items():
+        yard = ("none" if st["library_ms"] is None
+                else f"{st['library_ms']:.4f} ({lib[name]})")
+        parts.append(f"{name} kernel_ms {st['ms']:.4f} bound_ms {st['bound_ms']:.4f} "
+                     f"({st['bound_by']}) library_ms {yard} plain_ms {st['plain_ms']:.3f}")
+    say(f"pass {arch} (one mixed step, M=64 rows, S=16, {n_layers} layers): "
+        + "; ".join(parts))
+
+
 def main():
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -1194,17 +1339,19 @@ def main():
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     run_ms = timer(torch, flush)
-    stats = phase_matmuls(torch, run_ms)
-    stats["paged_attn"] = phase_attention(torch, run_ms)
+    qwen = {}  # qwen2-vl-72b's pass, per kernel
+    stats = phase_matmuls(torch, run_ms, qwen)
+    stats["paged_attn"] = phase_attention(torch, run_ms, qwen)
     stats.update(phase_native_matmuls(torch, run_ms))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
-    stats.update(phase_dap_prune(torch, run_ms))
+    stats.update(phase_dap_prune(torch, run_ms, qwen))
+    say_pass("qwen2-vl-72b", 80, qwen)
     phase_smoke_latent_engine(torch, np)
     del flush
     torch.cuda.empty_cache()
     launches = {}
-    for arch, wire, kv_dtype in PATHS:
-        counts = phase_main_path(torch, np, arch, wire, kv_dtype)
+    for arch, wire, kv_dtype, n_layers in PATHS:
+        counts = phase_main_path(torch, np, arch, wire, kv_dtype, n_layers)
         for name, (n, _) in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -1,14 +1,14 @@
 """Model configuration (port of ``repro.configs.base``).
 
-Only the fields a served decoder (dense GQA, MLA or MoE) reads are
-carried; each has the reference's name, default and meaning, and a test
-holds them equal field for field.
+Only the fields a served decoder (dense GQA, MLA, MoE or the VLM
+backbone) reads are carried; each has the reference's name, default and
+meaning, and a test holds them equal field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.sparsity import DENSE, SparsityConfig
 
@@ -35,7 +35,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"  # dense | moe are ported
+    family: str = "dense"  # dense | moe | vlm are ported
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -51,6 +51,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    m_rope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl
     sparsity: SparsityConfig = DENSE
     # MoE dispatch groups: routing and capacity are local to each group
     # of tokens (see models/moe.py)

@@ -61,22 +61,27 @@ def row_plan(m: int, k: int):
     ``m`` rows of ``k`` features: ``cluster`` blocks a row (one
     thread-block cluster), each taking ``per_block`` of the row's ``k //
     8`` 8-blocks with ``threads`` threads of up to ``per`` (1, 2, 4 or 8)
-    8-blocks each.  The rule: as many blocks a row as the SMs hold for
-    ``m`` rows, a power of 2 up to 8, none with fewer than 32 8-blocks
-    (one a thread of a warp).  A row's bits do not depend on the plan (its
-    amax is an integer max), so it may depend on M."""
+    8-blocks each.  The rule: at least the blocks that hold the row (a
+    block takes at most ``ROW_MAX_THREADS`` x 8 8-blocks), then as many as
+    the SMs hold for ``m`` rows, a power of 2 up to 8, none with fewer
+    than 32 8-blocks (one a thread of a warp).  A row's bits do not
+    depend on the plan (its amax is an integer max), so it may depend on
+    M."""
     nb = k // 8
     cluster = 1
+    while cluster < MAX_CLUSTER and -(-nb // cluster) > ROW_MAX_THREADS * 8:
+        cluster *= 2
     while cluster < MAX_CLUSTER and 2 * cluster * m <= SMS and nb >= 64 * cluster:
         cluster *= 2
-    per_block = -(-nb // cluster)  # >= 64: no block is left without an 8-block
+    per_block = -(-nb // cluster)
     per = 1
     while per < 8 and -(-per_block // per) > ROW_MAX_THREADS:
         per *= 2
     threads = 32 * -(-per_block // (32 * per))
     if threads > ROW_MAX_THREADS:
         raise ValueError(
-            f"K={k}: {per_block} 8-blocks a block exceed {ROW_MAX_THREADS} threads x 8"
+            f"K={k}: {per_block} 8-blocks a block exceed {ROW_MAX_THREADS} threads x 8 "
+            f"in a cluster of {MAX_CLUSTER}"
         )
     return cluster, threads, per, per_block
 

@@ -205,6 +205,23 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     return epilogue.apply_act(y, act)
 
 
+# weight elements packed at a time: the plain packers' temporaries (int64
+# sort keys and indices among them) take about 30 bytes an element, 9.3 GB
+# for qwen2-vl-72b's 8192 x 152064 head in one piece
+_PACK_ELEMS = 1 << 27
+
+
+def _pack_by_columns(pack, w: torch.Tensor, cfg):
+    """``pack(w, cfg)`` over slices of ``w``'s output columns, joined: a
+    packer works column by column (8-blocks run along K, scales are per
+    output channel), so the bytes are those of one call on all of ``w``."""
+    step = max(1, _PACK_ELEMS // w.shape[0])
+    if w.shape[1] <= step:
+        return pack(w, cfg)
+    parts = [pack(w[:, j:j + step], cfg) for j in range(0, w.shape[1], step)]
+    return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
+
+
 def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "native"):
     """Dense linear params -> packed DBB wire format, bias carried over:
     ``"native"`` keeps the model dtype for the values, ``"int8"``
@@ -213,10 +230,10 @@ def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "native"):
         raise ValueError(f"unknown wire_dtype {wire_dtype!r}; native|int8")
     cfg = dbb.DBBConfig(sp.w_nnz, sp.bz)
     if wire_dtype == "int8":
-        w_vals, w_mask, w_scale = ops.pack_weight_int8(p["w"], cfg)
+        w_vals, w_mask, w_scale = _pack_by_columns(ops.pack_weight_int8, p["w"], cfg)
         out = {"w_vals": w_vals, "w_mask": w_mask, "w_scale": w_scale}
     else:
-        w_vals, w_mask = ops.pack_weight(p["w"], cfg)
+        w_vals, w_mask = _pack_by_columns(ops.pack_weight, p["w"], cfg)
         out = {"w_vals": w_vals, "w_mask": w_mask}
     if "b" in p:
         out["b"] = p["b"]

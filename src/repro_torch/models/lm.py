@@ -1,5 +1,7 @@
 """Decoder-only LM over the paged KV cache (port of the serving half of
-``repro.models.lm``): dense GQA or MLA, with a dense MLP or an MoE FFN.
+``repro.models.lm``): dense GQA or MLA, with a dense MLP or an MoE FFN,
+and the VLM backbone (M-RoPE over three position streams; the vision
+frontend is a stub in the reference too, so text tokens serve).
 
 Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
@@ -28,10 +30,11 @@ from repro_torch.models.common import (
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense (GQA "
-            "or MLA) and MoE decoders only (ROADMAP queue 1)"
+            "or MLA), MoE and VLM decoders; ssm, hybrid and encdec wait for "
+            "ROADMAP queue 1, item 9"
         )
 
 
@@ -85,6 +88,15 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
     return params
 
 
+def _rope_cs(cfg, positions, pos3=None):
+    """cos/sin shared by every layer: M-RoPE over ``pos3 [3, B, S]`` when
+    the config has sections, standard RoPE over ``positions`` otherwise."""
+    dh = cfg.head_dim()
+    if cfg.m_rope_sections is not None and pos3 is not None:
+        return rope.mrope_cos_sin(pos3, dh, cfg.rope_theta, cfg.m_rope_sections)
+    return rope.rope_cos_sin(positions, dh, cfg.rope_theta)
+
+
 def _embed(params, tokens):
     return F.embedding(tokens.long(), params["embed"]["w"])
 
@@ -121,9 +133,13 @@ def paged_step(params, cache, tokens, positions, page_tables, cfg,
     cache)``; the cache is updated in place."""
     _check_family(cfg)
     x = _embed(params, tokens)
+    pos3 = None
+    if cfg.m_rope_sections is not None:
+        # text tokens: the three M-RoPE streams are equal
+        pos3 = positions[None].expand(3, *positions.shape)
     rope_cs = None  # MLA rotates its own qk_rope dims in the layer
     if cfg.mla is None:
-        rope_cs = rope.rope_cos_sin(positions, cfg.head_dim(), cfg.rope_theta)
+        rope_cs = _rope_cs(cfg, positions, pos3)
     _prepare_pages(cache, scrub_pages, cow_pages)
     # one shared slot-position write for the whole stack, before the
     # layers, so this step's tokens are visible to intra-chunk attention

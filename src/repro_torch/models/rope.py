@@ -1,4 +1,5 @@
-"""Rotary position embeddings (port of ``repro.models.rope``, standard RoPE)."""
+"""Rotary position embeddings (port of ``repro.models.rope``): standard
+RoPE and M-RoPE (Qwen2-VL)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,25 @@ def rope_cos_sin(pos: torch.Tensor, dh: int, theta: float):
     """pos ``[..., S]`` int -> cos/sin ``[..., S, dh//2]`` float32."""
     freqs = pos.float()[..., None] * _inv_freq(dh, theta, pos.device)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def mrope_cos_sin(pos3: torch.Tensor, dh: int, theta: float, sections):
+    """M-RoPE (Qwen2-VL §2.1): three position streams (t, h, w), each
+    frequency index taking the stream its section names.
+
+    ``pos3 [3, B, S]``; ``sections`` sum to ``dh // 2`` (e.g. (16, 24,
+    24) for dh=128).  Returns cos/sin ``[B, S, dh//2]``: the reference's
+    one-hot sum adds exact zeros, so a select of each section's slice is
+    the same bits."""
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to dh // 2 = {dh // 2}")
+    cos_all, sin_all = rope_cos_sin(pos3, dh, theta)  # [3, B, S, dh//2]
+
+    def select(t):
+        return torch.cat([part[i] for i, part in enumerate(t.split(list(sections), dim=-1))],
+                         dim=-1)
+
+    return select(cos_all), select(sin_all)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,14 @@ step or run.  Weights serve packed on the DBB wire: ``wire_dtype="native"``
 (kernels #2 and #3, with per-row dynamic activation scales).  Either way
 every kernel sums a row in an order that does not depend on the batch,
 so a request's tokens never depend on what it is batched with.  Dense
-decoders with GQA or MLA attention are served.
+decoders with GQA or MLA attention, MoE decoders and the VLM backbone
+(M-RoPE, text tokens) are served.
 
 This is the continuous path only.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that will lift it:
 other prefill modes, unpacked weights, sampled decoding, speculative
-decoding, the gather attention path, snapshots and non-dense families.
+decoding, the gather attention path, snapshots and the ssm, hybrid and
+encdec families.
 A kernel failure raises; there is no fallback path.
 """
 

@@ -1,8 +1,9 @@
 """Shared set-up of the ``test_torch_*`` parity suite: the same small
-configuration (granite-3-8b, minicpm3-4b for MLA, granite-moe-1b-a400m
-for MoE) for the JAX reference and the PyTorch port, weights drawn once
-by the reference and converted bit for bit, and the engine's effective
-sparsity settings on both sides."""
+configuration of any ported arch (granite-3-8b, minicpm3-4b for MLA,
+granite-moe-1b-a400m for MoE, qwen2-vl-72b for M-RoPE, ...) for the JAX
+reference and the PyTorch port, weights drawn once by the reference and
+converted bit for bit (with seeded non-zero biases where the arch has
+them), and the engine's effective sparsity settings on both sides."""
 
 import dataclasses
 
@@ -28,6 +29,10 @@ SMALL = dict(vocab=64, d_model=64, d_ff=128, n_layers=2, dtype="float32")
 
 def small_cfgs(arch="granite_3_8b", **over):
     kw = dict(SMALL, **over)
+    if arch == "qwen2_vl_72b" and "d_model" not in over:
+        # the smoke's M-RoPE sections (8, 4, 4) need head_dim 32, as in
+        # the reference's own small_cfg (tests/test_serve.py)
+        kw["d_model"] = 128
     jcfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True), **kw)
     tcfg = dataclasses.replace(tconfigs.get_config(arch, smoke=True), **kw)
     return jcfg, tcfg
@@ -73,10 +78,33 @@ def effective(jcfg, tcfg, kv_dtype="native", wire="int8"):
     )
 
 
-def reference_params(jcfg, seed=0):
-    """(JAX params, the same params converted for the port)."""
+def nonzero_biases(tree, seed):
+    """``tree`` (numpy leaves) with every ``"b"`` leaf replaced by seeded
+    normal values of its shape and dtype: both inits draw biases as
+    zeros, which would hide a bias fault in the matmul epilogues or the
+    packed-linear plumbing."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: (rng.normal(size=v.shape).astype(v.dtype) if k == "b" else walk(v))
+                    for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t
+
+    return walk(tree)
+
+
+def reference_params(jcfg, seed=0, bias_seed=None):
+    """(JAX params, the same params converted for the port); with
+    ``bias_seed`` every bias is drawn non-zero, the same on both sides."""
     params, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(seed))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    if bias_seed is not None:
+        np_params = nonzero_biases(np_params, bias_seed)
+        params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tparams = params_from_numpy(np_params, "cpu")
     return params, tparams
 
 

@@ -197,4 +197,4 @@ def test_minicpm3_config_matches_reference(smoke):
 
 def test_unported_architecture_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("qwen2_vl_72b")
+        tconfigs.get_config("mamba2_130m")

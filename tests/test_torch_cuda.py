@@ -19,7 +19,10 @@ at 1, as ``chip_smoke.py`` holds it: the sums run in another order than
 the plain version's, which can straddle a bf16 rounding of a probability
 or of the output; DAP (#5) is selection and is held bit for bit."""
 
+import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import pytest
 import torch
@@ -64,17 +67,21 @@ def test_int8_matmul_kernels_exact(cuda, m, k, n, kind):
     assert dbb_matmul.INT8_TC.launches + dbb_matmul.AW_INT8_TC.launches == tc_before
 
 
-def _smoke_int8_linears():
-    """Every full-width int8-wire linear of ``chip_smoke.py``: granite-3-8b's
-    (``LINEARS``), minicpm3-4b's and granite-moe-1b-a400m's
-    (``INT8_OTHER_LINEARS``), as (arch, name, kernel, K, N)."""
-    import importlib.util
-    from pathlib import Path
-
+@functools.lru_cache(maxsize=None)
+def _smoke_module():
+    """``chip_smoke.py``, whose tables list the main paths' full-width shapes."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_int8_linears():
+    """Every full-width int8-wire linear of ``chip_smoke.py``: granite-3-8b's
+    (``LINEARS``) and the other archs' (``INT8_OTHER_LINEARS``), as (arch,
+    name, kernel, K, N)."""
+    mod = _smoke_module()
     rows = [("granite-3-8b", name, kind, k, n) for name, kind, _, k, n in mod.LINEARS]
     return rows + [(arch, name, kind, k, n) for arch, name, kind, _, k, n in mod.INT8_OTHER_LINEARS]
 
@@ -326,14 +333,16 @@ def _tc_case(gen, b, s, g, d, kv, int8, p_cnt, ps=16):
     return q[:b], k, v, pos, tables[:b], q_pos[:b], kw
 
 
-@pytest.mark.parametrize("g,d", [(4, 128), (2, 64)], ids=["granite", "granite_moe"])
+@pytest.mark.parametrize("g,d", [(4, 128), (2, 64), (8, 128), (12, 128)],
+                         ids=["granite", "granite_moe", "qwen2_vl", "starcoder2"])
 @pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
 @pytest.mark.parametrize("s", [1, 16, 20])
 @pytest.mark.parametrize("splits", [1, 3])
 @pytest.mark.parametrize("ps", [8, 16, 32])
 def test_paged_attn_tc_kernel_bf16(cuda, monkeypatch, g, d, int8, s, splits, ps):
     """#6's tensor-core kernel (bf16 GQA) against the plain version at
-    granite-3-8b's and granite-moe-1b-a400m's head shapes: decode, a whole
+    granite-3-8b's, granite-moe-1b-a400m's, qwen2-vl-72b's (8 query heads
+    a KV head) and starcoder2-15b's (12) head shapes: decode, a whole
     chunk and a chunk over 64 rows (two row blocks), padding rows, an idle
     row over the null page, a scrubbed page, window None and 4, with one
     split (the output written directly) and with three (the combine);
@@ -489,15 +498,7 @@ def test_native_matmul_tc_nnz(cuda, nnz, kind):
 def _smoke_native_linears():
     """``chip_smoke.py``'s full-width native-wire linears: (arch, name,
     kernel, activation, DAP-pruned input, K, N)."""
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return ([("minicpm3-4b",) + row for row in mod.NATIVE_LINEARS]
-            + [("granite-moe-1b-a400m",) + row for row in mod.MOE_NATIVE_LINEARS])
+    return list(_smoke_module().NATIVE_LINEARS)
 
 
 @pytest.mark.parametrize("arch,name,kind,act,dap,k,n", _smoke_native_linears(),
@@ -863,8 +864,9 @@ DAP_FORMS = {
     "dense_int8": (dap_prune.dap_prune_int8_cuda, ref.dap_prune_int8_ref),
     "pack_int8": (dap_prune.dap_pack_int8_cuda, ref.dap_pack_int8_ref),
 }
-# every DAP width of the three served paths, then odd ones
-DAP_KS = [768, 1024, 2560, 4096, 6400, 12800, 8, 40, 136]
+# every DAP width of the served paths and qwen1.5-110b's down input, then odd ones
+DAP_SERVED_KS = [768, 1024, 2560, 4096, 6400, 12800, 6144, 8192, 24576, 29568, 49152]
+DAP_KS = DAP_SERVED_KS + [8, 40, 136]
 
 
 def _dap_rows(gen, m, k, dtype):
@@ -926,7 +928,7 @@ def test_dap_forms_bit_exact(cuda, form, k, dtype, nnz):
 
 
 @pytest.mark.parametrize("form", ["dense_int8", "pack_int8"])
-@pytest.mark.parametrize("k", DAP_KS[:6])
+@pytest.mark.parametrize("k", DAP_SERVED_KS)
 @pytest.mark.parametrize("m", [100, 64, 32, 16])
 def test_dap_row_forms_any_cluster(cuda, form, k, m):
     """The per-row forms at every cluster size the plan takes (at K >=
@@ -995,3 +997,234 @@ def test_engine_dap_forms_on_the_kernel(cuda, monkeypatch, arch, wire):
                                                                       arrivals=[0, 3, 1])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["dense_int8", "pack_int8"])
+@pytest.mark.parametrize("k", [29568, 49152])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dap_row_forms_long_rows_any_m(cuda, form, k, dtype):
+    """The per-row forms at qwen2-vl-72b's and qwen1.5-110b's down inputs
+    at every M a step or a solo prefill gives, 1 to 512: K = 49152 takes
+    the least cluster that holds a row (2 blocks, whatever M), and every
+    M is bit for bit the plain version, a row's bits those of M = 4."""
+    kern, plain = DAP_FORMS[form]
+    x = _dap_rows(cuda, 512, k, dtype)
+    four = kern(x[:4], 4)
+    for m in (1, 4, 64, 67, 100, 512):
+        cluster = dap_prune.row_plan(m, k)[0]
+        if k == 49152:
+            assert cluster >= 2
+        got = kern(x[:m], 4)
+        for g, w, g4 in zip(got, plain(x[:m], 4), four):
+            assert _bits_equal(g, w), f"{form} K={k} M={m} cluster {cluster} {dtype}"
+            assert _bits_equal(g[:min(m, 4)], g4[:min(m, 4)]), f"{form} K={k} M={m}: rows vary"
+
+
+# ------------------- qwen2-vl, qwen1.5, starcoder2 and phi3.5-moe at full width
+
+
+NEW_ARCHS = ("qwen2-vl-72b", "qwen1.5-110b", "starcoder2-15b", "phi3.5-moe-42b-a6.6b")
+FULL_WIDTH_ROWS = (1, 4, 64, 100)
+
+
+def _served_bias(gen, arch, name, n):
+    if arch in _smoke_module().QKV_BIAS_ARCHS and name in ("wq", "wk", "wv"):
+        return torch.randn((n,), generator=gen, device="cuda").to(torch.bfloat16)
+    return None
+
+
+@pytest.mark.parametrize("arch,name,kind,act,k,n", [
+    row for row in _smoke_module().INT8_OTHER_LINEARS if row[0] in NEW_ARCHS],
+    ids=lambda v: str(v))
+def test_int8_tc_full_width_served_epilogue(cuda, arch, name, kind, act, k, n):
+    """qwen2-vl-72b's and qwen1.5-110b's int8-wire shapes at M = 1, 4, 64
+    and 100 with the epilogue their main path runs: a random bias on wq,
+    wk, wv, silu on gate.  Every call on the int8 tc body; ``act=None``
+    f32 outputs (bias added) bit for bit and a row's bits the same at
+    every M; the served activation in f32 within 1e-6 (+ 1e-6 relative)
+    and in bf16 within one bf16 ulp more."""
+    cfg, xop, wop = _int8_operands(cuda, max(FULL_WIDTH_ROWS), k, n, kind)
+    bias = _served_bias(cuda, arch, name, n)
+    total, tc = _int8_counters(kind)
+    before = tc.launches
+    ys = {}
+    for m in FULL_WIDTH_ROWS:
+        y, want, _, _ = _int8_run(kind, cfg, xop, wop, m, bias=bias)
+        assert torch.equal(y, want), m
+        ys[m] = y
+        if act is not None:
+            for out_dtype in (torch.float32, torch.bfloat16):
+                y, want, _, _ = _int8_run(kind, cfg, xop, wop, m, bias=bias, act=act,
+                                          out_dtype=out_dtype)
+                y, want = y.float(), want.float()
+                tol = 1e-6 + 1e-6 * want.abs()
+                if out_dtype == torch.bfloat16:
+                    tol = tol + 2.0 ** -7 * torch.maximum(y.abs(), want.abs())
+                assert bool(((y - want).abs() <= tol).all()), (m, out_dtype)
+    per_m = 3 if act is not None else 1
+    assert tc.launches == before + per_m * len(FULL_WIDTH_ROWS)
+    for a, b in zip(FULL_WIDTH_ROWS, FULL_WIDTH_ROWS[1:]):
+        assert torch.equal(ys[a], ys[b][:a]), (a, b)
+
+
+@pytest.mark.parametrize("arch,name,kind,act,dap,k,n", [
+    row for row in _smoke_module().NATIVE_LINEARS if row[0] in NEW_ARCHS],
+    ids=lambda v: str(v))
+def test_native_matmul_tc_full_width_served_epilogue(cuda, arch, name, kind, act, dap, k, n):
+    """starcoder2-15b's, phi3.5-moe's and qwen2-vl-72b's native-wire
+    shapes at M = 1, 4, 64 and 100 with the epilogue their main path runs
+    (a random bias on starcoder2's and qwen2-vl's wq, wk, wv; gelu on
+    starcoder2's up, silu on gate): every call on the tc body, f32 within
+    1e-5 of the largest output, bf16 within that plus one bf16 ulp, a
+    row's bits the same at every M."""
+    cfg = dbb.DBBConfig(4, 8)
+    bf16 = torch.bfloat16
+    w = (torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)).to(bf16)
+    wv, wm = ops.pack_weight(w, cfg)
+    x = torch.randn((max(FULL_WIDTH_ROWS), k), generator=cuda, device="cuda").to(bf16)
+    if dap:
+        x = apply_dap(x, DAPSpec(4, 8))
+    xv, xm = ops.dap_pack(x, 4, 8)
+    bias = _served_bias(cuda, arch, name, n)
+    tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
+
+    def run(fn, m, out_dtype):
+        if kind == "aw":
+            return fn(xv[:m], xm[:m], wv, wm, cfg, cfg, bias=bias, act=act, out_dtype=out_dtype)
+        return fn(x[:m], wv, wm, cfg, bias=bias, act=act, out_dtype=out_dtype)
+
+    kern = dbb_matmul.dbb_matmul_aw_cuda if kind == "aw" else dbb_matmul.dbb_matmul_cuda
+    plain = ref.dbb_matmul_aw_ref if kind == "aw" else ref.dbb_matmul_ref
+    before = tc.launches
+    y = {m: run(kern, m, torch.float32) for m in FULL_WIDTH_ROWS}
+    assert tc.launches == before + len(FULL_WIDTH_ROWS)
+    for a, b in zip(FULL_WIDTH_ROWS, FULL_WIDTH_ROWS[1:]):
+        assert torch.equal(y[a], y[b][:a]), (a, b)
+    for m in FULL_WIDTH_ROWS:
+        want = run(plain, m, torch.float32)
+        tol32 = 1e-5 * want.abs().max().item()
+        assert (y[m] - want).abs().max().item() <= tol32, m
+        yb = run(kern, m, bf16).float()
+        yb_ref = run(plain, m, bf16).float()
+        ulp = 2.0 ** -7 * torch.maximum(yb.abs(), yb_ref.abs())
+        assert bool(((yb - yb_ref).abs() <= ulp + tol32).all()), m
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("g,kv", [(12, 4), (8, 8)], ids=["starcoder2", "qwen2_vl"])
+@pytest.mark.parametrize("s", [1, 16, 20])
+def test_paged_attn_tc_window_over_long_tables(cuda, int8, g, kv, s):
+    """#6's tensor-core kernel with starcoder2-15b's 4096-token window over
+    tables of 5120 slots (its 12 query heads a KV head, and qwen2-vl's 8):
+    requests of 5000 and 4517 cached tokens lose their oldest keys to the
+    window; decode, chunk and mixed rows with a padding tail and an idle
+    row over the null page, within 1.6e-2 of the plain version (f32:
+    1e-5, through the scalar kernel)."""
+    d, ps, b, p_cnt, window = 128, 16, 4, 320, 4096
+    lengths = (5000, 4517, 64, 250)
+    n_pages = b * p_cnt + 1
+    k_f = torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda")
+    v_f = torch.randn((n_pages, ps, kv * d), generator=cuda, device="cuda")
+    kw = dict(kv_heads=kv, window=window)
+    if int8:
+        (k, k_s), (v, v_s) = quant.quantize_rows(k_f), quant.quantize_rows(v_f)
+        kw.update(k_scale=k_s, v_scale=v_s)
+        k32, v32 = k, v
+    else:
+        k, v = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
+        k32, v32 = k.float(), v.float()
+    pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
+    nxt = 1
+    for i, t in enumerate(lengths):
+        used = -(-t // ps)
+        tables[i, :used] = torch.arange(nxt, nxt + used, device="cuda")
+        slots = torch.arange(used * ps, device="cuda")
+        pos[nxt:nxt + used] = torch.where(slots < t, slots, -1).reshape(used, ps).int()
+        nxt += used
+    q_pos = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    for i, t in enumerate(lengths):
+        n = (1, s, max(1, s - 3), s)[i]
+        q_pos[i, :n] = torch.arange(t - n, t, dtype=torch.int32, device="cuda")
+    q_pos[2], tables[2] = -1, 0  # an idle row over the null page
+    q = torch.randn((b, s, kv * g, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    before = paged_attn.PAGED_ATTN_TC.launches
+    got = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, **kw)
+    assert paged_attn.PAGED_ATTN_TC.launches == before + 1
+    want = ref.paged_attn_ref(q, k, v, pos, tables, q_pos, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2, err
+    full = ref.paged_attn_ref(q, k, v, pos, tables, q_pos, **{**kw, "window": None})
+    assert (full.float() - want.float()).abs().max().item() > 1e-2  # the window bites
+    got32 = paged_attn.paged_attn_cuda(q.float(), k32, v32, pos, tables, q_pos, **kw)
+    want32 = ref.paged_attn_ref(q.float(), k32, v32, pos, tables, q_pos, **kw)
+    assert (got32 - want32).abs().max().item() <= 1e-5 + 1e-5 * want32.abs().max().item()
+
+
+def _with_biases(params, seed):
+    """``params`` with every ``"b"`` drawn non-zero (the init draws zeros)."""
+    gen = torch.Generator().manual_seed(seed)
+    if isinstance(params, dict):
+        return {k: (torch.randn(v.shape, generator=gen).to(v.dtype) if k == "b"
+                    else _with_biases(v, seed + 1 + i)) for i, (k, v) in enumerate(params.items())}
+    if isinstance(params, list):
+        return [_with_biases(v, seed + 100 * (i + 1)) for i, v in enumerate(params)]
+    return params
+
+
+@pytest.mark.parametrize("arch,wire", [("qwen2_vl_72b", "int8"), ("qwen2_vl_72b", "native"),
+                                       ("starcoder2_15b", "native")])
+def test_engine_serves_new_archs_bf16(cuda, monkeypatch, arch, wire):
+    """bf16 smoke engines of qwen2-vl-72b (M-RoPE, QKV bias) and
+    starcoder2-15b (gelu, QKV bias, its 32-token window biting in prompts
+    of 70 and 80 tokens) served on CUDA and on the CPU with the same
+    weights, random non-zero biases.  A split takes a whole table, as in
+    the engine tests above.  Without DAP (``wdbb``) the tokens equal the
+    CPU engine's.  With DAP (the configs' ``awdbb``) one bf16 ulp can
+    become another token (see ``test_engine_serves_large_pages_bf16``), so
+    that engine is held to itself: every request served, every kernel
+    launched on its tc body, no plain version, the longest request
+    re-served alone byte-identical."""
+    monkeypatch.setattr(paged_attn, "PAGES_PER_SPLIT", 32)
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    scfg = ServeConfig(max_seq=160, page_size=16, max_batch=2, prefill_chunk=16,
+                       wire_dtype=wire, kv_dtype=wire)
+    rng = np.random.default_rng(20)
+    for mode in ("wdbb", "awdbb"):
+        cfg = configs.get_config(arch, smoke=True)
+        cfg = dataclasses.replace(cfg, n_layers=2, dtype="bfloat16",
+                                  sparsity=dataclasses.replace(cfg.sparsity, mode=mode))
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+        params = _with_biases(params, 7)
+        prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (70, 5, 80)]
+        outs = {}
+        for device in ("cpu", "cuda"):
+            ops.reset_counters()
+            dbb_matmul.AW_NATIVE_TC.launches = dbb_matmul.AW_INT8_TC.launches = 0
+            dbb_matmul.NATIVE_TC.launches = dbb_matmul.INT8_TC.launches = 0
+            paged_attn.PAGED_ATTN_TC.launches = 0
+            eng = Engine(params, cfg, scfg, device=device)
+            outs[device] = eng.generate_requests(prompts, 6, arrivals=[0, 3, 1])
+            assert all(r.finish_reason == "length" for r in eng.last_results)
+        counts = ops.counters()
+        assert all(c.plain == 0 for c in counts.values()), counts
+        # wdbb packs no activation: every linear takes #2 or #1
+        mm, mm_tc = {("int8", "awdbb"): ("dbb_matmul_aw_int8", dbb_matmul.AW_INT8_TC),
+                     ("native", "awdbb"): ("dbb_matmul_aw", dbb_matmul.AW_NATIVE_TC),
+                     ("int8", "wdbb"): ("dbb_matmul_int8", dbb_matmul.INT8_TC),
+                     ("native", "wdbb"): ("dbb_matmul", dbb_matmul.NATIVE_TC)}[wire, mode]
+        assert counts[mm].launches > 0 and mm_tc.launches == counts[mm].launches
+        assert paged_attn.PAGED_ATTN_TC.launches == counts["paged_attn"].launches > 0
+        if mode == "wdbb":
+            for got, want in zip(outs["cuda"], outs["cpu"]):
+                np.testing.assert_array_equal(got, want)
+        else:
+            again = eng.generate_requests([prompts[2]], 6)[0]
+            np.testing.assert_array_equal(again, outs["cuda"][2])

@@ -223,21 +223,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert dap_prune.DAP_PRUNE_INT8.launches == 0
 
 
-@pytest.mark.parametrize("k", [8, 40] + [k for k, _ in MAIN_WIDTHS] + [32768])
-@pytest.mark.parametrize("m", [1, 4, 32, 64, 100])
+@pytest.mark.parametrize("k", [8, 40] + [k for k, _ in MAIN_WIDTHS] + [29568, 32768, 49152])
+@pytest.mark.parametrize("m", [1, 4, 32, 64, 67, 100, 512])
 def test_row_plan(k, m):
     """The per-row forms' launch plan covers a row exactly: ``cluster``
     blocks of ``per_block`` 8-blocks each, ``threads`` (a multiple of 32,
     at most the kernel's 512) of up to ``per`` (1, 2, 4 or 8) 8-blocks.
-    The rule spreads the rows over the SMs, at least 32 8-blocks a block:
-    on K = 4096, 8 blocks a row at M = 1 and 4, 4 at 32, 2 at 64, 1 at
-    100."""
+    The rule takes the least power of 2 of blocks that holds the row (at
+    most 512 x 8 8-blocks a block: 2 at qwen1.5-110b's K = 49152, at
+    every M), then spreads the rows over the SMs, at least 32 8-blocks a
+    block: on K = 4096, 8 blocks a row at M = 1 and 4, 4 at 32, 2 at 64,
+    1 from 67."""
     nb = k // 8
     c, threads, per, per_block = dap_prune.row_plan(m, k)
     want = 1
+    while want * dap_prune.ROW_MAX_THREADS * 8 < nb:
+        want *= 2
     while want < 8 and 2 * want * m <= dap_prune.SMS and nb >= 64 * want:
         want *= 2
     assert c == want
+    assert c >= -(-nb // (dap_prune.ROW_MAX_THREADS * 8))
     assert per in (1, 2, 4, 8) and threads % 32 == 0
     assert 32 <= threads <= dap_prune.ROW_MAX_THREADS
     assert c * per_block >= nb > (c - 1) * per_block
@@ -245,20 +250,33 @@ def test_row_plan(k, m):
     # no more threads, and no more 8-blocks a thread, than it takes
     assert threads - 32 < -(-per_block // per)
     assert per == 1 or -(-per_block // (per // 2)) > dap_prune.ROW_MAX_THREADS
-    assert dap_prune.row_plan(m, 4096)[0] == {1: 8, 4: 8, 32: 4, 64: 2, 100: 1}[m]
+    assert dap_prune.row_plan(m, 4096)[0] == {1: 8, 4: 8, 32: 4, 64: 2, 67: 1, 100: 1,
+                                              512: 1}[m]
+    if k == 49152:
+        assert c == {1: 8, 4: 8, 32: 4, 64: 2, 67: 2, 100: 2, 512: 2}[m]
 
 
 def test_row_plan_refuses_what_the_kernel_cannot_hold():
+    """A row the plan spread over one block before now takes the least
+    cluster that holds it; only a row of more than 8 blocks x 512 threads
+    x 8 8-blocks raises, at every M."""
     k = 8 * 8 * 513  # 4104 8-blocks: more than 512 threads x 8 a block
     assert dap_prune.row_plan(4, k)[0] == 8  # the rule spreads it over a cluster
     assert dap_prune.row_plan(64, k)[0] == 2
-    with pytest.raises(ValueError, match="8-blocks a block"):
-        dap_prune.row_plan(100, k)  # one block a row
+    assert dap_prune.row_plan(100, k)[0] == 2  # one block cannot hold it
+    too_long = 8 * (8 * 8 * dap_prune.ROW_MAX_THREADS + 1)
+    for m in (1, 100):
+        with pytest.raises(ValueError, match="8-blocks a block"):
+            dap_prune.row_plan(m, too_long)
 
 
 @pytest.mark.parametrize("arch,wire", [("granite_3_8b", "int8"), ("minicpm3_4b", "native"),
                                        ("granite_moe_1b_a400m", "native"),
-                                       ("granite_moe_1b_a400m", "int8")])
+                                       ("granite_moe_1b_a400m", "int8"),
+                                       ("qwen2_vl_72b", "int8"), ("starcoder2_15b", "native"),
+                                       ("starcoder2_15b", "int8"),
+                                       ("phi3_5_moe_42b_a6_6b", "native"),
+                                       ("qwen1_5_110b", "int8")])
 def test_chip_smoke_expected_launches_per_pass(monkeypatch, arch, wire):
     """``chip_smoke.py``'s launches a forward pass, the count its main
     paths are held to on the card, equal a small CPU engine's plain calls

@@ -322,13 +322,13 @@ def test_tc_shape_rule_latent():
 
 def _smoke_native_shapes():
     """The full-width (K, N) of ``chip_smoke.py``'s native-wire linears
-    (``NATIVE_LINEARS``: minicpm3-4b, ``MOE_NATIVE_LINEARS``:
-    granite-moe-1b-a400m)."""
+    (``NATIVE_LINEARS``: minicpm3-4b, granite-moe-1b-a400m,
+    starcoder2-15b, phi3.5-moe-42b-a6.6b and qwen2-vl-72b)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return sorted({row[-2:] for row in mod.NATIVE_LINEARS + mod.MOE_NATIVE_LINEARS})
+    return sorted({row[-2:] for row in mod.NATIVE_LINEARS})
 
 
 @pytest.mark.parametrize("k,n", _smoke_native_shapes())
@@ -366,8 +366,8 @@ def test_tc_body_rule():
 
 def _smoke_int8_shapes():
     """The full-width (K, N) of ``chip_smoke.py``'s int8-wire linears
-    (``LINEARS``: granite-3-8b, ``INT8_OTHER_LINEARS``: minicpm3-4b and
-    granite-moe-1b-a400m)."""
+    (``LINEARS``: granite-3-8b, ``INT8_OTHER_LINEARS``: minicpm3-4b,
+    granite-moe-1b-a400m, qwen2-vl-72b and qwen1.5-110b)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     mod = importlib.util.module_from_spec(spec)
