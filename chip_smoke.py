@@ -1241,7 +1241,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype, n_layers=None):
         f"{tuple(logits.shape)}")
     del eng, params, cache, logits
     torch.cuda.empty_cache()
-    return counts
+    return counts, outs
 
 
 def phase_smoke_latent_engine(torch, np):
@@ -1299,6 +1299,281 @@ def phase_smoke_latent_engine(torch, np):
     torch.cuda.empty_cache()
 
 
+def drive(torch, fn):
+    """Run ``fn`` once with every launch counter set to 0 just before and
+    read just after, counting its forward passes (``lm.paged_step``,
+    ``lm.prefill``, ``lm.decode_step`` calls).  Returns ``(fn's result,
+    launches by kernel, passes, wall s, peak memory B)``; fails if a plain
+    version ran."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    passes = {"n": 0}
+    saved = {name: getattr(lm, name) for name in ("paged_step", "prefill", "decode_step")}
+
+    def counting(f):
+        def g(*a, **kw):
+            passes["n"] += 1
+            return f(*a, **kw)
+        return g
+
+    for name, f in saved.items():
+        setattr(lm, name, counting(f))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in saved.items():
+            setattr(lm, name, f)
+    wall = time.perf_counter() - t0
+    counters = ops.counters()
+    check(all(c.plain == 0 for c in counters.values()),
+          f"a plain version ran on the card: {[k for k, c in counters.items() if c.plain]}")
+    return (out, {k: c.launches for k, c in counters.items()}, passes["n"], wall,
+            torch.cuda.max_memory_allocated())
+
+
+def check_launches(label, counts, per_pass, passes):
+    """Every kernel launched ``per_pass[name]`` times a forward pass."""
+    for name, n in counts.items():
+        want = per_pass.get(name, 0) * passes
+        check(n == want, f"{label} {name}: {n} launches, expected "
+                         f"{per_pass.get(name, 0)} x {passes} passes")
+
+
+def ring_launches(cfg, wire):
+    """Launches of a forward pass over the ring cache: the packed path's,
+    with attention outside the kernels (``mha``/``_mla_absorbed``)."""
+    return dict(expected_launches(cfg, wire), paged_attn=0, paged_attn_latent=0)
+
+
+def unpacked_launches(cfg):
+    """Launches of a forward pass over dense weights under awdbb: DAP's
+    dense form before every attention and MLP linear (each prunes its own
+    input), the head aside, and the paged attention."""
+    mlp = 3 if cfg.mlp_act == "swiglu" else 2
+    attn = "paged_attn_latent" if cfg.mla is not None else "paged_attn"
+    return {"dap_prune": (4 + mlp) * cfg.n_layers, attn: cfg.n_layers}
+
+
+def phase_sampler(torch, card):
+    """The seeded sampler on the card: threefry keys, bits and uniform
+    draws equal the CPU's bit for bit at qwen2-vl-72b's and
+    granite-3-8b's vocabularies; ``sample_tokens`` at B = 4 gives the
+    CPU's tokens on pinned logits; and its time a call at vocab 152064,
+    greedy (the argmax the engine calls when no row samples) and
+    sampled."""
+    from repro_torch.core import prng
+    from repro_torch.core.sampling import greedy_tokens, sample_tokens
+
+    t0 = time.perf_counter()
+    seeds = torch.tensor([0, 1, 2**31 - 1, 2**32 - 1]).repeat_interleave(4)
+    positions = torch.tensor([0, 1, 1023, 40000]).repeat(4)
+    for vocab in (152064, 49155):
+        bits = {}
+        for dev in ("cpu", "cuda"):
+            key = prng.fold_in(prng.prng_key(seeds.to(dev)), positions.to(dev))
+            bits[dev] = (prng.random_bits(key, vocab).cpu(), prng.uniform(key, vocab).cpu())
+        check(torch.equal(bits["cuda"][0], bits["cpu"][0]),
+              f"threefry bits at vocab {vocab} differ between the card and the CPU")
+        check(torch.equal(bits["cuda"][1], bits["cpu"][1]),
+              f"uniform draws at vocab {vocab} differ between the card and the CPU")
+    gen = torch.Generator().manual_seed(SEED)
+    rows = (torch.tensor([0.8, 0.0, 1.1, 0.7]), torch.tensor([50, 0, 0, 8]),
+            torch.tensor([0.95, 1.0, 0.9, 1.0]), torch.tensor([11, 3, 2**32 - 1, 2**31 + 7]),
+            torch.tensor([63, 511, 1023, 40000]))
+    dev_rows = tuple(r.cuda() for r in rows)
+    for trial in range(4):
+        logits = torch.randn((4, 152064), generator=gen) * 4
+        want = sample_tokens(logits, *rows)
+        got = sample_tokens(logits.cuda(), *dev_rows).cpu()
+        check(torch.equal(got, want), f"sampled tokens differ from the CPU's: {got} vs {want}")
+    logits = logits.cuda()
+
+    def ms(fn, iters=50):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    t_greedy = ms(lambda: greedy_tokens(logits))
+    t_sampled = ms(lambda: sample_tokens(logits, *dev_rows))
+    say(f"sampler: threefry keys, bits and uniform draws equal the CPU's at vocab 152064 and "
+        f"49155 (4 seeds x 4 positions); sampled tokens equal the CPU's at B=4; a call at "
+        f"B=4, vocab 152064: greedy {t_greedy:.4f} ms, sampled (temperature, top-k, top-p) "
+        f"{t_sampled:.4f} ms ({card}); phase wall {time.perf_counter() - t0:.1f} s")
+
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def phase_serving_modes(torch, np, card, greedy_outs, launches):
+    """granite-3-8b at full width (40 layers, int8 wire and KV), weights
+    drawn once (dense bf16, packed once for the packed engines): one-shot
+    ``generate`` batched and stepped, then continuous and gather, on 4
+    prompts of 64 tokens; a sampled continuous serve of the main path's 8
+    requests with per-request seeds, the same at ``decode_block=1``, a
+    ``paged_attn="gather"`` serve and a ``pack_weights=False`` serve
+    (bf16 weights, DAP's dense form).  Each serve is re-served by a fresh
+    engine byte-identically, the sampled serve equals itself at
+    ``decode_block`` 1 and 16 and differs from greedy (the main path's
+    tokens on the same weights) at least once, every request finishes
+    (a non-finite logit would quarantine it), and the prefill logits of
+    ``generate`` are finite.  Launches are counted per sub-phase and added
+    to ``launches``."""
+    from repro_torch import configs
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig, pack_params_for_serving
+
+    t_phase = time.perf_counter()
+    arch, wire = "granite_3_8b", "int8"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    dense = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                           wire_dtype=None)
+    packed = pack_params_for_serving(dense, cfg, wire)
+    torch.cuda.synchronize()
+    say(f"serving modes {arch}: dense bf16 weights drawn and packed on the int8 wire once in "
+        f"{time.perf_counter() - t0:.1f} s (the main path's draw)")
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    def report(label, n_tok, wall, peak, extra=""):
+        say(f"serving modes {arch} {label}: wall {wall:.2f} s, {n_tok / wall:.2f} generated "
+            f"tokens/s, peak memory {peak} B{extra} ({card})")
+
+    # -- one-shot and stepped generate, then continuous and gather, 4 x 64
+    rng = np.random.default_rng(SEED + 1)
+    prompts4 = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+    n4 = 16
+    gen_outs = {}
+    for mode, attn in (("batched", "auto"), ("stepped", "auto"), ("continuous", "auto"),
+                       ("continuous", "gather")):
+        scfg = ServeConfig(**dict(SERVE_SHAPE, max_seq=64 + n4, prefill_mode=mode,
+                                  paged_attn=attn, wire_dtype=wire, kv_dtype=wire))
+        eng = Engine(packed, cfg, scfg, device="cuda")
+        out, counts, passes, wall, peak = drive(torch, lambda: eng.generate(prompts4, n4))
+        label = mode if attn == "auto" else "gather"
+        if mode != "continuous":
+            check_launches(f"{arch} {label}", counts, ring_launches(cfg, wire), passes)
+            check(passes == (1 if mode == "batched" else 64) + n4, f"{label}: {passes} passes")
+        else:
+            per_pass = expected_launches(cfg, wire)
+            if attn == "gather":
+                per_pass = dict(per_pass, paged_attn=0)
+            check_launches(f"{arch} {label}", counts, per_pass, passes)
+        add(counts)
+        check(out.shape == (4, 64 + n4), f"{label}: output shape {out.shape}")
+        gen_outs[label] = out[:, 64:]
+        report(f"generate {label} (4 x 64 prompt tokens, {n4} new)", 4 * n4, wall, peak,
+               f", {passes} forward passes")
+    cache = lm.make_cache(eng.cfg, 1, 64, "cuda")
+    logits, _ = lm.prefill(eng.params, torch.tensor(prompts4[:1], device="cuda"), eng.cfg,
+                           cache=cache)
+    check(bool(torch.isfinite(logits[..., : cfg.vocab]).all()), "batched prefill: non-finite logits")
+    stack = np.stack(list(gen_outs.values()))
+    agree = float((stack == stack[0]).all(axis=0).mean())
+    pairs = ", ".join(f"{a}/{b} {float(np.mean(gen_outs[a] == gen_outs[b])):.4f}" for a, b in (
+        ("batched", "stepped"), ("batched", "continuous"), ("continuous", "gather")))
+    say(f"serving modes {arch}: batched, stepped, continuous and gather agree on "
+        f"{agree:.4f} of {stack[0].size} greedy tokens (pairs: {pairs}; under DAP the card's "
+        f"engines are held to themselves, so this is printed, not asserted)")
+
+    # -- the main path's 8 requests, sampled with per-request seeds
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 513, size=N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, size=int(s)).astype(np.int32) for s in lens]
+    arrivals = [2 * i for i in range(N_REQUESTS)]
+    samp = [SamplingParams(seed=1000 + i, **SAMPLED) for i in range(N_REQUESTS)]
+
+    def serve(params, **over):
+        scfg = ServeConfig(**{**SERVE_SHAPE, "wire_dtype": wire, "kv_dtype": wire, **over})
+        eng = Engine(params, cfg, scfg, device="cuda")
+        outs = eng.generate_requests(prompts, N_NEW, arrivals=arrivals, sampling=samp)
+        check(all(r.finish_reason == "length" and r.n_generated == N_NEW
+                  for r in eng.last_results), f"{over}: a request did not finish")
+        return outs, eng.last_results
+
+    serves = {}
+    for label, params, over, per_pass in (
+        ("sampled", packed, {}, expected_launches(cfg, wire)),
+        ("sampled decode_block=1", packed, dict(decode_block=1), expected_launches(cfg, wire)),
+        ("gather", packed, dict(paged_attn="gather"),
+         dict(expected_launches(cfg, wire), paged_attn=0)),
+        ("unpacked", dense, dict(pack_weights=False, wire_dtype="native"),
+         unpacked_launches(cfg)),
+    ):
+        (outs, results), counts, passes, wall, peak = drive(torch, lambda: serve(params, **over))
+        check_launches(f"{arch} {label}", counts, per_pass, passes)
+        add(counts)
+        serves[label] = outs
+        ttft = sorted(r.time_to_first_token for r in results)
+        report(f"{label} serve ({N_REQUESTS} requests, {N_NEW} new, {SAMPLED})",
+               N_REQUESTS * N_NEW, wall, peak,
+               f", TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
+               f"{passes} forward passes")
+        if label != "sampled decode_block=1":
+            again, _ = serve(params, **over)
+            check(all(np.array_equal(a, b) for a, b in zip(again, outs)),
+                  f"{label}: a fresh engine served different tokens")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(serves["sampled"], serves["sampled decode_block=1"])),
+          "sampled serve: decode_block 1 and 16 differ")
+    check(any(not np.array_equal(a, b) for a, b in zip(serves["sampled"], greedy_outs)),
+          "sampled serve never differed from greedy")
+    gen = [np.concatenate([o[len(p):] for o, p in zip(serves[k], prompts)])
+           for k in ("sampled", "gather", "unpacked")]
+    say(f"serving modes {arch}: each serve re-served by a fresh engine byte-identically; "
+        f"sampled == sampled at decode_block=1; sampled differs from greedy on "
+        f"{float(np.mean(gen[0] != np.concatenate([o[len(p):] for o, p in zip(greedy_outs, prompts)]))):.4f} "
+        f"of tokens; gather agrees with fused on {float(np.mean(gen[1] == gen[0])):.4f}, unpacked "
+        f"with packed on {float(np.mean(gen[2] == gen[0])):.4f} (printed, not asserted)")
+    del dense, packed, eng, cache, logits
+    torch.cuda.empty_cache()
+
+    # -- minicpm3-4b: one batched generate (materialized prefill, absorbed
+    # ring decode)
+    arch_m = "minicpm3_4b"
+    mcfg = configs.get_config(arch_m)
+    t0 = time.perf_counter()
+    mparams = lm.init_params(mcfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                             wire_dtype="native")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 2)
+    mprompts = rng.integers(0, mcfg.vocab, (4, 32)).astype(np.int32)
+    scfg = ServeConfig(max_seq=40, prefill_mode="batched", pack_weights=True,
+                       wire_dtype="native", kv_dtype="native")
+    eng = Engine(mparams, mcfg, scfg, device="cuda")
+    out, counts, passes, wall, peak = drive(torch, lambda: eng.generate(mprompts, 8))
+    check_launches(f"{arch_m} batched", counts, ring_launches(mcfg, "native"), passes)
+    check(passes == 1 + 8 and out.shape == (4, 40), f"{arch_m} batched: {passes} passes")
+    add(counts)
+    cache = lm.make_cache(eng.cfg, 1, 32, "cuda")
+    logits, _ = lm.prefill(eng.params, torch.tensor(mprompts[:1], device="cuda"), eng.cfg,
+                           cache=cache)
+    check(bool(torch.isfinite(logits[..., : mcfg.vocab]).all()), f"{arch_m}: non-finite logits")
+    say(f"serving modes {arch_m}: init {t_init:.1f} s; batched generate (4 x 32 prompt tokens, "
+        f"8 new, native wire and KV, {mcfg.n_layers} layers) wall {wall:.2f} s, "
+        f"{32 / wall:.2f} generated tokens/s, peak memory {peak} B, {passes} forward passes; "
+        f"prefill logits finite ({card})")
+    del eng, mparams, cache, logits
+    torch.cuda.empty_cache()
+    say(f"serving modes: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -1329,7 +1604,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_card(torch)
+    card = phase_card(torch)
     from repro_torch.kernels import native
 
     t0 = time.perf_counter()
@@ -1349,11 +1624,16 @@ def main():
     phase_smoke_latent_engine(torch, np)
     del flush
     torch.cuda.empty_cache()
+    phase_sampler(torch, card)
     launches = {}
+    greedy = {}
     for arch, wire, kv_dtype, n_layers in PATHS:
-        counts = phase_main_path(torch, np, arch, wire, kv_dtype, n_layers)
+        t0 = time.perf_counter()
+        counts, greedy[arch] = phase_main_path(torch, np, arch, wire, kv_dtype, n_layers)
         for name, (n, _) in counts.items():
             launches[name] = launches.get(name, 0) + n
+        say(f"main path {arch}: phase wall {time.perf_counter() - t0:.1f} s")
+    phase_serving_modes(torch, np, card, greedy["granite_3_8b"], launches)
 
     record = []
     for name, info in KERNELS.items():
@@ -1372,7 +1652,7 @@ def main():
         "dbb_matmul_int8, dbb_matmul_aw_int8, paged_attn, dap_prune_int8 and dap_pack_int8, "
         "of minicpm3-4b for "
         "dbb_matmul, dbb_matmul_aw, paged_attn_latent and dap_pack, of granite-moe-1b-a400m "
-        "for dap_prune; launches summed over the main paths")
+        "for dap_prune; launches summed over the main paths and the serving-mode phases")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # tokens; None = full attention
+    attn_chunk: int = 1024  # query-chunked attention above this seq len
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     mla: Optional[MLAConfig] = None

@@ -29,4 +29,5 @@ SMOKE = ModelConfig(
     vocab=512,
     mlp_act="swiglu",
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

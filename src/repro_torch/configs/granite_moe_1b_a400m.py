@@ -31,4 +31,5 @@ SMOKE = ModelConfig(
     mlp_act="swiglu",
     moe=MoEConfig(n_experts=4, top_k=2, capacity_factor=1.5),
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

@@ -43,4 +43,5 @@ SMOKE = ModelConfig(
         v_head_dim=16,
     ),
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

@@ -32,4 +32,5 @@ SMOKE = ModelConfig(
     mlp_act="swiglu",
     qkv_bias=True,
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

@@ -37,4 +37,5 @@ SMOKE = ModelConfig(
     qkv_bias=True,
     m_rope_sections=(8, 4, 4),
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

@@ -34,4 +34,5 @@ SMOKE = ModelConfig(
     qkv_bias=True,
     sliding_window=32,
     sparsity=AWDBB_4_8,
+    attn_chunk=64,
 )

@@ -2,10 +2,11 @@
 
 ``w_nnz``/``a_nnz`` over blocks of ``bz`` are the weight and activation
 density bounds (paper §5, 4/8 typical); ``act_scale`` picks the int8
-wire's dynamic activation-scale granularity and ``kv_dtype`` the KV-cache
-storage.  The reference's ``paged_attn`` knob has no counterpart: the
-port always runs the fused paged-attention kernel (or its plain version
-on CPU tensors).
+wire's dynamic activation-scale granularity, ``kv_dtype`` the KV-cache
+storage and ``paged_attn`` the paged read: ``"auto"`` and ``"fused"`` run
+the fused paged-attention kernel (#6; its plain version on CPU tensors),
+``"gather"`` materializes each request's window and attends in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class SparsityConfig:
     exclude_first_layer: bool = True  # paper Table 3 note 2
     act_scale: str = "per_tensor"  # per_tensor | per_row (int8 wire)
     kv_dtype: str = "native"  # native | int8 (KV cache storage)
+    paged_attn: str = "auto"  # auto | gather | fused (paged attention read)
 
     def __post_init__(self):
         if self.mode not in ("dense", "wdbb", "awdbb"):
@@ -37,6 +39,8 @@ class SparsityConfig:
             )
         if self.kv_dtype not in ("native", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}; native|int8")
+        if self.paged_attn not in ("auto", "gather", "fused"):
+            raise ValueError(f"unknown paged_attn {self.paged_attn!r}; auto|gather|fused")
 
     def a_spec(self, layer_idx: int | None = None) -> Optional[DAPSpec]:
         """The DAP spec of layer ``layer_idx``.  The paged layer loop

@@ -1,7 +1,18 @@
-"""Attention over the paged KV cache (port of the paged half of
-``repro.models.attention``): GQA and MLA.
+"""Attention (port of ``repro.models.attention``): GQA and MLA over the
+ring-buffer KV cache (one-shot and stepped serving), over the paged KV
+cache (continuous serving), and cache-less.
 
-Per layer the cache holds ``k/v [N_pages, PS, D]`` pools — int8 with
+**Ring cache.**  Per layer ``k/v [B, W, KV*D]`` plus absolute slot
+positions ``pos [B, W]`` (-1: empty); a full-attention cache has
+``W = max_seq`` (slot == position), a windowed one ``W = window`` (slot
+== position % W).  Under the int8 KV wire the planes are int8 with
+per-token ``k_scale/v_scale [B, W]`` planes, quantized at write time
+(:func:`fill_ring`, :func:`_update_ring`) and dequantized at the read
+boundary (:func:`ring_window`).  Prefill quantizes its K/V once and
+attends over the dequantization, so it sees the bytes stepped decode will
+read back.  The ring helpers write in place, like the paged ones.
+
+**Paged cache.**  Per layer the cache holds ``k/v [N_pages, PS, D]`` pools — int8 with
 per-token ``k_scale/v_scale [N_pages, PS]`` planes under the int8 KV wire
 — and one slot-position table ``pos [N_pages, PS]`` shared by all layers.
 GQA pages hold ``KV*D`` per plane; MLA's k pages hold the
@@ -14,6 +25,15 @@ the slot positions only.
 Unlike the reference's functional updates, :func:`paged_update` and
 :func:`paged_update_pos` write the cache tensors **in place**: the pools
 are the largest state on the card, and no caller needs the old version.
+``cfg.sparsity.paged_attn`` picks the paged read: ``"auto"`` and
+``"fused"`` run the fused kernel (#6), ``"gather"`` materializes each
+request's window (:func:`paged_read`) and attends with :func:`mha` or
+:func:`_mla_absorbed`, plain PyTorch as in the reference.
+
+:func:`mha`, :func:`_mla_absorbed` and MLA's einsums sum in float64 and
+round once: a library einsum picks its summation order from the shapes,
+and float64 keeps a row's rounded result independent of how many rows
+share the call (batched prefill is batch-invariant on CUDA too).
 """
 
 from __future__ import annotations
@@ -30,6 +50,89 @@ from repro_torch.models.common import linear, make_linear, make_norm, rmsnorm
 
 NEG_INF = -1e30
 NULL_PAGE = 0
+
+
+# ---------------------------------------------------------------- ring cache
+
+
+def make_kv_cache(batch: int, window: int, kv_dim: int, n_layers: int, dtype, device):
+    """The bare stacked ring ``k/v [L, B, W, kv_dim]``, ``pos [L, B, W]``
+    (empty); ``lm.make_cache`` builds the model-aware one (int8 planes,
+    MLA's 1-wide v)."""
+    return {
+        "k": torch.zeros((n_layers, batch, window, kv_dim), dtype=dtype, device=device),
+        "v": torch.zeros((n_layers, batch, window, kv_dim), dtype=dtype, device=device),
+        "pos": torch.full((n_layers, batch, window), -1, dtype=torch.int32, device=device),
+    }
+
+
+def kv_is_int8(cache_layer) -> bool:
+    """True when the cache dict stores the int8 KV wire (scale planes)."""
+    return "k_scale" in cache_layer
+
+
+def quantize_kv(x: torch.Tensor):
+    """Write-side KV quantization: one symmetric scale per token row."""
+    return quant.quantize_rows(x)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """Read-side KV dequantization (inverse of :func:`quantize_kv`)."""
+    return quant.dequantize_rows(q, scale, dtype)
+
+
+def kv_roundtrip(x: torch.Tensor, dtype=None):
+    """``dequantize(quantize(x))`` per token row: what a cache write then
+    a cache read returns."""
+    q, s = quantize_kv(x)
+    return dequantize_kv(q, s, dtype or x.dtype)
+
+
+def ring_window(cache_layer, dtype):
+    """The ring's read boundary: ``(k [B, W, Dk], v [B, W, Dv])`` in
+    ``dtype``, each plane dequantized iff it carries a scale plane (MLA
+    quantizes only the latent k)."""
+    k, v = cache_layer["k"], cache_layer["v"]
+    if "k_scale" in cache_layer:
+        k = dequantize_kv(k, cache_layer["k_scale"], dtype)
+    if "v_scale" in cache_layer:
+        v = dequantize_kv(v, cache_layer["v_scale"], dtype)
+    return k, v
+
+
+def _update_ring(cache_layer, new_k, new_v, pos: int, window: int) -> None:
+    """Write one step (``[B, 1, D]``) at slot ``pos % window``, in place;
+    under the int8 KV wire the row quantizes here."""
+    slot = pos % window
+    for name, new in (("k", new_k), ("v", new_v)):
+        sname = name + "_scale"
+        if sname in cache_layer:
+            new, sc = quantize_kv(new)
+            cache_layer[sname][:, slot] = sc[:, 0]
+        cache_layer[name][:, slot] = new[:, 0].to(cache_layer[name].dtype)
+    cache_layer["pos"][:, slot] = pos
+
+
+def fill_ring(cache_layer, new_k, new_v, s: int, quantized=None) -> None:
+    """Write a whole prompt (positions ``0..s-1``, ``[B, S, D]``) into the
+    ring, in place: the last ``min(window, s)`` tokens at slots
+    ``pos % window``, the state per-token stepping leaves behind.
+    ``quantized`` maps a plane name to its precomputed ``(q, scale)``
+    (prefill quantizes once and attends over the dequantization)."""
+    window = cache_layer["k"].shape[1]
+    take = min(window, s)
+    sel = torch.arange(s - take, s, device=new_k.device)
+    slots = sel % window
+    for name, new in (("k", new_k), ("v", new_v)):
+        sname = name + "_scale"
+        if sname in cache_layer:
+            if quantized is not None and name in quantized:
+                new, sc = quantized[name]
+            else:
+                new, sc = quantize_kv(new)
+            cache_layer[sname][:, slots] = sc[:, sel]
+        cache_layer[name][:, slots] = new[:, sel].to(cache_layer[name].dtype)
+    cache_layer["pos"][:, slots] = sel.to(torch.int32)
 
 
 def _paged_flat_idx(positions, page_tables, page_size: int):
@@ -109,32 +212,71 @@ def _mask_bias(q_pos, k_pos, window: Optional[int]):
     return torch.where(valid, 0.0, NEG_INF).float()
 
 
-def mha(q, k, v, q_pos, k_pos, *, window: Optional[int] = None) -> torch.Tensor:
-    """Grouped-query attention with position-derived masking; KV heads are
-    never repeated.  q ``[B, S, H, D]``, k/v ``[B, T, KV, D]``."""
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with the reference's f32 result (``preferred_element_type
+    =float32``), multiplied in float64 and rounded once: the library picks
+    its summation order from the shapes, and float64 keeps a row's rounded
+    result independent of how many rows share the call."""
+    return torch.einsum(eq, a.double(), b.double()).float()
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis in f32: ``exp(x - max) / sum``,
+    the sum in float64 on CUDA (a row's result then does not depend on the
+    batch), in f32 on the CPU as in the reference."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    if e.device.type == "cuda":
+        return e / e.double().sum(dim=-1, keepdim=True).float()
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def mha(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
+        chunk: Optional[int] = None, softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention with position-derived causal/window masking;
+    KV heads are never repeated.  q ``[B, S, H, D]``, k/v ``[B, T, KV, D]``,
+    q_pos ``[B, S]``, k_pos ``[B, T]``.  Query-chunked above ``chunk``
+    (when it divides S) to bound the ``[S, T]`` logits working set."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
-    scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(b, s, kv, g, d)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
-    logits = logits + _mask_bias(q_pos, k_pos, window)[:, None, None, :, :]
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btke->bskge", probs.to(v.dtype).float(), v.float())
-    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+    scale = softmax_scale or 1.0 / math.sqrt(d)
+
+    def block(qc, qp):
+        sc = qc.shape[1]
+        qg = qc.reshape(b, sc, kv, g, d)
+        logits = _einsum_f32("bskgd,btkd->bkgst", qg, k) * scale
+        logits = logits + _mask_bias(qp, k_pos, window)[:, None, None, :, :]
+        probs = _softmax(logits)
+        out = _einsum_f32("bkgst,btke->bskge", probs.to(v.dtype), v)
+        return out.reshape(b, sc, h, v.shape[-1]).to(q.dtype)
+
+    if chunk is None or s <= chunk or s % chunk != 0:
+        return block(q, q_pos)
+    return torch.cat([block(q[:, i:i + chunk], q_pos[:, i:i + chunk])
+                      for i in range(0, s, chunk)], dim=1)
+
+
+def _gather(sp) -> bool:
+    """Whether the paged read materializes the window (``"gather"``) or
+    runs the fused kernel (``"auto"``/``"fused"``)."""
+    return sp is not None and sp.paged_attn == "gather"
 
 
 def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=None,
-                cache_layer=None, rope_cs=None, page_tables=None):
-    """GQA over the paged cache: project (one shared DAP+pack for Q/K/V),
-    RoPE, write this step's K/V into the pages, attend with the fused
-    paged-attention kernel (#6), project out.  ``cache_layer["pos"]``
-    already holds this step's positions (``lm.paged_step`` writes the
-    shared table once before the layer loop)."""
-    if page_tables is None or cache_layer is None:
-        raise NotImplementedError(
-            "only the paged-cache path of GQA is ported (ROADMAP queue 1, item 8)"
-        )
+                cache_layer=None, decode_pos: Optional[int] = None, rope_cs=None,
+                causal: bool = True, page_tables=None):
+    """GQA: project (one shared DAP+pack for Q/K/V), RoPE, attend, project
+    out.  The cache modes, as in the reference:
+
+    * ``page_tables`` set: write this step's K/V into the pages, attend
+      with the fused paged-attention kernel (#6) or, under
+      ``paged_attn="gather"``, :func:`paged_read` + :func:`mha`
+      (``cache_layer["pos"]`` already holds this step's positions);
+    * ring cache, no ``decode_pos``: single-pass prefill, full-sequence
+      attention over the fresh K/V while they fill the ring;
+    * ring cache and ``decode_pos``: write one step at its slot, attend
+      over the ring window;
+    * no cache: full-sequence attention (``causal=False`` unmasks it)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     sp, li = cfg.sparsity, layer_idx
@@ -147,16 +289,46 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     )
     q = rope.apply_rope(q, cos, sin)
     k = rope.apply_rope(k, cos, sin)
-    paged_update(
-        cache_layer, k.reshape(b, s, kvh * dh), v.reshape(b, s, kvh * dh),
-        positions, page_tables,
-    )
-    out = ops.paged_attention(
-        q, cache_layer["k"], cache_layer["v"], cache_layer["pos"], page_tables,
-        positions, kv_heads=kvh, window=cfg.sliding_window,
-        k_scale=cache_layer.get("k_scale"), v_scale=cache_layer.get("v_scale"),
-        out_dtype=x.dtype,
-    )
+    k_flat, v_flat = k.reshape(b, s, kvh * dh), v.reshape(b, s, kvh * dh)
+    chunk = cfg.attn_chunk if s > cfg.attn_chunk else None
+
+    if page_tables is not None:
+        paged_update(cache_layer, k_flat, v_flat, positions, page_tables)
+        if _gather(sp):
+            k_win, v_win, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables,
+                                               dtype=x.dtype)
+            t = k_win.shape[1]
+            out = mha(q, k_win.reshape(b, t, kvh, dh), v_win.reshape(b, t, kvh, dh),
+                      positions, pos_win, window=cfg.sliding_window)
+        else:
+            out = ops.paged_attention(
+                q, cache_layer["k"], cache_layer["v"], cache_layer["pos"], page_tables,
+                positions, kv_heads=kvh, window=cfg.sliding_window,
+                k_scale=cache_layer.get("k_scale"), v_scale=cache_layer.get("v_scale"),
+                out_dtype=x.dtype,
+            )
+    elif cache_layer is not None and decode_pos is None:
+        pre = None
+        if kv_is_int8(cache_layer):
+            # quantize once: the ring stores these planes and attention
+            # reads their dequantization, as stepped decode will
+            qk, sk = quantize_kv(k_flat)
+            qv, sv = quantize_kv(v_flat)
+            pre = {"k": (qk, sk), "v": (qv, sv)}
+            k = dequantize_kv(qk, sk, x.dtype).reshape(b, s, kvh, dh)
+            v = dequantize_kv(qv, sv, x.dtype).reshape(b, s, kvh, dh)
+        fill_ring(cache_layer, k_flat, v_flat, s, quantized=pre)
+        out = mha(q, k, v, positions, positions, window=cfg.sliding_window, chunk=chunk)
+    elif cache_layer is not None:
+        window = cache_layer["k"].shape[1]
+        _update_ring(cache_layer, k_flat, v_flat, decode_pos, window)
+        kk, vv = ring_window(cache_layer, x.dtype)
+        out = mha(q, kk.reshape(b, window, kvh, dh), vv.reshape(b, window, kvh, dh),
+                  positions, cache_layer["pos"], window=cfg.sliding_window)
+    else:
+        k_pos = positions if causal else torch.zeros_like(positions)
+        out = mha(q, k, v, positions, k_pos,
+                  window=cfg.sliding_window if causal else None, chunk=chunk)
     return linear(p["wo"], out.reshape(b, s, h * dh), sparsity=sp, layer_idx=li)
 
 
@@ -184,14 +356,6 @@ def make_mla(gen: torch.Generator, cfg, *, dtype, device, pack):
     }
 
 
-def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum`` with the reference's f32 result (``preferred_element_type
-    =float32``), multiplied in float64 and rounded once: the library picks
-    its summation order from the shapes, and float64 keeps a row's rounded
-    result independent of how many rows share the call."""
-    return torch.einsum(eq, a.double(), b.double()).float()
-
-
 def _mla_absorb_q(q_nope, w_kv_up, m, out_dtype):
     """q absorbed through the k half of ``kv_up`` per head:
     ``[B, S, H, lora]``."""
@@ -204,6 +368,21 @@ def _mla_up_project(ctx, w_kv_up, m, out_dtype):
     ``[B, S, H, dv]``."""
     wv = w_kv_up[..., m.qk_nope_head_dim:]  # [lora, H, dv]
     return _einsum_f32("bshl,lhv->bshv", ctx.to(out_dtype), wv.to(out_dtype)).to(out_dtype)
+
+
+def _mla_absorbed(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtype):
+    """Absorbed-form MLA over a latent window ``lat [B, T, lora+rope]``
+    (the ``(c_kv ‖ k_rope)`` latent, from the ring or gathered from pages)
+    with slot positions ``k_pos [B, T]``: q absorbs through ``kv_up`` per
+    head, so the latent is never expanded.  Returns ``[B, S, H, dv]``."""
+    lora = m.kv_lora_rank
+    c_all, kr_all = lat[..., :lora], lat[..., lora:]
+    q_abs = _mla_absorb_q(q_nope, w_kv_up, m, out_dtype)
+    logits = (_einsum_f32("bshl,btl->bhst", q_abs, c_all)
+              + _einsum_f32("bshr,btr->bhst", q_rope, kr_all)) * scale
+    probs = _softmax(logits + _mask_bias(q_pos, k_pos, None)[:, None, :, :])
+    ctx = _einsum_f32("bhst,btl->bshl", probs.to(c_all.dtype), c_all)
+    return _mla_up_project(ctx, w_kv_up, m, out_dtype)
 
 
 def _mla_absorbed_fused(q_nope, q_rope, cache_layer, page_tables, q_pos, w_kv_up, m,
@@ -225,17 +404,21 @@ def _mla_absorbed_fused(q_nope, q_rope, cache_layer, page_tables, q_pos, w_kv_up
 
 
 def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=None,
-                cache_layer=None, page_tables=None):
-    """MLA over the paged latent cache: the two down-projections share one
-    DAP+pack, RoPE rotates the ``qk_rope`` dims with one shared k head,
-    this step's ``(c_kv ‖ k_rope)`` latent goes into the k pages (a zero
-    1-wide row into the v pages), and the absorbed attention runs through
-    the fused kernel's latent mode.  Logits scale by
-    ``1/sqrt(qk_nope + qk_rope)``."""
-    if page_tables is None or cache_layer is None:
-        raise NotImplementedError(
-            "only the paged-cache path of MLA is ported (ROADMAP queue 1, item 8)"
-        )
+                cache_layer=None, decode_pos: Optional[int] = None, page_tables=None):
+    """MLA.  The two down-projections share one DAP+pack, RoPE rotates the
+    ``qk_rope`` dims with one shared k head, and the cache stores the
+    ``(c_kv ‖ k_rope)`` latent (a 1-wide zero dummy in the v planes).
+    Logits scale by ``1/sqrt(qk_nope + qk_rope)``.  The cache modes:
+
+    * ``page_tables`` set: write the latent into the pages, attend
+      absorbed through the fused kernel's latent mode (#6) or, under
+      ``paged_attn="gather"``, over the gathered window;
+    * ring cache, no ``decode_pos``: fill the ring with the latent, then
+      the materialized attention (under int8 KV over the latent's
+      round trip);
+    * ring cache and ``decode_pos``: write one step, attend absorbed over
+      the ring window;
+    * no cache: materialized per-head K/V and :func:`mha`."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -256,10 +439,45 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
 
     w_kv_up = p["kv_up"]["w"].reshape(m.kv_lora_rank, h, qk_nope + dv)
     latent = torch.cat([c_kv, k_rope], dim=-1)
-    paged_update(cache_layer, latent, torch.zeros((b, s, 1), dtype=latent.dtype,
-                                                  device=latent.device),
-                 positions, page_tables)
-    out = _mla_absorbed_fused(
-        q_nope, q_rope, cache_layer, page_tables, positions, w_kv_up, m, scale, x.dtype,
-    )
+    dummy_v = torch.zeros((b, s, 1), dtype=latent.dtype, device=latent.device)
+
+    if page_tables is not None:
+        paged_update(cache_layer, latent, dummy_v, positions, page_tables)
+        if _gather(sp):
+            lat, _, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables,
+                                         dtype=x.dtype)
+            out = _mla_absorbed(q_nope, q_rope, lat, positions, pos_win, w_kv_up, m, scale,
+                                x.dtype)
+        else:
+            out = _mla_absorbed_fused(
+                q_nope, q_rope, cache_layer, page_tables, positions, w_kv_up, m, scale,
+                x.dtype,
+            )
+        return linear(p["wo"], out.reshape(b, s, h * dv), sparsity=sp, layer_idx=li)
+
+    if cache_layer is not None and decode_pos is not None:
+        window = cache_layer["k"].shape[1]
+        _update_ring(cache_layer, latent, dummy_v, decode_pos, window)
+        lat_win, _ = ring_window(cache_layer, x.dtype)
+        out = _mla_absorbed(q_nope, q_rope, lat_win, positions, cache_layer["pos"],
+                            w_kv_up, m, scale, x.dtype)
+        return linear(p["wo"], out.reshape(b, s, h * dv), sparsity=sp, layer_idx=li)
+
+    if cache_layer is not None:
+        pre = None
+        if kv_is_int8(cache_layer):
+            # quantize the latent once: the ring stores it and the
+            # materialized attention reads its dequantization
+            ql, sl = quantize_kv(latent)
+            pre = {"k": (ql, sl)}
+            lat_rt = dequantize_kv(ql, sl, x.dtype)
+            c_kv, k_rope = lat_rt[..., : m.kv_lora_rank], lat_rt[..., m.kv_lora_rank:]
+        fill_ring(cache_layer, latent, dummy_v, s, quantized=pre)
+
+    kv_up = _einsum_f32("btl,lhe->bthe", c_kv, w_kv_up.to(c_kv.dtype)).to(c_kv.dtype)
+    k_nope, v = kv_up[..., :qk_nope], kv_up[..., qk_nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, qk_rope)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    out = mha(qq, k, v, positions, positions,
+              chunk=cfg.attn_chunk if s > cfg.attn_chunk else None, softmax_scale=scale)
     return linear(p["wo"], out.reshape(b, s, h * dv), sparsity=sp, layer_idx=li)

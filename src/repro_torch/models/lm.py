@@ -1,13 +1,18 @@
-"""Decoder-only LM over the paged KV cache (port of the serving half of
-``repro.models.lm``): dense GQA or MLA, with a dense MLP or an MoE FFN,
-and the VLM backbone (M-RoPE over three position streams; the vision
-frontend is a stub in the reference too, so text tokens serve).
+"""Decoder-only LM (port of ``repro.models.lm`` for the attention
+families): dense GQA or MLA, with a dense MLP or an MoE FFN, and the VLM
+backbone (M-RoPE over three position streams; the vision frontend is a
+stub in the reference too, so text tokens serve).
+
+Entry points: :func:`forward` (cache-less), the one-shot and stepped
+modes over the ring cache (:func:`make_cache`, :func:`prefill`,
+:func:`decode_step`), and continuous serving over the paged cache
+(:func:`paged_step`, :func:`paged_decode_loop`).
 
 Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
 its stacked ``[L, ...]`` layer axis unstacked into a list
 (``convert.params_from_numpy``), so the layer loop is a Python loop.
-The paged cache is written in place (``models/attention.py``).
+Both caches are written in place (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sampling import sample_tokens
+from repro_torch.core.sampling import sample_or_greedy
 from repro_torch.models import attention, blocks, moe, rope
 from repro_torch.models.common import (
     dtype_of,
@@ -111,6 +116,92 @@ def _head(params, x, cfg):
     return linear(params["lm_head"], x, sparsity=cfg.sparsity, dap_input=False)
 
 
+def forward(params, tokens, cfg):
+    """Full-sequence cache-less forward of text tokens at positions
+    ``0..S-1``: ``tokens [B, S]`` -> logits ``[B, S, V_padded]`` (the
+    reference's ``forward(...)[0]``; the MoE load-balance loss is
+    training's and is dropped)."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    x = _embed(params, tokens)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions)
+    for layer_p in params["layers"]:
+        x = blocks.decoder_block(layer_p, x, cfg, positions, rope_cs=rope_cs)
+    return _head(params, x, cfg)
+
+
+def make_cache(cfg, batch: int, max_seq: int, device):
+    """The stacked ring cache ``k/v [L, B, W, D]``, ``pos [L, B, W]`` for
+    ``max_seq`` positions (``W = min(max_seq, window)`` under a sliding
+    window).  Under the int8 KV wire the planes are int8 with per-token
+    ``k_scale/v_scale [L, B, W]`` f32 planes; empty slots hold zeros with
+    scale 1.0.  MLA caches the latent in k, a 1-wide dummy in v, and
+    quantizes only k."""
+    _check_family(cfg)
+    native = dtype_of(cfg.dtype)
+    window = max_seq if cfg.sliding_window is None else min(max_seq, cfg.sliding_window)
+    kv_int8 = cfg.sparsity.kv_dtype == "int8"
+    v_int8 = kv_int8 and cfg.mla is None
+    kv_dim = cfg.kv_dim()
+    v_dim = 1 if cfg.mla is not None else kv_dim
+    lbw = (cfg.n_layers, batch, window)
+    cache = {
+        "k": torch.zeros(lbw + (kv_dim,), dtype=torch.int8 if kv_int8 else native,
+                         device=device),
+        "v": torch.zeros(lbw + (v_dim,), dtype=torch.int8 if v_int8 else native,
+                         device=device),
+        "pos": torch.full(lbw, -1, dtype=torch.int32, device=device),
+    }
+    if kv_int8:
+        cache["k_scale"] = torch.ones(lbw, dtype=torch.float32, device=device)
+    if v_int8:
+        cache["v_scale"] = torch.ones(lbw, dtype=torch.float32, device=device)
+    return cache
+
+
+def _ring_layer(cache, i: int) -> dict:
+    return {name: plane[i] for name, plane in cache.items()}
+
+
+def decode_step(params, cache, tokens, pos: int, cfg):
+    """One decode step over the ring cache: ``tokens [B, 1]`` at position
+    ``pos`` (every row).  Returns ``(logits [B, 1, V_padded], cache)``;
+    the cache is written in place."""
+    _check_family(cfg)
+    b = tokens.shape[0]
+    x = _embed(params, tokens)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    rope_cs = None
+    if cfg.mla is None:
+        pos3 = positions[None].expand(3, b, 1) if cfg.m_rope_sections is not None else None
+        rope_cs = _rope_cs(cfg, positions, pos3)
+    for i, layer_p in enumerate(params["layers"]):
+        x = blocks.decoder_block(layer_p, x, cfg, positions, cache_layer=_ring_layer(cache, i),
+                                    decode_pos=pos, rope_cs=rope_cs)
+    return _head(params, x, cfg), cache
+
+
+def prefill(params, tokens, cfg, cache=None):
+    """One-shot prefill of ``tokens [B, S]`` at positions ``0..S-1``: the
+    logits, and with ``cache`` the filled ring too (``(logits, cache)``).
+    Single pass: each attention layer attends over the fresh K/V and
+    writes them into its ring in the same call, bytes equal to what
+    per-token stepping writes."""
+    if cache is None:
+        return forward(params, tokens, cfg)
+    _check_family(cfg)
+    b, s = tokens.shape
+    x = _embed(params, tokens)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    # the reference's prefill passes no M-RoPE streams: text positions
+    rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions)
+    for i, layer_p in enumerate(params["layers"]):
+        x = blocks.decoder_block(layer_p, x, cfg, positions,
+                                    cache_layer=_ring_layer(cache, i), rope_cs=rope_cs)
+    return _head(params, x, cfg), cache
+
+
 def _prepare_pages(cache, scrub_pages=None, cow_pages=None) -> None:
     """Page maintenance before a step's writes, in place and in order:
     scrub freshly allocated pages' slot positions, then copy every plane
@@ -156,11 +247,14 @@ def paged_step(params, cache, tokens, positions, page_tables, cfg,
 
 
 def paged_decode_loop(params, cache, tokens, positions, page_tables, n_steps: int,
-                      cfg, *, max_steps: int, scrub_pages=None, cow_pages=None):
-    """``n_steps`` greedy decode iterations of :func:`paged_step`, each
-    sampled token fed back as the next input, without a host sync: the
-    loop only enqueues device work, and the caller reads the results once
-    per run.
+                      cfg, *, max_steps: int, scrub_pages=None, cow_pages=None,
+                      sampling: Optional[tuple] = None):
+    """``n_steps`` decode iterations of :func:`paged_step`, each sampled
+    token fed back as the next input, without a host sync: the loop only
+    enqueues device work, and the caller reads the results once per run.
+    ``sampling`` is the rows' ``(temps, top_ks, top_ps, seeds)`` on the
+    device (None: every row greedy, decided on the host); each sample is keyed on the pre-increment ``pos`` carry,
+    the fed-stream position of the token whose logits it reads.
 
     ``tokens [B, 1]`` holds each row's last sampled token, ``positions
     [B]`` its first write position (-1: idle row, which keeps feeding
@@ -179,7 +273,7 @@ def paged_decode_loop(params, cache, tokens, positions, page_tables, n_steps: in
     for i in range(n_steps):
         logits, cache = paged_step(params, cache, toks, pos[:, None], page_tables, cfg)
         row = logits[:, 0, :v]
-        nxt = sample_tokens(row)
+        nxt = sample_or_greedy(row, sampling, pos)
         out[:, i] = nxt
         active = pos >= 0
         bad = active & ~torch.isfinite(row).all(dim=-1)

@@ -53,12 +53,16 @@ class PageAllocator:
         self._tables: Dict[int, List[int]] = {}
         self._refs: Dict[int, int] = {}
         self._dirty: set = set()
+        self.cow_count = 0  # lifetime copy-on-write duplications
 
     # ------------------------------------------------------------- queries
 
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    def live(self) -> Tuple[int, ...]:
+        return tuple(self._tables)
 
     def page_table(self, rid) -> Tuple[int, ...]:
         return tuple(self._tables[rid])
@@ -68,6 +72,19 @@ class PageAllocator:
 
     def dirty_pages(self) -> frozenset:
         return frozenset(self._dirty)
+
+    def slot_of(self, rid, pos: int) -> Tuple[int, int]:
+        """Physical ``(page, slot)`` of logical position ``pos``."""
+        if pos < 0:
+            raise ValueError(f"negative position {pos}")
+        table = self._tables[rid]
+        idx = pos // self.page_size
+        if idx >= len(table):
+            raise ValueError(
+                f"position {pos} not backed: request {rid!r} holds "
+                f"{len(table)} page(s) of {self.page_size}"
+            )
+        return table[idx], pos % self.page_size
 
     # ----------------------------------------------------------- mutations
 
@@ -130,7 +147,24 @@ class PageAllocator:
         self._refs[dst] = 1
         self._refs[src] -= 1
         table[idx] = dst
+        self.cow_count += 1
         return src, dst
+
+    def truncate_to(self, rid, n_tokens: int) -> List[int]:
+        """Roll ``rid``'s table back to the pages backing its first
+        ``n_tokens`` slots, dropping its reference on every trailing page
+        (returned in table order); pages whose refcount reaches zero
+        return to the pool dirty, shared ones stay live."""
+        if n_tokens < 0:
+            raise ValueError(f"negative truncation point {n_tokens}")
+        table = self._tables[rid]
+        keep = pages_for(n_tokens, self.page_size)
+        dropped = table[keep:]
+        del table[keep:]
+        # drop in reverse so freshly freed low ids are handed out first
+        for p in reversed(dropped):
+            self._decref(p)
+        return dropped
 
     def free(self, rid) -> None:
         pages = self._tables.pop(rid)
@@ -181,6 +215,13 @@ class PrefixCache:
         self.evictions = 0
         self.tokens_total = 0
         self.tokens_saved = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def match(self, prompt: np.ndarray) -> List[int]:
+        """Longest run of cached pages covering ``prompt``'s full pages."""
+        return self.match_hashes(page_hashes(prompt, self.allocator.page_size))
 
     def match_hashes(self, hashes: Sequence[str]) -> List[int]:
         """Longest run of cached pages for ``hashes`` (refreshes recency)."""

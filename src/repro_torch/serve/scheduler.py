@@ -9,8 +9,11 @@ and typed per-request outcomes.  Every mixed step has the shape
 iterations batch into one :class:`DecodeRun` of up to ``decode_block``
 tokens per row (``lm.paged_decode_loop``).
 
-Left out until their slices: the fault-injection hook, the speculative
-commit (``commit_spec``) and the snapshot export/load.
+Each plan carries its rows' sampling knobs (``samp_*``, idle rows
+greedy), and each commit streams the newly committed tokens to the
+request's ``on_token`` callback.  Left out until their slices: the
+fault-injection hook, the speculative commit (``commit_spec``) and the
+snapshot export/load.
 
 Token-stream contract: prompt positions ``0..s0-1`` are written during
 (chunked) prefill and the chunk holding ``s0-1`` samples the first output
@@ -22,11 +25,11 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.sampling import SamplingParams
+from repro_torch.core.sampling import TOP_K_DISABLED, SamplingParams
 from repro_torch.serve.paged_cache import (
     NULL_PAGE,
     PageAllocator,
@@ -96,6 +99,13 @@ class Request:
     hashes: Optional[List[str]] = None  # chained full-page prompt hashes
     reg_pages: int = 0  # prompt pages already published to the cache
     cow_reserved: int = 0  # admission-reserved CoW pages (full-prefix hit)
+    # -- streaming delivery --
+    # called as on_token(rid, tokens, start) with each newly COMMITTED run
+    # of tokens (tokens == out[start:start+len(tokens)]); commits apply
+    # stop and watchdog truncation before extending `out`, so a streamed
+    # token is never rewound
+    on_token: Optional[Callable] = None
+    streamed: int = 0  # tokens of `out` already delivered via on_token
     # -- latency clock (host wall time, time.monotonic seconds) --
     t_enqueue: float = 0.0  # Scheduler.add
     t_admit: float = 0.0  # first admission to a batch row
@@ -143,6 +153,10 @@ class StepPlan:
     page_tables: np.ndarray  # [B, P] int32, NULL_PAGE-padded
     sample_idx: np.ndarray  # [B] int32: row's last valid chunk index
     sample_mask: np.ndarray  # [B] bool: row emits a token this step
+    samp_temp: np.ndarray  # [B] f32
+    samp_top_k: np.ndarray  # [B] int32 (TOP_K_DISABLED = no filter)
+    samp_top_p: np.ndarray  # [B] f32
+    samp_seed: np.ndarray  # [B] uint32
     rows: List[Optional[Request]]  # per-row request (None = idle)
     n_new: List[int]  # per-row positions written this step
     # pages freshly allocated this step (fixed width, NULL_PAGE-padded):
@@ -170,6 +184,10 @@ class DecodeRun:
     page_tables: np.ndarray  # [B, P] int32, NULL_PAGE-padded
     scrub_pages: np.ndarray  # fixed width, NULL_PAGE-padded
     cow_pages: np.ndarray  # [W, 2] (0, 0)-padded
+    samp_temp: np.ndarray  # [B] f32
+    samp_top_k: np.ndarray  # [B] int32 (TOP_K_DISABLED = no filter)
+    samp_top_p: np.ndarray  # [B] f32
+    samp_seed: np.ndarray  # [B] uint32
     n_steps: int  # tokens every active row emits this run
     rows: List[Optional[Request]]
 
@@ -257,6 +275,10 @@ class Scheduler:
         self._tables = np.full((b, p), NULL_PAGE, np.int32)
         self._sample_idx = np.zeros((b,), np.int32)
         self._sample_mask = np.zeros((b,), bool)
+        self._samp_temp = np.zeros((b,), np.float32)
+        self._samp_top_k = np.full((b,), TOP_K_DISABLED, np.int32)
+        self._samp_top_p = np.ones((b,), np.float32)
+        self._samp_seed = np.zeros((b,), np.uint32)
         self._scrub = np.full((self.scrub_width,), NULL_PAGE, np.int32)
         self._cow = np.full((self.cow_width, 2), NULL_PAGE, np.int32)
         self._run_tokens = np.zeros((b, 1), np.int32)
@@ -563,6 +585,21 @@ class Scheduler:
             self._tables[slot, : len(t)] = t
         self._table_stale[slot] = False
 
+    def _sync_samp_row(self, slot: int, req: Optional[Request]) -> None:
+        """Mirror the row's sampling knobs into the plan buffers; idle rows
+        reset to greedy (their samples are padding no one reads)."""
+        if req is None:
+            self._samp_temp[slot] = 0.0
+            self._samp_top_k[slot] = TOP_K_DISABLED
+            self._samp_top_p[slot] = 1.0
+            self._samp_seed[slot] = 0
+        else:
+            sp = req.sampling
+            self._samp_temp[slot] = sp.temperature
+            self._samp_top_k[slot] = TOP_K_DISABLED if sp.top_k is None else sp.top_k
+            self._samp_top_p[slot] = sp.top_p
+            self._samp_seed[slot] = np.uint32(sp.seed)
+
     def _grow_for_write(self, req, end: int, fresh, cow_pairs) -> None:
         """Allocate pages backing positions up to ``end`` and privatize
         shared pages in the write range."""
@@ -590,6 +627,7 @@ class Scheduler:
         for slot, req in enumerate(self.slots):
             if req is None:
                 self._sync_table_row(slot, None)
+                self._sync_samp_row(slot, None)
                 continue
             fl = req.fed_len
             if req.computed < fl:  # chunked (re)prefill of the fed stream
@@ -611,6 +649,7 @@ class Scheduler:
             )
             self._grow_for_write(req, req.computed + n, fresh, cow_pairs)
             self._sync_table_row(slot, req)
+            self._sync_samp_row(slot, req)
             self._sample_idx[slot] = n - 1
             self._sample_mask[slot] = sample
             rows[slot] = req
@@ -637,7 +676,8 @@ class Scheduler:
         self.allocator.note_scrubbed(fresh)
         return StepPlan(
             tokens, positions, self._tables, self._sample_idx,
-            self._sample_mask, rows, n_new,
+            self._sample_mask, self._samp_temp, self._samp_top_k,
+            self._samp_top_p, self._samp_seed, rows, n_new,
             self._scrub, self._cow,
         )
 
@@ -679,11 +719,13 @@ class Scheduler:
         for slot, req in enumerate(self.slots):
             if req is None:
                 self._sync_table_row(slot, None)
+                self._sync_samp_row(slot, None)
                 continue
             tokens[slot, 0] = req.out[-1]
             positions[slot] = req.computed
             self._grow_for_write(req, req.computed + k, fresh, cow_pairs)
             self._sync_table_row(slot, req)
+            self._sync_samp_row(slot, req)
             rows[slot] = req
         if len(fresh) > self.run_scrub_width:
             raise SchedulerInvariantError(
@@ -707,7 +749,8 @@ class Scheduler:
         self.allocator.note_scrubbed(fresh)
         return DecodeRun(
             tokens, positions, self._tables, self._run_scrub, self._run_cow,
-            k, rows,
+            self._samp_temp, self._samp_top_k, self._samp_top_p,
+            self._samp_seed, k, rows,
         )
 
     def tick(self) -> None:
@@ -745,9 +788,20 @@ class Scheduler:
         self._table_stale[slot] = True
 
     def _note_progress(self, req: Request) -> None:
-        """Post-commit per-row bookkeeping: stamp the first-token clock."""
+        """Post-commit per-row bookkeeping: stamp the first-token clock and
+        flush newly committed tokens to the request's streaming callback.
+        Called only after a commit has applied its truncation (stop rewind,
+        watchdog cut) to ``req.out``, so the streamed sequence is always a
+        prefix of the final output; a preempted request replays without
+        sampling, so it streams only past what it already delivered."""
         if req.t_first == 0.0 and req.out:
             req.t_first = time.monotonic()
+        cb = req.on_token
+        if cb is not None and len(req.out) > req.streamed:
+            start = req.streamed
+            new = [int(t) for t in req.out[start:]]
+            req.streamed = len(req.out)
+            cb(req.rid, new, start)
 
     def _quarantine(self, slot: int, req: Request) -> None:
         """The engine's watchdog saw non-finite logits on this row: free

@@ -127,6 +127,9 @@ def leaves(tree, prefix=""):
 # the continuous-batching case of tests/test_serve.py: prompts of lengths
 # 9, 5 and 12, arrivals [0, 3, 1], max_batch=2, page_size=8, chunk 4
 SERVE = dict(max_seq=32, page_size=8, max_batch=2, prefill_chunk=4)
+# the port's continuous packed path, named (ServeConfig's defaults are the
+# reference's: dense weights, prefill_mode "auto")
+PACKED = dict(prefill_mode="continuous", pack_weights=True)
 LENS, ARRIVALS, N_NEW = (9, 5, 12), [0, 3, 1], 6
 
 
@@ -185,7 +188,7 @@ def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype, serve=SERVE):
     ))
     want = jeng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-        wire_dtype=wire, kv_dtype=kv_dtype, **serve), device="cpu")
+        wire_dtype=wire, kv_dtype=kv_dtype, **PACKED, **serve), device="cpu")
     ops.reset_counters()
     got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
@@ -207,7 +210,8 @@ def invariants_byte_exact(tcfg, tparams, wire, kv_dtype, serve=SERVE):
     prompts = prompts_for(tcfg.vocab)
 
     def eng(**kw):
-        scfg = tengine.ServeConfig(**{**serve, "wire_dtype": wire, "kv_dtype": kv_dtype, **kw})
+        scfg = tengine.ServeConfig(**{**PACKED, **serve, "wire_dtype": wire, "kv_dtype": kv_dtype,
+                                      **kw})
         return tengine.Engine(tparams, tcfg, scfg, device="cpu")
 
     ops.reset_counters()
@@ -228,3 +232,29 @@ def invariants_byte_exact(tcfg, tparams, wire, kv_dtype, serve=SERVE):
     assert warm.prefix_stats()["page_hits"] > 0
     np.testing.assert_array_equal(again[0], cold[0])
     return counts, main
+
+
+# the one-shot case of tests/test_serve.py: 2 prompts of 8 tokens, 8 new
+GEN_B, GEN_S0, GEN_NEW, GEN_MAX_SEQ = 2, 8, 8, 48
+
+
+def gen_prompts(vocab, b=GEN_B, s0=GEN_S0, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s0)).astype(np.int32)
+
+
+def generate_match(jcfg, tcfg, params, tparams, wire, kv_dtype, mode, **samp):
+    """``Engine.generate`` of the port (CPU) against the reference's in
+    ``mode`` ("batched" or "stepped") on packed weights: tokens equal on
+    these pinned cases.  Returns the port's tokens and engine."""
+    kw = dict(max_seq=GEN_MAX_SEQ, prefill_mode=mode, pack_weights=True, wire_dtype=wire,
+              kv_dtype=kv_dtype, **samp)
+    prompts = gen_prompts(jcfg.vocab)
+    want = jengine.Engine(params, jcfg, jengine.ServeConfig(**kw)).generate(prompts, GEN_NEW)
+    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu")
+    ops.reset_counters()
+    got = teng.generate(prompts, GEN_NEW)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert teng.prefill_calls == (1 if mode == "batched" else GEN_S0)
+    assert teng.decode_calls == GEN_NEW
+    assert all(c.launches == 0 for c in ops.counters().values())
+    return got, teng

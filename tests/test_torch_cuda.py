@@ -745,7 +745,8 @@ def test_engine_serves_small_pages_bf16(cuda, monkeypatch, page_size):
     cfg = dataclasses.replace(configs.get_config("granite_3_8b", smoke=True), vocab=64,
                               d_model=64, d_ff=128, n_layers=2, dtype="bfloat16")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
-    scfg = ServeConfig(max_seq=32, page_size=page_size, max_batch=2, prefill_chunk=4)
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=32,
+                       page_size=page_size, max_batch=2, prefill_chunk=4)
     rng = np.random.default_rng(page_size)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 12)]
     outs = {}
@@ -791,7 +792,8 @@ def test_engine_serves_large_pages_bf16(cuda, monkeypatch, arch):
     from repro_torch.serve import paged_cache
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    scfg = ServeConfig(max_seq=160, page_size=72, max_batch=2, prefill_chunk=16)
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=160, page_size=72,
+                       max_batch=2, prefill_chunk=16)
     rng = np.random.default_rng(72)
     attn = "paged_attn_latent" if arch == "minicpm3_4b" else "paged_attn"
     tc = paged_attn.PAGED_ATTN_LATENT_TC if arch == "minicpm3_4b" else paged_attn.PAGED_ATTN_TC
@@ -976,8 +978,8 @@ def test_engine_dap_forms_on_the_kernel(cuda, monkeypatch, arch, wire):
 
     cfg = dataclasses.replace(configs.get_config(arch, smoke=True), n_layers=2, dtype="bfloat16")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
-    scfg = ServeConfig(max_seq=64, page_size=16, max_batch=2, prefill_chunk=8, wire_dtype=wire,
-                       kv_dtype=wire)
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=64, page_size=16,
+                       max_batch=2, prefill_chunk=8, wire_dtype=wire, kv_dtype=wire)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 20)]
     ops.reset_counters()
@@ -1194,8 +1196,8 @@ def test_engine_serves_new_archs_bf16(cuda, monkeypatch, arch, wire):
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    scfg = ServeConfig(max_seq=160, page_size=16, max_batch=2, prefill_chunk=16,
-                       wire_dtype=wire, kv_dtype=wire)
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=160, page_size=16,
+                       max_batch=2, prefill_chunk=16, wire_dtype=wire, kv_dtype=wire)
     rng = np.random.default_rng(20)
     for mode in ("wdbb", "awdbb"):
         cfg = configs.get_config(arch, smoke=True)
@@ -1228,3 +1230,103 @@ def test_engine_serves_new_archs_bf16(cuda, monkeypatch, arch, wire):
         else:
             again = eng.generate_requests([prompts[2]], 6)[0]
             np.testing.assert_array_equal(again, outs["cuda"][2])
+
+
+# ------------------------------------------------ sampler and serving modes
+
+
+@pytest.mark.parametrize("vocab", [152064, 49155])
+def test_threefry_bits_on_cuda_equal_cpu(cuda, vocab):
+    """Keys and random bits are integer work in int64: the card's equal
+    the CPU's bit for bit, and so do the uniform draws built on them."""
+    from repro_torch.core import prng
+
+    for seed in (0, 1, 2**31 - 1, 2**32 - 1):
+        for pos in (0, 1, 1023, 40000):
+            keys = {dev: prng.fold_in(prng.prng_key(torch.tensor([seed], device=dev)),
+                                      torch.tensor([pos], device=dev))
+                    for dev in ("cpu", "cuda")}
+            assert torch.equal(prng.random_bits(keys["cuda"], vocab).cpu(),
+                               prng.random_bits(keys["cpu"], vocab))
+            assert torch.equal(prng.uniform(keys["cuda"], vocab).cpu(),
+                               prng.uniform(keys["cpu"], vocab))
+
+
+@pytest.mark.parametrize("vocab", [152064, 49155])
+def test_sampled_tokens_on_cuda_equal_cpu(cuda, vocab):
+    """``sample_tokens`` at B = 4 gives the CPU's tokens on the same
+    logits: temperature alone, top-k, top-p and a greedy row."""
+    from repro_torch.core.sampling import sample_tokens
+
+    gen = torch.Generator().manual_seed(vocab)
+    for trial in range(4):
+        logits = torch.randn((4, vocab), generator=gen) * 4
+        rows = (torch.tensor([0.7, 0.0, 1.1, 0.9]), torch.tensor([0, 0, 50, 0]),
+                torch.tensor([1.0, 1.0, 0.95, 0.8]),
+                torch.tensor([11, 3, 2**32 - 1, 2**31 + 7]),
+                torch.tensor([5, 63, 1023, 40000]) + trial)
+        want = sample_tokens(logits, *rows)
+        got = sample_tokens(logits.cuda(), *(r.cuda() for r in rows))
+        assert torch.equal(got.cpu(), want)
+
+
+def _small_engine_params(arch, mode="wdbb"):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), n_layers=2,
+                              dtype="bfloat16", sparsity=SparsityConfig(mode=mode))
+    return cfg, lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+
+
+@pytest.mark.parametrize("wire", ["native", "int8"])
+@pytest.mark.parametrize("arch", ["granite_3_8b", "minicpm3_4b"])
+def test_batched_prefill_batch_invariant_on_cuda(cuda, arch, wire):
+    """One-shot batched prefill over the ring on the card: a prompt's
+    tokens (greedy and sampled) do not depend on the prompts batched with
+    it — every kernel sums a row in its own order, and the ring path's
+    einsums and softmax sums run in float64 (``models/attention.py``)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, params = _small_engine_params(arch, "awdbb")
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, cfg.vocab, (1, 24)).astype(np.int32)
+    oth = rng.integers(0, cfg.vocab, (3, 24)).astype(np.int32)
+    for samp in ({}, dict(temperature=0.8, top_k=50, top_p=0.95, seed=5)):
+        scfg = ServeConfig(max_seq=64, prefill_mode="batched", pack_weights=True,
+                           wire_dtype=wire, kv_dtype=wire, **samp)
+        solo = Engine(params, cfg, scfg, device="cuda").generate(a, 8)[0]
+        co = Engine(params, cfg, scfg, device="cuda").generate(np.concatenate([a, oth]), 8)[0]
+        np.testing.assert_array_equal(solo, co)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_8b", "minicpm3_4b"])
+def test_gather_equals_fused_on_cuda(cuda, arch):
+    """``paged_attn="gather"`` serves the fused kernel's tokens on the card
+    under ``mode="wdbb"`` on the native wire (no DAP and no activation
+    quantization to amplify a bf16 ulp of #6 into another token), int8
+    KV (both paths read the same stored codes)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, params = _small_engine_params(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 20)]
+    outs = {}
+    for attn in ("fused", "gather"):
+        scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=64,
+                           page_size=16, max_batch=2, prefill_chunk=8, wire_dtype="native",
+                           kv_dtype="int8", paged_attn=attn)
+        ops.reset_counters()
+        outs[attn] = Engine(params, cfg, scfg, device="cuda").generate_requests(
+            prompts, 8, arrivals=[0, 3, 1])
+        n_attn = sum(ops.counters()[k].launches for k in ("paged_attn", "paged_attn_latent"))
+        assert (n_attn > 0) == (attn == "fused")
+    for g, f in zip(outs["gather"], outs["fused"]):
+        np.testing.assert_array_equal(g, f)

@@ -11,19 +11,26 @@ position that chose a token: ULP-level differences between XLA and
 ATen could flip a near-tied argmax on other seeds.  The port's own
 invariants hold byte-exactly inside the port: continuous == each request
 served alone, ``decode_block=1`` == ``decode_block=16``, and a call that
-reuses cached prompt pages == the cold call.  Also the guards of the
-slice: no CUDA device without ``device="cpu"``, and every setting this
-slice does not port raises ``NotImplementedError``."""
+reuses cached prompt pages == the cold call.  Also the guards: no CUDA
+device without ``device="cpu"``, the settings not ported yet raise
+``NotImplementedError``, and each setting an earlier slice refused
+(stepped, auto, unpacked, sampled, gather) now constructs as the
+reference's does and serves the reference's tokens."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from _torch_parity import (
+    ARRIVALS,
+    N_NEW,
+    PACKED,
     SERVE,
     engines_match,
     invariants_byte_exact,
+    prompts_for,
     reference_params,
     small_cfgs,
 )
@@ -66,15 +73,12 @@ def test_engine_without_cuda_raises(weights, monkeypatch):
     _, tcfg, _, tparams = weights
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tengine.Engine(tparams, tcfg, tengine.ServeConfig(**SERVE, wire_dtype="int8"))
+        tengine.Engine(tparams, tcfg, tengine.ServeConfig(**SERVE, **PACKED, wire_dtype="int8"))
 
 
 SLICE_LIMITS = {  # fixed ids: every xdist worker must collect the same names
-    "stepped": dict(prefill_mode="stepped"), "auto": dict(prefill_mode="auto"),
-    "unpacked": dict(pack_weights=False),
-    "sampled": dict(temperature=0.7), "spec": dict(spec="draft"),
+    "spec": dict(spec="draft"),
     "snapshots": dict(snapshot_every=4, snapshot_dir="snapshots"),
-    "gather": dict(paged_attn="gather"),
 }
 
 
@@ -84,13 +88,51 @@ def test_slice_limits_raise(name):
         tengine.ServeConfig(**SLICE_LIMITS[name])
 
 
+# settings earlier slices refused, now served; fixed ids for xdist
+LIFTED = {
+    "stepped": dict(prefill_mode="stepped", pack_weights=True, wire_dtype="int8"),
+    "auto": dict(prefill_mode="auto"),
+    "unpacked": dict(prefill_mode="continuous", pack_weights=False),
+    "sampled": dict(PACKED, wire_dtype="int8", temperature=0.7, seed=11),
+    "gather": dict(PACKED, wire_dtype="int8", paged_attn="gather"),
+}
+
+
+@pytest.mark.parametrize("name", list(LIFTED))
+def test_lifted_limits_serve(weights, name):
+    """The config constructs equal to the reference's, field for field,
+    and a short CPU serve gives the reference's tokens: one-shot
+    ``generate`` for the stepped and auto modes, continuous
+    ``generate_requests`` otherwise."""
+    jcfg, tcfg, params, tparams = weights
+    kw = dict(SERVE, **LIFTED[name])
+    ref, port = jengine.ServeConfig(**kw), tengine.ServeConfig(**kw)
+    for f in dataclasses.fields(jengine.ServeConfig):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    jeng = jengine.Engine(params, jcfg, ref)
+    teng = tengine.Engine(tparams, tcfg, port, device="cpu")
+    prompts = prompts_for(jcfg.vocab)
+    if port.prefill_mode in ("stepped", "auto"):
+        batch = np.stack([p[:5] for p in prompts])
+        want, got = jeng.generate(batch, 4), teng.generate(batch, 4)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert teng.prefill_calls == (5 if port.prefill_mode == "stepped" else 1)
+        assert teng.decode_calls == 4
+        return
+    want = jeng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
+    got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+
+
 def test_non_dense_family_and_sampling_raise(weights):
+    """``ssm`` still raises, naming what is left; sampled decoding is
+    ported, so a sampling temperature constructs."""
     _, tcfg, _, tparams = weights
     with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
         tengine.Engine(tparams, dataclasses.replace(tcfg, family="ssm"),
                        tengine.ServeConfig(**SERVE), device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        SamplingParams(temperature=0.5)
+    assert not SamplingParams(temperature=0.5).greedy
 
 
 # reference-valid configs of the continuous packed path, over the fields
@@ -108,6 +150,15 @@ REFERENCE_INVALID = {
     "hang_threshold": dict(hang_threshold=1.0),
 }
 CONTINUOUS = dict(prefill_mode="continuous", pack_weights=True)
+
+
+def test_serve_config_defaults_are_the_reference_s():
+    """``ServeConfig()`` equals the reference's field for field, so the
+    same config serves the same thing on both (dense weights, ``"auto"``)."""
+    ref, port = jengine.ServeConfig(), tengine.ServeConfig()
+    for f in dataclasses.fields(jengine.ServeConfig):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert (port.pack_weights, port.prefill_mode) == (False, "auto")
 
 
 def test_serve_config_has_every_reference_field():
@@ -143,15 +194,22 @@ def test_reference_invalid_serve_config_raises(name):
 
 
 def test_gather_and_large_pages_on_cuda_raise(weights):
-    """``paged_attn="gather"`` names queue 1 item 8.  A page above 64
-    slots is no slice limit: the tensor-core kernels walk it as 64-slot
-    sub-pages, so no engine refuses ``page_size=72`` for its device (the
-    CUDA engine itself is built in ``tests/test_torch_cuda.py``); on the
-    CPU it serves."""
+    """``paged_attn="gather"`` serves on the CPU, with no launch of the
+    fused kernel's plain version.  A page above 64 slots is no slice
+    limit: the tensor-core kernels walk it as 64-slot sub-pages, so no
+    engine refuses ``page_size=72`` for its device (the CUDA engine
+    itself is built in ``tests/test_torch_cuda.py``); on the CPU it
+    serves."""
+    from repro_torch.kernels import ops
+
     _, tcfg, _, tparams = weights
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tengine.ServeConfig(**SERVE, paged_attn="gather")
-    scfg = tengine.ServeConfig(**dict(SERVE, page_size=72))
+    gather = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
+        **SERVE, **PACKED, paged_attn="gather"), device="cpu")
+    ops.reset_counters()
+    outs = gather.generate_requests(prompts_for(tcfg.vocab), N_NEW, arrivals=ARRIVALS)
+    assert [len(o) for o in outs] == [n + N_NEW for n in (9, 5, 12)]
+    assert ops.counters()["paged_attn"].plain == 0
+    scfg = tengine.ServeConfig(**dict(SERVE, **PACKED, page_size=72))
     try:  # without a card it gets as far as moving the weights there
         tengine.Engine(tparams, tcfg, scfg, device="cuda")
     except NotImplementedError as err:

@@ -31,6 +31,7 @@ from _torch_parity import (
     effective,
     engines_match,
     invariants_byte_exact,
+    PACKED,
     reference_params,
     small_cfgs,
     to_np,
@@ -239,6 +240,6 @@ def test_vlm_family_is_served_and_others_raise(weights):
     """``vlm`` is admitted by the model and the engine; ``ssm`` still
     raises, naming what is left."""
     _, tcfg, _, tparams = weights
-    tengine.Engine(tparams, tcfg, tengine.ServeConfig(), device="cpu")
+    tengine.Engine(tparams, tcfg, tengine.ServeConfig(**PACKED), device="cpu")
     with pytest.raises(NotImplementedError, match="ssm, hybrid and encdec"):
         tlm.init_params(dataclasses.replace(tcfg, family="hybrid"), torch.Generator(), "cpu")
