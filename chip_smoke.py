@@ -61,6 +61,21 @@ non-zero and prints no result:
    engine re-serves the same requests and arrivals byte-identically.
    Each path prints its init time, peak memory after init and after
    serving, wall, tokens/s and TTFT.
+5. ``phase_sampler`` (the threefry bits and sampled tokens on the card
+   equal the CPU's) and ``phase_serving_modes`` (granite-3-8b's one-shot,
+   stepped, gather, sampled and unpacked serves).
+6. ``phase_spec``: self-speculative decoding at full width on the main
+   path's 8 requests, ``decode_block=4`` — granite-3-8b (int8 wire and KV)
+   with the ``nnz`` draft (2/8 activations), greedy and sampled, and
+   minicpm3-4b (native) with the ``int8_wire`` draft (#2/#3 draft while
+   #1/#4 verify); each serve's tokens equal the plain engine's, and the
+   draft and verify passes' launches are counted into the record.
+7. ``phase_durability``: granite-3-8b's chaos serve (allocator faults,
+   a poisoned request, scribbles) whose healthy requests equal the
+   fault-free serve, and a serve killed between a dispatch and its commit,
+   restored from its last snapshot and resumed, equal to the
+   uninterrupted serve; ``health()``'s step p50/p99 and a snapshot's size
+   and time on disk.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1416,9 +1431,47 @@ def phase_sampler(torch, card):
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 
 
-def phase_serving_modes(torch, np, card, greedy_outs, launches):
+def draw_granite(torch):
+    """granite-3-8b's full-width weights, drawn once for the serving-mode,
+    spec and durability phases: dense bf16, and packed on the int8 wire
+    (bit for bit the main path's, which packs as it draws)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import pack_params_for_serving
+
+    cfg = configs.get_config("granite_3_8b")
+    t0 = time.perf_counter()
+    dense = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                           wire_dtype=None)
+    packed = pack_params_for_serving(dense, cfg, "int8")
+    torch.cuda.synchronize()
+    say(f"granite_3_8b: dense bf16 weights drawn and packed on the int8 wire once in "
+        f"{time.perf_counter() - t0:.1f} s (the main path's draw)")
+    return dense, packed
+
+
+def main_requests(np, vocab):
+    """The main path's 8 prompts (64-512 tokens) and arrivals."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 513, size=N_REQUESTS)
+    prompts = [rng.integers(0, vocab, size=int(s)).astype(np.int32) for s in lens]
+    return prompts, [2 * i for i in range(N_REQUESTS)]
+
+
+def sampled_params():
+    from repro_torch.core.sampling import SamplingParams
+
+    return [SamplingParams(seed=1000 + i, **SAMPLED) for i in range(N_REQUESTS)]
+
+
+def add_launches(launches, counts):
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+
+
+def phase_serving_modes(torch, np, card, greedy_outs, launches, dense, packed):
     """granite-3-8b at full width (40 layers, int8 wire and KV), weights
-    drawn once (dense bf16, packed once for the packed engines): one-shot
+    drawn once (``draw_granite``: dense bf16, packed once): one-shot
     ``generate`` batched and stepped, then continuous and gather, on 4
     prompts of 64 tokens; a sampled continuous serve of the main path's 8
     requests with per-request seeds, the same at ``decode_block=1``, a
@@ -1429,26 +1482,17 @@ def phase_serving_modes(torch, np, card, greedy_outs, launches):
     tokens on the same weights) at least once, every request finishes
     (a non-finite logit would quarantine it), and the prefill logits of
     ``generate`` are finite.  Launches are counted per sub-phase and added
-    to ``launches``."""
+    to ``launches``.  Returns the sampled serve's tokens."""
     from repro_torch import configs
-    from repro_torch.core.sampling import SamplingParams
     from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine, ServeConfig, pack_params_for_serving
+    from repro_torch.serve.engine import Engine, ServeConfig
 
     t_phase = time.perf_counter()
     arch, wire = "granite_3_8b", "int8"
     cfg = configs.get_config(arch)
-    t0 = time.perf_counter()
-    dense = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
-                           wire_dtype=None)
-    packed = pack_params_for_serving(dense, cfg, wire)
-    torch.cuda.synchronize()
-    say(f"serving modes {arch}: dense bf16 weights drawn and packed on the int8 wire once in "
-        f"{time.perf_counter() - t0:.1f} s (the main path's draw)")
 
     def add(counts):
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        add_launches(launches, counts)
 
     def report(label, n_tok, wall, peak, extra=""):
         say(f"serving modes {arch} {label}: wall {wall:.2f} s, {n_tok / wall:.2f} generated "
@@ -1492,11 +1536,8 @@ def phase_serving_modes(torch, np, card, greedy_outs, launches):
         f"engines are held to themselves, so this is printed, not asserted)")
 
     # -- the main path's 8 requests, sampled with per-request seeds
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(64, 513, size=N_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab, size=int(s)).astype(np.int32) for s in lens]
-    arrivals = [2 * i for i in range(N_REQUESTS)]
-    samp = [SamplingParams(seed=1000 + i, **SAMPLED) for i in range(N_REQUESTS)]
+    prompts, arrivals = main_requests(np, cfg.vocab)
+    samp = sampled_params()
 
     def serve(params, **over):
         scfg = ServeConfig(**{**SERVE_SHAPE, "wire_dtype": wire, "kv_dtype": wire, **over})
@@ -1540,7 +1581,7 @@ def phase_serving_modes(torch, np, card, greedy_outs, launches):
         f"{float(np.mean(gen[0] != np.concatenate([o[len(p):] for o, p in zip(greedy_outs, prompts)]))):.4f} "
         f"of tokens; gather agrees with fused on {float(np.mean(gen[1] == gen[0])):.4f}, unpacked "
         f"with packed on {float(np.mean(gen[2] == gen[0])):.4f} (printed, not asserted)")
-    del dense, packed, eng, cache, logits
+    del eng, cache, logits
     torch.cuda.empty_cache()
 
     # -- minicpm3-4b: one batched generate (materialized prefill, absorbed
@@ -1572,6 +1613,226 @@ def phase_serving_modes(torch, np, card, greedy_outs, launches):
     del eng, mparams, cache, logits
     torch.cuda.empty_cache()
     say(f"serving modes: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return serves["sampled"]
+
+
+SPEC_BLOCK = 4  # the spec serves' decode_block: a round is 3 draft passes and 1 verify
+
+
+def tc_counters():
+    """The tensor-core counters beside each kernel's total."""
+    from repro_torch.kernels import dbb_matmul, paged_attn
+
+    return {"paged_attn": paged_attn.PAGED_ATTN_TC,
+            "paged_attn_latent": paged_attn.PAGED_ATTN_LATENT_TC,
+            "dbb_matmul": dbb_matmul.NATIVE_TC, "dbb_matmul_aw": dbb_matmul.AW_NATIVE_TC,
+            "dbb_matmul_int8": dbb_matmul.INT8_TC, "dbb_matmul_aw_int8": dbb_matmul.AW_INT8_TC}
+
+
+def phase_spec(torch, np, card, greedy, sampled, granite_packed, launches):
+    """Self-speculative decoding at full width, the main path's 8 requests
+    with ``decode_block=4`` (3 draft passes and a verify pass a round):
+    granite-3-8b on the int8 wire and KV with the ``nnz`` draft (#3 at
+    NNZa 2 against NNZw 4, #5 at NNZ 2), greedy and sampled, and
+    minicpm3-4b on the native wire and KV with the ``int8_wire`` draft
+    (#2/#3 draft while #1/#4 verify; both packed copies resident).  Each
+    serve's tokens equal the plain engine's on the same weights (the main
+    path's greedy serve; the sampled serve of ``phase_serving_modes``);
+    launches equal the target's per-pass count times the target's passes
+    (mixed steps and verify passes) plus the draft's times the draft
+    passes, every matmul and attention launch on its tensor-core body."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig, SpecConfig
+
+    t_phase = time.perf_counter()
+
+    def spec_serve(label, params, arch, wire, draft, want, sampling=None):
+        cfg = configs.get_config(arch)
+        scfg = ServeConfig(**dict(SERVE_SHAPE, wire_dtype=wire, kv_dtype=wire,
+                                  decode_block=SPEC_BLOCK, spec=SpecConfig(draft=draft)))
+        t0 = time.perf_counter()
+        eng = Engine(params, cfg, scfg, device="cuda")
+        torch.cuda.synchronize()
+        t_init, mem_init = time.perf_counter() - t0, torch.cuda.memory_allocated()
+        prompts, arrivals = main_requests(np, cfg.vocab)
+        passes = {"draft": 0, "target": 0}
+
+        def serve():
+            inner = lm.paged_step
+
+            def counting(*a, **kw):
+                passes["draft" if a[5] is eng.draft_cfg else "target"] += 1
+                return inner(*a, **kw)
+
+            lm.paged_step = counting
+            try:
+                return eng.generate_requests(prompts, N_NEW, arrivals=arrivals,
+                                             sampling=sampling)
+            finally:
+                lm.paged_step = inner
+
+        tcs = tc_counters()
+        for c in tcs.values():
+            c.launches = 0
+        outs, counts, n_pass, wall, peak = drive(torch, serve)
+        check(n_pass == passes["draft"] + passes["target"], f"spec {label}: pass count")
+        per_target = expected_launches(cfg, wire)
+        per_draft = expected_launches(cfg, "int8" if draft == "int8_wire" else wire)
+        for name, n in counts.items():
+            want_n = per_target.get(name, 0) * passes["target"] + \
+                per_draft.get(name, 0) * passes["draft"]
+            check(n == want_n, f"spec {label} {name}: {n} launches, expected {want_n}")
+            if name in tcs:
+                check(tcs[name].launches == n,
+                      f"spec {label} {name}: {tcs[name].launches} of {n} on the tc body")
+        add_launches(launches, counts)
+        for r in eng.last_results:
+            check(r.finish_reason == "length" and r.n_generated == N_NEW,
+                  f"spec {label} request {r.rid}: {r.finish_reason}")
+        for i, (a, b) in enumerate(zip(outs, want)):
+            check(np.array_equal(a, b), f"spec {label}: request {i} differs from plain serving")
+        st = eng.spec_stats()
+        ttft = sorted(r.time_to_first_token for r in eng.last_results)
+        say(f"spec {label}: tokens equal plain serving's; wall {wall:.2f} s, "
+            f"{N_REQUESTS * N_NEW / wall:.2f} generated tokens/s, TTFT p50 "
+            f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {st['spec_runs']} rounds (verify passes), "
+            f"{passes['draft']} draft passes, {passes['target'] - st['spec_runs']} mixed steps; "
+            f"proposed {st['proposed']}, accepted {st['accepted']} (acceptance "
+            f"{st['acceptance_rate']:.4f}), emitted {st['emitted']}; engine init "
+            f"{t_init:.1f} s, memory after init {mem_init} B, peak serving {peak} B ({card})")
+        return eng
+
+    eng = spec_serve("granite-3-8b int8 nnz-draft greedy", granite_packed, "granite_3_8b",
+                     "int8", "nnz", greedy["granite_3_8b"])
+    del eng
+    eng = spec_serve("granite-3-8b int8 nnz-draft sampled", granite_packed, "granite_3_8b",
+                     "int8", "nnz", sampled, sampling=sampled_params())
+    del eng
+    torch.cuda.empty_cache()
+    mcfg = configs.get_config("minicpm3_4b")
+    t0 = time.perf_counter()
+    dense = lm.init_params(mcfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                           wire_dtype=None)
+    torch.cuda.synchronize()
+    say(f"spec minicpm3-4b: dense bf16 weights drawn in {time.perf_counter() - t0:.1f} s "
+        f"(the main path's draw), {torch.cuda.memory_allocated()} B")
+    eng = spec_serve("minicpm3-4b native int8_wire-draft greedy", dense, "minicpm3_4b",
+                     "native", "int8_wire", greedy["minicpm3_4b"])
+    del eng, dense
+    torch.cuda.empty_cache()
+    say(f"spec: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_durability(torch, np, card, want, dense, launches):
+    """granite-3-8b at full width on the int8 wire and KV, the main path's
+    8 requests: a chaos serve (allocator faults p 0.05, request 3's logits
+    poisoned, free-page scribbles p 0.1) whose healthy requests equal the
+    fault-free serve (the main path's) and whose poisoned one is
+    quarantined; a serve with ``snapshot_every=4`` into a temporary
+    directory, killed between a dispatch and its commit, then
+    ``Engine.restore`` from the dense weights (packed anew) and
+    ``resume()``, equal to the uninterrupted serve with a gapless stream;
+    ``health()``'s step p50/p99, and a snapshot's size and time on disk."""
+    import os
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.serve import faults
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("granite_3_8b")
+    serve = dict(SERVE_SHAPE, wire_dtype="int8", kv_dtype="int8")
+    per_pass = expected_launches(cfg, "int8")
+    prompts, arrivals = main_requests(np, cfg.vocab)
+
+    # -- chaos
+    eng = Engine(dense, cfg, ServeConfig(**serve), device="cuda")
+    eng.set_faults(faults.FaultConfig(seed=SEED, alloc_fail_p=0.05, nan_rids=(3,),
+                                      scrub_corrupt_p=0.1))
+    res, counts, passes, wall, peak = drive(
+        torch, lambda: eng.serve_requests(prompts, N_NEW, arrivals=arrivals))
+    check_launches("chaos", counts, per_pass, passes)
+    add_launches(launches, counts)
+    for i, r in enumerate(res):
+        if r.rid == 3:
+            check(r.finish_reason == "numerical_error", f"chaos: request 3 {r.finish_reason}")
+        else:
+            check(r.finish_reason == "length" and np.array_equal(r.tokens, want[i]),
+                  f"chaos: healthy request {r.rid} {r.finish_reason} or its tokens differ")
+    h = eng.health()
+    check(h["quarantines"] == 1 and h["preemptions_fault"] == h["injected_alloc_faults"] > 0,
+          f"chaos: health {h}")
+    say(f"durability chaos: healthy requests equal the fault-free serve, request 3 "
+        f"quarantined; wall {wall:.2f} s, {passes} forward passes, peak {peak} B; health "
+        f"{json.dumps(h)} ({card})")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- kill between a dispatch and its commit, restore, resume
+    with tempfile.TemporaryDirectory() as d:
+        scfg = ServeConfig(**serve, snapshot_dir=d, snapshot_every=4)
+        eng = Engine(dense, cfg, scfg, device="cuda")
+        eng.set_faults(faults.FaultConfig(seed=SEED, kill_at=20, kill_point="pre_commit"))
+        streamed = {}
+
+        def stream(rid, toks, start):
+            buf = streamed.setdefault(rid, [])
+            check(start == len(buf), f"stream of {rid}: a gap")
+            buf.extend(int(t) for t in toks)
+
+        def until_kill():
+            try:
+                eng.generate_requests(prompts, N_NEW, arrivals=arrivals, on_token=stream)
+            except faults.SimulatedCrash:
+                return True
+            return False
+
+        killed, counts, passes, wall, _ = drive(torch, until_kill)
+        check(killed, "durability: the kill point was not reached")
+        check_launches("until the kill", counts, per_pass, passes)
+        add_launches(launches, counts)
+        n_snaps = eng._snap_step
+        del eng
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine.restore(d, dense, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        resumed = {}
+
+        def stream2(rid, toks, start):
+            buf = resumed.setdefault(rid, [])
+            check(start == len(streamed.get(rid, [])) + len(buf), f"resumed stream of {rid}")
+            buf.extend(int(t) for t in toks)
+
+        results, counts, passes2, wall2, peak = drive(torch, lambda: eng.resume(
+            on_token=stream2, delivered={r: len(t) for r, t in streamed.items()}))
+        check_launches("resume", counts, per_pass, passes2)
+        add_launches(launches, counts)
+        check(len(results) > 0, "durability: nothing was in flight")
+        for r in results:
+            i = r.rid - 1
+            check(r.finish_reason == "length" and np.array_equal(r.tokens, want[i]),
+                  f"durability: resumed request {r.rid} differs from the uninterrupted serve")
+            gen = [int(t) for t in r.tokens[len(prompts[i]):]]
+            check(streamed.get(r.rid, []) + resumed.get(r.rid, []) == gen,
+                  f"durability: request {r.rid}'s stream across the kill")
+        h = eng.health()
+        t0 = time.perf_counter()
+        path = eng.snapshot()
+        t_snap = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        say(f"durability snapshot: killed at the 20th pre_commit after {passes} passes and "
+            f"{n_snaps} snapshots; restore (pack + load) {t_restore:.2f} s; resume of "
+            f"{len(results)} in-flight requests {wall2:.2f} s, {passes2} passes, peak {peak} B, "
+            f"equal to the uninterrupted serve, streams gapless; step p50 "
+            f"{h['step_p50_us']} us p99 {h['step_p99_us']} us, slow steps {h['slow_steps']}; "
+            f"a snapshot {size} B in {t_snap:.2f} s ({card})")
+        del eng
+    torch.cuda.empty_cache()
+    say(f"durability: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def say_pass(arch, n_layers, per_kernel):
@@ -1633,7 +1894,13 @@ def main():
         for name, (n, _) in counts.items():
             launches[name] = launches.get(name, 0) + n
         say(f"main path {arch}: phase wall {time.perf_counter() - t0:.1f} s")
-    phase_serving_modes(torch, np, card, greedy["granite_3_8b"], launches)
+    dense, packed = draw_granite(torch)
+    sampled = phase_serving_modes(torch, np, card, greedy["granite_3_8b"], launches, dense,
+                                  packed)
+    phase_spec(torch, np, card, greedy, sampled, packed, launches)
+    phase_durability(torch, np, card, greedy["granite_3_8b"], dense, launches)
+    del dense, packed
+    torch.cuda.empty_cache()
 
     record = []
     for name, info in KERNELS.items():

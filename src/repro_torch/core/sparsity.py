@@ -55,6 +55,17 @@ class SparsityConfig:
             return None  # dense bypass
         return DAPSpec(nnz=nnz, bz=self.bz)
 
+    def tighten(self, a_nnz: int) -> "SparsityConfig":
+        """A tighter rung of the DBB density ladder: the same weights under
+        the activation bound ``a_nnz`` (paper §5.2), the draft model of
+        self-speculative decoding (``serve/engine.py``'s ``SpecConfig``).
+        ``kv_dtype``, ``paged_attn`` and ``act_scale`` are kept, so the
+        draft shares the target's cache layout; a per-layer override list
+        is dropped, the draft bound applies to every layer."""
+        if not 1 <= a_nnz <= self.bz:
+            raise ValueError(f"draft a_nnz must be in [1, bz={self.bz}], got {a_nnz}")
+        return dataclasses.replace(self, mode="awdbb", a_nnz=a_nnz, a_nnz_per_layer=None)
+
 
 DENSE = SparsityConfig(mode="dense")
 AWDBB_4_8 = SparsityConfig(mode="awdbb", w_nnz=4, a_nnz=4)

@@ -165,7 +165,16 @@ def paged_attention(q, k_pages, v_pages, pos_tbl, page_tables, q_pos, *,
                     out_dtype=None) -> torch.Tensor:
     """Fused paged attention (kernel #6) -> ``[B, S, H, Dv]``: GQA mode, or
     MLA's latent mode with ``latent_dv`` (``kv_heads=1``, v the first
-    ``latent_dv`` features of each k row, ``v_pages`` unread)."""
+    ``latent_dv`` features of each k row, ``v_pages`` unread).
+
+    The fault injector's hook sits here, before either version runs: a
+    scoped injector (``serve/faults.py``) may raise its one
+    ``FusedKernelFault``, which the engine answers with its one-way
+    fallback to the gather path; a no-op otherwise.  (A local import:
+    ``serve`` depends on ``kernels``, not the reverse.)"""
+    from repro_torch.serve.faults import check_fused
+
+    check_fused()
     kw = dict(kv_heads=kv_heads, window=window, softmax_scale=softmax_scale,
               k_scale=k_scale, v_scale=v_scale, latent_dv=latent_dv, out_dtype=out_dtype)
     if _on_cuda(q):

@@ -5,8 +5,11 @@ stub in the reference too, so text tokens serve).
 
 Entry points: :func:`forward` (cache-less), the one-shot and stepped
 modes over the ring cache (:func:`make_cache`, :func:`prefill`,
-:func:`decode_step`), and continuous serving over the paged cache
-(:func:`paged_step`, :func:`paged_decode_loop`).
+:func:`decode_step`), continuous serving over the paged cache
+(:func:`paged_step`, :func:`paged_decode_loop`, and
+:func:`paged_verify` for speculative decoding), and the paged cache's
+snapshot hooks (:func:`paged_cache_template`, :func:`export_decode_state`,
+:func:`restore_decode_state`).
 
 Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
@@ -282,3 +285,55 @@ def paged_decode_loop(params, cache, tokens, positions, page_tables, n_steps: in
         pos = torch.where(active, pos + 1, pos)
         toks = nxt[:, None]
     return out, bad_at, cache
+
+
+def paged_verify(params, cache, tokens, positions, page_tables, cfg,
+                 sampling: Optional[tuple] = None):
+    """Speculative-decode verification in one pass over the paged cache.
+
+    ``tokens/positions [B, S]`` hold each row's candidate fed stream of one
+    window: its last committed token, then the draft's proposals, at
+    consecutive positions (-1 past the window).  One :func:`paged_step`
+    under the target config recomputes every window position, each layer
+    writing its window K/V before it attends, so whatever the draft wrote
+    at those slots is overwritten; then a token is sampled at every index,
+    each row's knobs repeated ``S`` times and keyed on that index's own
+    fed-stream position.  Index ``j`` is the token solo decode emits after
+    the row's stream extended by proposals ``1..j``.  ``sampling`` is the
+    rows' device knobs, or None when every row is greedy (decided on the
+    host).  Returns ``(sampled [B, S] int32, ok [B, S] bool, cache)``;
+    ``ok`` says whether an index's raw logits were all finite."""
+    b, s = tokens.shape
+    v = cfg.vocab  # slice off vocab padding before sampling
+    logits, cache = paged_step(params, cache, tokens, positions, page_tables, cfg)
+    rows = logits[:, :, :v].reshape(b * s, v)
+    if sampling is not None:
+        sampling = tuple(a.repeat_interleave(s) for a in sampling)
+    tok = sample_or_greedy(rows, sampling, positions.reshape(-1))
+    ok = torch.isfinite(rows).all(dim=-1)
+    return tok.reshape(b, s), ok.reshape(b, s), cache
+
+
+# -- the paged cache's snapshot hooks: a snapshot stores the device layout
+# as it is (int8 KV planes at wire size), nothing is re-quantized
+
+
+def paged_cache_template(cfg, n_pages: int, page_size: int):
+    """The paged cache's shapes and dtypes as ``"meta"`` tensors: the
+    tree a restorer hands to ``checkpoint.manager.restore`` without
+    allocating memory."""
+    from repro_torch.serve.paged_cache import make_paged_cache
+
+    return make_paged_cache(cfg, n_pages, page_size, "meta")
+
+
+def export_decode_state(cache):
+    """Device cache -> host copies, dtype-preserving (int8 planes stay
+    int8, bf16 planes bf16)."""
+    return {name: t.detach().to("cpu", copy=True) for name, t in cache.items()}
+
+
+def restore_decode_state(host_cache, device):
+    """Host cache (tensors or numpy arrays) -> device tensors; the inverse
+    of :func:`export_decode_state`."""
+    return {name: torch.as_tensor(a).to(device).contiguous() for name, a in host_cache.items()}

@@ -28,19 +28,41 @@ batched with (MoE aside: expert capacity couples a step's tokens); the
 library matmul that serves dense weights on CUDA promises no such
 order.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: speculative decoding, snapshots, and the ssm, hybrid and encdec
-families.  A kernel failure raises; there is no fallback path.
+Also the reference's serving surface around the loop:
+
+* self-speculative decoding (``ServeConfig(spec=SpecConfig(...))``): a
+  draft on a cheaper rung of the DBB ladder proposes up to
+  ``decode_block - 1`` greedy tokens over the target's paged cache
+  (``lm.paged_decode_loop`` under the tightened config), one
+  ``lm.paged_verify`` pass of the target checks the window, and the host
+  keeps the longest agreeing prefix plus one token (:func:`spec_accept`):
+  byte-identical to serving without it;
+* seeded fault injection (:meth:`Engine.set_faults`, ``serve/faults.py``),
+  the NaN watchdog's per-row quarantine, and :meth:`Engine.health` with
+  the step-time percentiles and the hang watchdog (``runtime/monitor.py``);
+* crash-consistent snapshots (``snapshot_every``, :meth:`Engine.snapshot`,
+  :meth:`Engine.restore`, :meth:`Engine.resume`) through
+  ``checkpoint/manager.py``.
+
+A kernel failure raises.  The one fallback is the reference's: an
+injected ``FusedKernelFault`` (which only the fault injector raises)
+switches the engine to ``paged_attn="gather"`` for good and retries the
+dispatch; any other error, a CUDA error or a shape #6 refuses included,
+propagates.  The ssm, hybrid and encdec families raise
+``NotImplementedError`` (``models/lm.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+import logging
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import manager as checkpoint
 from repro_torch.core.sampling import (
     TOP_K_DISABLED,
     SamplingParams,
@@ -49,7 +71,8 @@ from repro_torch.core.sampling import (
     validate_sampling,
 )
 from repro_torch.models import common, lm
-from repro_torch.serve import paged_cache
+from repro_torch.runtime import monitor
+from repro_torch.serve import faults, paged_cache
 from repro_torch.serve.scheduler import (
     FINISH_LENGTH,
     FINISH_REJECTED_TOO_LARGE,
@@ -59,13 +82,37 @@ from repro_torch.serve.scheduler import (
     Scheduler,
 )
 
+logger = logging.getLogger(__name__)
+
 # families whose ring cache lm.prefill fills exactly (attention only);
 # the continuous path shares the set
 BATCHED_PREFILL_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Greedy self-speculative decoding on the DBB density ladder.
+
+    The draft model is the target's own weights on a cheaper rung:
+    ``draft="nnz"`` tightens the activation bound to ``draft_nnz``
+    (``SparsityConfig.tighten``; 2/8 proposals for a 4/8 target) and
+    shares the target's parameters; ``draft="int8_wire"`` drafts on the
+    int8 wire, a second, int8 copy of the weights packed at engine build
+    when the target serves the native wire (on an int8 target the draft
+    is the target).  The draft shares the target's cache layout, page
+    tables and window (``ServeConfig.decode_block``).  Acceptance compares
+    the target's own position-keyed tokens with the proposals, so the
+    output is byte-identical to the target alone: a verified speedup, not
+    a statistical one."""
+
+    draft: str = "nnz"  # nnz | int8_wire (which ladder rung drafts)
+    draft_nnz: int = 2  # activation bound of the "nnz" draft rung
+
+    def __post_init__(self):
+        if self.draft not in ("nnz", "int8_wire"):
+            raise ValueError(f"unknown draft kind {self.draft!r}; nnz|int8_wire")
+        if self.draft_nnz < 1:
+            raise ValueError(f"draft_nnz must be >= 1, got {self.draft_nnz}")
 
 
 @dataclasses.dataclass
@@ -91,11 +138,12 @@ class ServeConfig:
     validation: a config the reference refuses raises ``ValueError``
     here too.  ``paged_attn``: ``"auto"`` and ``"fused"`` both run the
     fused kernel (#6), ``"gather"`` materializes each request's window
-    and attends in plain PyTorch.  ``snapshot_dir``/
-    ``snapshot_every``/``snapshot_keep`` are checked as the reference
-    checks them, and ``snapshot_every > 0`` is not ported.
-    ``hang_threshold`` is checked (> 1) and kept; the watchdog that
-    reads it comes with the rest of the engine (ROADMAP queue 1, item 8).
+    and attends in plain PyTorch.  ``spec`` (a :class:`SpecConfig`,
+    continuous mode only) turns decode-only runs into draft-then-verify
+    rounds.  ``snapshot_every > 0`` publishes a snapshot to
+    ``snapshot_dir`` every that many scheduler iterations (keeping
+    ``snapshot_keep``); a step slower than ``hang_threshold`` x the
+    rolling median trips the hang watchdog (``health()["slow_steps"]``).
     """
 
     max_seq: int = 512
@@ -117,7 +165,7 @@ class ServeConfig:
     max_queue: Optional[int] = None
     backpressure: str = "reject"
     preempt_after: Optional[int] = None
-    spec: Optional[object] = None
+    spec: Optional[SpecConfig] = None
     snapshot_dir: Optional[str] = None
     snapshot_every: int = 0
     snapshot_keep: int = 3
@@ -151,15 +199,16 @@ class ServeConfig:
             raise ValueError(f"snapshot_keep must be >= 1, got {self.snapshot_keep}")
         if self.hang_threshold <= 1.0:
             raise ValueError(f"hang_threshold must be > 1, got {self.hang_threshold}")
+        if self.spec is not None and self.prefill_mode != "continuous":
+            raise ValueError(
+                "speculative decoding requires prefill_mode='continuous', "
+                f"got {self.prefill_mode!r}"
+            )
         if self.max_pages is not None and self.max_pages < self.pages_per_request + 1:
             raise ValueError(
                 f"max_pages={self.max_pages} cannot hold one max_seq={self.max_seq} "
                 f"request: need >= {self.pages_per_request} data pages + 1 null page"
             )
-        if self.spec is not None:
-            raise _not_ported("speculative decoding (spec)", "queue 1, item 8")
-        if self.snapshot_every:
-            raise _not_ported("snapshots (snapshot_every)", "queue 1, item 8")
 
     @property
     def sampling_params(self) -> SamplingParams:
@@ -218,6 +267,32 @@ def _result(req: Request) -> RequestResult:
     )
 
 
+def spec_accept(draft_row, target_row, k: int) -> int:
+    """How many of the target's ``k`` verified tokens one row keeps (>= 1).
+
+    The verify window fed ``[t_0, d_1, .., d_{k-1}]``; ``target_row[j]`` is
+    the target's token at index ``j``, what solo decode emits after the
+    first ``j`` proposals.  The kept prefix is the longest run where each
+    proposal matched the target token before it, plus one: the target's
+    token at the first divergent index is itself correct output.  ``k=1``
+    keeps the one target token, plain decode."""
+    a = 1
+    while a < k and int(draft_row[a - 1]) == int(target_row[a - 1]):
+        a += 1
+    return a
+
+
+def _native_packed(tree) -> bool:
+    """Whether some linear of ``tree`` is packed on the native wire."""
+    if isinstance(tree, list):
+        return any(_native_packed(v) for v in tree)
+    if isinstance(tree, dict):
+        if "w_vals" in tree:
+            return "w_scale" not in tree
+        return any(_native_packed(v) for v in tree.values())
+    return False
+
+
 def pack_params_for_serving(params, cfg, wire_dtype: str = "native"):
     """Convert every DBB-eligible linear to the packed wire format of
     ``wire_dtype``; the embedding, norms, router and MLA's ``kv_up`` (its
@@ -254,7 +329,8 @@ def _to_device(tree, device):
 class Engine:
     """The serving engine over dense or DBB-packed weights: one-shot and
     stepped :meth:`generate`, continuous :meth:`generate_requests` and
-    :meth:`serve_requests`."""
+    :meth:`serve_requests` (speculative with ``ServeConfig.spec``), fault
+    injection, health, and snapshot/restore/resume."""
 
     def __init__(self, params, cfg, scfg: ServeConfig, device=None):
         if device is None:
@@ -276,10 +352,8 @@ class Engine:
                 f"mode={cfg.sparsity.mode!r})"
             )
         self.scfg = scfg
-        params = _to_device(params, self.device)
-        if packing:
-            params = pack_params_for_serving(params, cfg, scfg.wire_dtype)
-        self.params = params
+        raw = _to_device(params, self.device)
+        self.params = pack_params_for_serving(raw, cfg, scfg.wire_dtype) if packing else raw
         # the effective config every path shares: per-row (per-token)
         # activation scales on the int8 wire make the integer-exact
         # datapath batch-invariant (the native wire quantizes no
@@ -290,6 +364,39 @@ class Engine:
         if scfg.paged_attn != "auto":
             sp = dataclasses.replace(sp, paged_attn=scfg.paged_attn)
         self.cfg = dataclasses.replace(cfg, sparsity=sp)
+        # self-speculative decoding: the draft's params are fixed here, its
+        # config derives from self.cfg (_derive_draft_cfg), so the gather
+        # fallback moves the draft to the gather path too
+        self._spec = scfg.spec
+        self.draft_cfg = None
+        self._draft_params = None
+        if self._spec is not None:
+            if self._spec.draft == "nnz":
+                cfg.sparsity.tighten(self._spec.draft_nnz)  # validates draft_nnz
+                self._draft_params = self.params
+            elif scfg.wire_dtype == "int8":
+                self._draft_params = self.params  # the target is the int8 rung
+            else:
+                if cfg.sparsity.mode not in ("wdbb", "awdbb"):
+                    raise ValueError(
+                        "SpecConfig(draft='int8_wire') needs a wdbb/awdbb sparsity mode "
+                        f"to pack, got {cfg.sparsity.mode!r}"
+                    )
+                # the int8 copy is packed from the dense weights; the dense
+                # device copy is dropped with `raw` (unless the target
+                # serves it unpacked)
+                self._draft_params = pack_params_for_serving(raw, cfg, "int8")
+                if _native_packed(self._draft_params):
+                    raise ValueError(
+                        "SpecConfig(draft='int8_wire') packs its int8 copy from dense "
+                        "weights: pass the unpacked params"
+                    )
+            self._derive_draft_cfg()
+        del raw
+        self.spec_runs = 0
+        self.spec_proposed = 0  # draft tokens offered for verification
+        self.spec_accepted = 0  # proposals the target agreed with
+        self.spec_emitted = 0  # tokens committed by spec rounds (pre-stop)
         self.prefill_calls = 0  # one-shot prefills + stepped prompt tokens
         self.decode_calls = 0  # one-shot/stepped decode steps
         self.step_calls = 0  # continuous mixed steps + decode runs dispatched
@@ -297,6 +404,35 @@ class Engine:
         self.last_results: List[RequestResult] = []
         self._cont = None  # allocator, prefix cache, device cache
         self._rid = 0
+        # distinct dispatch signatures of the continuous loop (the
+        # reference's traced-compile count: paged_compiles)
+        self._step_shapes = set()
+        # robustness
+        self._injector: Optional[faults.FaultInjector] = None
+        self.fallbacks = 0  # fused -> gather switches
+        self._health: Dict[str, float] = {}  # scheduler stats, accumulated
+        # monitoring and durability
+        self._step_timer = monitor.StepTimer(window=32)
+        self._watchdog = monitor.HangWatchdog(threshold=scfg.hang_threshold)
+        self._step_samples: collections.deque = collections.deque(maxlen=2048)
+        self.slow_steps = 0  # watchdog trips
+        self._slow_logged = False  # the first trip logs, the rest count
+        self._snap_step = 0  # the next snapshot's step number
+        self._last_snap_iter: Optional[int] = None
+        # in-flight scheduler state staged by load_snapshot for resume();
+        # while it is pending, _serve refuses new work
+        self._resume_state: Optional[dict] = None
+
+    def _derive_draft_cfg(self) -> None:
+        """The draft's config from the target's: tightened to
+        ``draft_nnz`` (``"nnz"``) or with per-row activation scales, as
+        every int8 path has (``"int8_wire"``)."""
+        sp = self.cfg.sparsity
+        if self._spec.draft == "nnz":
+            sp = sp.tighten(self._spec.draft_nnz)
+        else:
+            sp = dataclasses.replace(sp, act_scale="per_row")
+        self.draft_cfg = dataclasses.replace(self.cfg, sparsity=sp)
 
     def _next_rid(self) -> int:
         self._rid += 1
@@ -564,6 +700,135 @@ class Engine:
             return self._cont["prefix"].stats()
         return {}
 
+    # ------------------------------------------------ robustness, health
+
+    @property
+    def paged_compiles(self) -> int:
+        """Distinct dispatch signatures of the continuous loop: the
+        reference's count of compiled traces.  2 for a plain engine (the
+        fixed-shape mixed step and the decode run), 3 for a spec engine
+        (mixed step, draft loop, verify pass; it dispatches no plain run)."""
+        return len(self._step_shapes)
+
+    def set_faults(self, fcfg: Optional[faults.FaultConfig]) -> None:
+        """Arm (or with ``None`` disarm) seeded fault injection for later
+        continuous serving (``serve/faults.py``): the allocator hook goes
+        on the persistent page pool; the kernel-side hook is active only
+        around this engine's own dispatches."""
+        self._injector = None if fcfg is None else faults.FaultInjector(fcfg)
+        if self._cont is not None:
+            self._cont["allocator"].fault_hook = (
+                None if self._injector is None else self._injector.alloc_hook
+            )
+
+    def health(self) -> Dict[str, float]:
+        """Robustness counters accumulated over continuous serving:
+        preemptions, quarantines, finish counts by reason, the queue's
+        high-water mark, fused -> gather fallbacks, hang-watchdog trips, the
+        serve steps' wall-time p50 and p99 (µs, each step including the
+        host sync that reads its tokens), and the injected faults that
+        fired when injection is armed."""
+        out = dict(self._health)
+        out["fused_fallbacks"] = self.fallbacks
+        out["slow_steps"] = self.slow_steps
+        if self._step_samples:
+            xs = list(self._step_samples)
+            out["step_p50_us"] = round(monitor.percentile(xs, 50) * 1e6, 1)
+            out["step_p99_us"] = round(monitor.percentile(xs, 99) * 1e6, 1)
+        inj = self._injector
+        if inj is not None:
+            out["injected_alloc_faults"] = inj.alloc_faults
+            out["injected_fused_faults"] = inj.fused_faults
+            out["injected_nan_poisons"] = inj.nan_poisons
+            out["injected_draft_nan_poisons"] = inj.draft_nan_poisons
+            out["injected_scribbles"] = inj.scribbles
+            out["injected_kills"] = inj.kills
+        return out
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative-decoding counters (zeros unless ``spec`` is set):
+        rounds, proposals, accepted proposals, committed tokens (the
+        always-kept bonus token included, before stop truncation) and the
+        acceptance rate."""
+        proposed = self.spec_proposed
+        return {
+            "spec_runs": self.spec_runs,
+            "proposed": proposed,
+            "accepted": self.spec_accepted,
+            "emitted": self.spec_emitted,
+            "acceptance_rate": self.spec_accepted / proposed if proposed else 0.0,
+        }
+
+    def _note_step_time(self, dt: float) -> None:
+        """One serve step's wall time: into the health percentiles and the
+        hang watchdog (only its first trip logs)."""
+        self._step_samples.append(dt)
+        if self._watchdog.note(dt):
+            self.slow_steps += 1
+            if not self._slow_logged:
+                self._slow_logged = True
+                logger.warning(
+                    "slow serving step: %.1f ms (> %gx rolling median); further trips "
+                    "counted in health()['slow_steps'] without logging",
+                    dt * 1e3, self.scfg.hang_threshold,
+                )
+
+    def _merge_health(self, stats: Dict[str, int]) -> None:
+        for key, val in stats.items():
+            if key == "queue_high_water":
+                self._health[key] = max(self._health.get(key, 0), val)
+            else:
+                self._health[key] = self._health.get(key, 0) + val
+
+    def _fallback_to_gather(self, err: Exception) -> None:
+        """The one-way fallback after an injected ``FusedKernelFault``:
+        every later dispatch of this engine reads pages through the gather
+        path.  A fault on the gather path itself re-raises."""
+        if self.cfg.sparsity.paged_attn == "gather":
+            raise err
+        logger.warning("fused paged_attn kernel failed (%s); falling back to the gather "
+                       "path one-way", err)
+        self.fallbacks += 1
+        sp = dataclasses.replace(self.cfg.sparsity, paged_attn="gather")
+        self.cfg = dataclasses.replace(self.cfg, sparsity=sp)
+        if self._spec is not None:
+            self._derive_draft_cfg()
+
+    def _guarded(self, inj, dispatch: Callable):
+        """Run one dispatch with ``inj`` scoped; on an injected
+        ``FusedKernelFault`` (and on nothing else) fall back to gather and
+        run it again.
+
+        The reference's fault fires at trace time, before any state
+        changes.  Here the fault fires in the first layer's attention of
+        the dispatch, after three in-place writes: the page maintenance
+        (scrub, copy-on-write), the slot-position write and that layer's
+        K/V write.  The retry leaves the cache as a fault-free run does:
+        the scrub is idempotent; the copy-on-write copies its source page
+        again (a shared page, never written) before the step rewrites its
+        slots; the position and K/V writes repeat the same values (the
+        int8 KV quantization is deterministic).  The injector fires once
+        an engine, so the fault lands in the first layer of a dispatch,
+        never inside a decode loop's later iterations."""
+        try:
+            with faults.scoped(inj):
+                return dispatch()
+        except faults.FusedKernelFault as err:
+            self._fallback_to_gather(err)
+            with faults.scoped(inj):
+                return dispatch()
+
+    def _scribble(self, cache, page: int) -> None:
+        """Fault injection: finite garbage with valid-looking slot
+        positions into free ``page`` (scrub-on-hand-out hides it)."""
+        ps = self.scfg.page_size
+        cache["pos"][page] = torch.arange(ps, dtype=torch.int32, device=self.device)
+        for key in ("k", "v"):
+            cache[key][:, page] = 7
+        for key in ("k_scale", "v_scale"):
+            if key in cache:
+                cache[key][:, page] = 1e3
+
     # ------------------------------------------------------- the loop
 
     def _ensure_cont(self) -> dict:
@@ -577,6 +842,8 @@ class Engine:
                     self.cfg, scfg.total_pages, scfg.page_size, self.device
                 ),
             }
+            if self._injector is not None:
+                allocator.fault_hook = self._injector.alloc_hook
         return self._cont
 
     def _make_scheduler(self) -> Scheduler:
@@ -592,6 +859,11 @@ class Engine:
         )
 
     def _serve(self, reqs: Sequence[Request]) -> None:
+        if self._resume_state is not None:
+            raise RuntimeError(
+                "engine holds restored in-flight requests: call resume() to finish "
+                "them before serving new work"
+            )
         sched = self._make_scheduler()
         for req in reqs:
             sched.add(req)
@@ -611,46 +883,322 @@ class Engine:
             self._tensor(cow) if cow.size else None,
         )
 
-
     def _run_loop(self, sched: Scheduler) -> None:
         """Plan, dispatch and commit until every request has finished; one
-        host sync per mixed step or decode run (reading its tokens)."""
+        host sync per mixed step or decode run (reading its tokens), two
+        per speculative round (the draft's tokens, the verify's).
+
+        At each iteration boundary, the one point where device cache,
+        allocator, scheduler and requests agree, the loop publishes a
+        snapshot when ``snapshot_every`` is due, then visits the
+        ``iteration`` kill point; the ``pre_commit`` kill point sits
+        between each dispatch and its commit.  Each step is timed, its
+        host sync included, for ``health()`` and the hang watchdog."""
+        scfg = self.scfg
         cont = self._ensure_cont()
-        cache = cont["cache"]
+        inj = self._injector
         v = self.cfg.vocab
-        while sched.has_work():
-            plan = sched.plan()
-            if plan is None:  # only future arrivals left: advance time
-                sched.tick()
+        # every serve or resume loop snapshots its first boundary, then
+        # every snapshot_every iterations of this scheduler
+        self._last_snap_iter = None
+        try:
+            while sched.has_work():
+                if scfg.snapshot_every and (
+                    self._last_snap_iter is None
+                    or sched.iteration - self._last_snap_iter >= scfg.snapshot_every
+                ):
+                    self._snapshot_now(sched)
+                    self._last_snap_iter = sched.iteration
+                if inj is not None:
+                    inj.maybe_kill("iteration")
+                    page = inj.scribble_page(cont["allocator"].free_pages())
+                    if page is not None:
+                        self._scribble(cont["cache"], page)
+                plan = sched.plan()
+                if plan is None:  # only future arrivals left: advance time
+                    sched.tick()
+                    continue
+                self.step_calls += 1
+                self._step_timer.start()
+                scrub, cow = self._pages(plan.scrub_pages, plan.cow_pages)
+                tables = self._tensor(plan.page_tables)
+                if isinstance(plan, DecodeRun):
+                    self.decode_run_calls += 1
+                    if self._spec is not None:
+                        kept, sampled, bad = self._dispatch_spec(plan, inj, scrub, cow, tables)
+                        if inj is not None:
+                            inj.maybe_kill("pre_commit")
+                        sched.commit_spec(plan, kept, sampled, bad_rows=bad)
+                    else:
+                        self._step_shapes.add(("run",))
+                        # the plan's knobs on the device, or None when no
+                        # row samples (decided on the host)
+                        samp = device_sampling(plan.samp_temp, plan.samp_top_k,
+                                               plan.samp_top_p, plan.samp_seed, self.device)
+                        toks, pos = self._tensor(plan.tokens), self._tensor(plan.positions)
+                        sampled, bad_at, _ = self._guarded(inj, lambda: lm.paged_decode_loop(
+                            self.params, cont["cache"], toks, pos, tables, plan.n_steps,
+                            self.cfg, max_steps=scfg.decode_block, scrub_pages=scrub,
+                            cow_pages=cow, sampling=samp,
+                        ))
+                        sampled, bad_at = sampled.cpu().numpy(), bad_at.cpu().numpy()
+                        if inj is not None:
+                            inj.maybe_kill("pre_commit")
+                        sched.commit_run(plan, sampled, bad_at=bad_at)
+                else:
+                    self._step_shapes.add(("step",) + plan.tokens.shape)
+                    samp = device_sampling(plan.samp_temp, plan.samp_top_k, plan.samp_top_p,
+                                           plan.samp_seed, self.device)
+                    toks, positions = self._tensor(plan.tokens), self._tensor(plan.positions)
+                    logits, _ = self._guarded(inj, lambda: lm.paged_step(
+                        self.params, cont["cache"], toks, positions, tables, self.cfg,
+                        scrub_pages=scrub, cow_pages=cow,
+                    ))
+                    if inj is not None:
+                        mask = inj.poison_mask(plan.rows, plan.sample_mask)
+                        if mask is not None:
+                            poison = self._tensor(mask)[:, None, None]
+                            logits = torch.where(poison, float("nan"), logits)
+                    # each row samples at its own last valid chunk index,
+                    # keyed on that index's fed-stream position
+                    rows_idx = torch.arange(logits.shape[0], device=self.device)
+                    idx = self._tensor(plan.sample_idx).long()
+                    rows = logits[rows_idx, idx, :v]
+                    tok = sample_or_greedy(rows, samp, positions[rows_idx, idx])
+                    ok = torch.isfinite(rows).all(dim=-1)
+                    tok, ok = tok.cpu().numpy(), ok.cpu().numpy()
+                    if inj is not None:
+                        inj.maybe_kill("pre_commit")
+                    sched.commit(plan, tok, ok=ok)
+                self._note_step_time(self._step_timer.stop())
+        finally:
+            # a SimulatedCrash abandons the loop; the engine is then dead by
+            # contract, so recording the partial stats is harmless
+            self._merge_health(sched.stats())
+
+    def _dispatch_spec(self, plan: DecodeRun, inj, scrub, cow, tables):
+        """One draft-then-verify round for a decode plan.
+
+        The draft loop proposes ``k - 1`` greedy tokens on the cheap rung,
+        writing its KV into the target's paged cache; it is dispatched even
+        at ``k = 1`` so the run's scrub and copy-on-write happen once.  The
+        host builds the verify feed from the draft's tokens (the first
+        sync); one ``lm.paged_verify`` pass under the target config
+        rewrites every window position and samples the target's own token
+        at each index (the second sync).  Returns per-row kept counts, the
+        ``[B, decode_block]`` target tokens and per-row quarantine
+        verdicts; the scheduler commits the kept prefixes and rolls the
+        rejected suffixes' pages back (``commit_spec``)."""
+        scfg = self.scfg
+        cache = self._cont["cache"]
+        k = plan.n_steps
+        b = plan.tokens.shape[0]
+        n_draft = k - 1
+        self.spec_runs += 1
+        self._step_shapes.update((("draft",), ("verify",)))
+        toks, pos = self._tensor(plan.tokens), self._tensor(plan.positions)
+        draft_toks, draft_bad, _ = self._guarded(inj, lambda: lm.paged_decode_loop(
+            self._draft_params, cache, toks, pos, tables, n_draft, self.draft_cfg,
+            max_steps=scfg.decode_block, scrub_pages=scrub, cow_pages=cow,
+        ))
+        draft_toks, draft_bad = draft_toks.cpu().numpy(), draft_bad.cpu().numpy()
+        if inj is not None and n_draft:
+            mask = inj.draft_poison_mask(plan.rows)
+            if mask is not None:
+                # the draft loop's logits never leave its dispatch: force
+                # its watchdog verdict bad at step 0
+                draft_bad = np.where(mask, 0, draft_bad)
+        # the verify feed: the committed last token at index 0, the
+        # proposals at 1..k-1, positions p0..p0+k-1, padded to the
+        # decode_block width with position -1 (the null page, inert)
+        ver_toks = np.zeros((b, scfg.decode_block), np.int32)
+        ver_pos = np.full((b, scfg.decode_block), -1, np.int32)
+        for slot, req in enumerate(plan.rows):
+            if req is None:
                 continue
-            self.step_calls += 1
-            scrub, cow = self._pages(plan.scrub_pages, plan.cow_pages)
-            tables = self._tensor(plan.page_tables)
-            # the plan's knobs on the device, or None when no row samples
-            # (decided on the host, from the plan's numpy arrays)
-            samp = device_sampling(plan.samp_temp, plan.samp_top_k, plan.samp_top_p,
-                                   plan.samp_seed, self.device)
-            if isinstance(plan, DecodeRun):
-                self.decode_run_calls += 1
-                sampled, bad_at, cache = lm.paged_decode_loop(
-                    self.params, cache, self._tensor(plan.tokens),
-                    self._tensor(plan.positions), tables, plan.n_steps, self.cfg,
-                    max_steps=self.scfg.decode_block, scrub_pages=scrub, cow_pages=cow,
-                    sampling=samp,
-                )
-                sched.commit_run(plan, sampled.cpu().numpy(), bad_at=bad_at.cpu().numpy())
+            ver_toks[slot, 0] = plan.tokens[slot, 0]
+            ver_toks[slot, 1:k] = draft_toks[slot, :n_draft]
+            p0 = int(plan.positions[slot])
+            ver_pos[slot, :k] = np.arange(p0, p0 + k, dtype=np.int32)
+        samp = device_sampling(plan.samp_temp, plan.samp_top_k, plan.samp_top_p,
+                               plan.samp_seed, self.device)
+        vt, vp = self._tensor(ver_toks), self._tensor(ver_pos)
+        sampled, ok, _ = self._guarded(inj, lambda: lm.paged_verify(
+            self.params, cache, vt, vp, tables, self.cfg, sampling=samp,
+        ))
+        sampled, ok = sampled.cpu().numpy(), ok.cpu().numpy()
+        # acceptance and the watchdogs, on the host
+        kept = np.zeros((b,), np.int32)
+        bad = np.zeros((b,), bool)
+        for slot, req in enumerate(plan.rows):
+            if req is None:
+                continue
+            if n_draft and int(draft_bad[slot]) < n_draft:
+                bad[slot] = True  # non-finite draft logits: trust nothing
+                continue
+            a = spec_accept(draft_toks[slot], sampled[slot], k)
+            bad_idx = k
+            for j in range(k):
+                if not ok[slot, j]:
+                    bad_idx = j
+                    break
+            if bad_idx < a:
+                # non-finite target logits inside the kept prefix: keep the
+                # clean tokens before them and quarantine the row
+                bad[slot] = True
+                kept[slot] = bad_idx
             else:
-                positions = self._tensor(plan.positions)
-                logits, cache = lm.paged_step(
-                    self.params, cache, self._tensor(plan.tokens), positions, tables,
-                    self.cfg, scrub_pages=scrub, cow_pages=cow,
-                )
-                # each row samples at its own last valid chunk index, keyed
-                # on that index's fed-stream position
-                rows_idx = torch.arange(logits.shape[0], device=self.device)
-                idx = self._tensor(plan.sample_idx).long()
-                rows = logits[rows_idx, idx, :v]
-                tok = sample_or_greedy(rows, samp, positions[rows_idx, idx])
-                ok = torch.isfinite(rows).all(dim=-1)
-                sched.commit(plan, tok.cpu().numpy(), ok=ok.cpu().numpy())
-        cont["cache"] = cache
+                kept[slot] = a
+            self.spec_proposed += n_draft
+            self.spec_accepted += a - 1
+        self.spec_emitted += int(kept.sum())
+        return kept, sampled, bad
+
+    # ------------------------------------------------------- durability
+
+    #: serve-config fields a snapshot does not pin: where and how often to
+    #: snapshot and the watchdog threshold change no output byte
+    _SNAP_FREE_KNOBS = ("snapshot_dir", "snapshot_every", "snapshot_keep", "hang_threshold")
+
+    @staticmethod
+    def _scfg_from_state(d: dict) -> ServeConfig:
+        """The :class:`ServeConfig` of its JSON round-tripped ``asdict``
+        form, the nested :class:`SpecConfig` included."""
+        d = dict(d)
+        spec = d.pop("spec", None)
+        return ServeConfig(spec=None if spec is None else SpecConfig(**spec), **d)
+
+    def _snapshot_now(self, sched: Optional[Scheduler], ckpt_dir=None) -> str:
+        """Publish one crash-consistent snapshot (``checkpoint/manager.py``'s
+        atomic rename): the live scheduler at an iteration boundary, or
+        None between serve calls.  Returns the published directory."""
+        scfg = self.scfg
+        path = ckpt_dir or scfg.snapshot_dir
+        if path is None:
+            raise ValueError("no snapshot destination: set ServeConfig.snapshot_dir or "
+                             "pass ckpt_dir")
+        cont = self._ensure_cont()
+        extra = {
+            "snapshot_version": 1,
+            "kind": "engine_snapshot",
+            "serve_config": dataclasses.asdict(scfg),
+            "engine": {"rid": self._rid, "fallbacks": self.fallbacks,
+                       "health": dict(self._health)},
+            "allocator": cont["allocator"].export_state(),
+            "prefix": None if cont["prefix"] is None else cont["prefix"].export_state(),
+            "scheduler": None if sched is None else sched.export_state(),
+        }
+        inj = self._injector
+        step = self._snap_step
+        self._snap_step += 1
+        return checkpoint.save(
+            path, step, lm.export_decode_state(cont["cache"]), extra=extra,
+            keep=scfg.snapshot_keep,
+            pre_publish_hook=None if inj is None else (lambda: inj.maybe_kill("mid_save")),
+        )
+
+    def snapshot(self, ckpt_dir: Optional[str] = None) -> str:
+        """Publish a snapshot of the persistent continuous state (allocator,
+        prefix cache, paged KV) between serve calls; in-flight snapshots
+        are the serve loop's, with ``snapshot_every``.  Continuous mode
+        only."""
+        if self._resolve_prefill_mode() != "continuous":
+            raise ValueError("snapshots capture paged serving state: requires "
+                             "prefill_mode='continuous'")
+        return self._snapshot_now(None, ckpt_dir)
+
+    def load_snapshot(self, ckpt_dir: Optional[str] = None, step: Optional[int] = None) -> int:
+        """Warm restore: load a published snapshot into this engine,
+        replacing its continuous state (the weights stay: snapshots never
+        hold them).  The snapshot's serve config must equal this engine's
+        but for :data:`_SNAP_FREE_KNOBS`.  In-flight requests it held are
+        finished by :meth:`resume`.  Returns the loaded step."""
+        scfg = self.scfg
+        path = ckpt_dir or scfg.snapshot_dir
+        if path is None:
+            raise ValueError("no snapshot source: set ServeConfig.snapshot_dir or pass ckpt_dir")
+        manifest = checkpoint.load_manifest(path, step)
+        extra = manifest["extra"]
+        if extra.get("kind") != "engine_snapshot":
+            raise checkpoint.CheckpointError(
+                f"step {manifest['step']} in {path} is not an engine snapshot "
+                f"(kind={extra.get('kind')!r})"
+            )
+        if extra.get("snapshot_version") != 1:
+            raise checkpoint.CheckpointError(
+                f"unsupported engine snapshot version {extra.get('snapshot_version')!r}"
+            )
+        saved = dict(extra["serve_config"])
+        mine = dataclasses.asdict(scfg)
+        for key in self._SNAP_FREE_KNOBS:
+            saved.pop(key, None)
+            mine.pop(key, None)
+        if saved != mine:
+            diff = sorted(k for k in set(saved) | set(mine) if saved.get(k) != mine.get(k))
+            raise checkpoint.CheckpointError(
+                f"snapshot serve config does not match this engine (differing keys: {diff}) "
+                "— restore with the saved config (Engine.restore does this by default)"
+            )
+        like = lm.paged_cache_template(self.cfg, scfg.total_pages, scfg.page_size)
+        host_cache, manifest = checkpoint.restore(path, like, step=manifest["step"])
+        allocator = paged_cache.PageAllocator.from_state(extra["allocator"])
+        if self._injector is not None:
+            allocator.fault_hook = self._injector.alloc_hook
+        prefix = (None if extra["prefix"] is None
+                  else paged_cache.PrefixCache.from_state(allocator, extra["prefix"]))
+        self._cont = {"allocator": allocator, "prefix": prefix,
+                      "cache": lm.restore_decode_state(host_cache, self.device)}
+        eng = extra["engine"]
+        self._rid = int(eng["rid"])
+        self.fallbacks = int(eng["fallbacks"])
+        self._health = dict(eng["health"])
+        self._resume_state = extra["scheduler"]  # None for a between-calls snapshot
+        self._snap_step = int(manifest["step"]) + 1
+        self._last_snap_iter = None
+        return int(manifest["step"])
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, params, cfg, scfg: Optional[ServeConfig] = None,
+                step: Optional[int] = None, device=None) -> "Engine":
+        """Cold restore: a fresh engine from the latest (or ``step``-th)
+        published snapshot, its weights packed anew from the raw
+        ``params``/``cfg`` the caller holds, its allocator, prefix cache
+        and KV loaded, its in-flight requests staged for :meth:`resume`.
+        ``scfg`` defaults to the snapshot's own; an override may change
+        only the free knobs."""
+        manifest = checkpoint.load_manifest(ckpt_dir, step)
+        if scfg is None:
+            scfg = cls._scfg_from_state(manifest["extra"]["serve_config"])
+        engine = cls(params, cfg, scfg, device=device)
+        engine.load_snapshot(ckpt_dir, step=manifest["step"])
+        return engine
+
+    def resume(self, on_token=None, delivered=None) -> List[RequestResult]:
+        """Finish every in-flight request staged by :meth:`load_snapshot`/
+        :meth:`restore`, byte-identical to the uninterrupted serve (replay
+        re-derives every later token: keys depend on seed and fed-stream
+        position only).  Returns results ordered by rid.
+
+        ``on_token`` re-attaches streaming (one callable, or a ``{rid:
+        callable}`` dict); ``delivered`` (``{rid: n}``) is how many output
+        tokens the consumer received before the crash, so the stream
+        resumes at the first undelivered token.  Without it, delivery
+        resumes from the snapshot's count (at least once)."""
+        if self._resume_state is None:
+            raise RuntimeError("nothing to resume: the loaded snapshot held no in-flight "
+                               "requests (or resume() already ran)")
+        state = self._resume_state
+        self._resume_state = None
+        sched = self._make_scheduler()
+        reqs = sched.load_state(state)
+        for req in reqs:
+            if callable(on_token):
+                req.on_token = on_token
+            elif on_token is not None:
+                req.on_token = on_token.get(req.rid)
+            if delivered is not None and req.rid in delivered:
+                req.streamed = int(delivered[req.rid])
+        self._run_loop(sched)
+        results = [_result(r) for r in reqs]
+        self.last_results = results
+        return results

@@ -4,10 +4,11 @@ per-request page tables, the shared-prefix page cache, and the device
 page pools.
 
 The allocator and prefix cache are copies of the reference's numpy code
-(the port imports nothing of ``repro``), without the fault-injection
-hook, the speculative-decode rollback and the snapshot export of later
-slices.  Page 0 is the null page: never allocated, it pads every page
-table and absorbs padding-token writes with ``pos = -1``.
+(the port imports nothing of ``repro``), with its fault-injection hook
+(``PageAllocator.fault_hook``), the speculative-decode rollback
+(``truncate_to``) and the snapshot export (``export_state``/
+``from_state``).  Page 0 is the null page: never allocated, it pads every
+page table and absorbs padding-token writes with ``pos = -1``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ class PageAllocator:
         self._refs: Dict[int, int] = {}
         self._dirty: set = set()
         self.cow_count = 0  # lifetime copy-on-write duplications
+        # fault injection (serve/faults.py): called with the growth size
+        # before any page is popped in ensure()/cow(), so an injected
+        # raise leaves the allocator untouched; None in production
+        self.fault_hook = None
 
     # ------------------------------------------------------------- queries
 
@@ -72,6 +77,10 @@ class PageAllocator:
 
     def dirty_pages(self) -> frozenset:
         return frozenset(self._dirty)
+
+    def free_pages(self) -> Tuple[int, ...]:
+        """The free list (fault injection scribbles one of these)."""
+        return tuple(self._free)
 
     def slot_of(self, rid, pos: int) -> Tuple[int, int]:
         """Physical ``(page, slot)`` of logical position ``pos``."""
@@ -100,6 +109,8 @@ class PageAllocator:
         need = pages_for(n_tokens, self.page_size) - len(table)
         if need <= 0:
             return []
+        if self.fault_hook is not None:
+            self.fault_hook(need)  # may raise before any page is popped
         if need > len(self._free):
             raise ValueError(
                 f"out of KV pages: request {rid!r} needs {need} more, "
@@ -138,6 +149,8 @@ class PageAllocator:
         src = table[idx]
         if self._refs[src] == 1:
             return None
+        if self.fault_hook is not None:
+            self.fault_hook(1)
         if not self._free:
             raise ValueError(
                 f"out of KV pages: request {rid!r} needs a copy-on-write "
@@ -182,6 +195,37 @@ class PageAllocator:
         del self._refs[page]
         self._free.append(page)
         self._dirty.add(page)
+
+    def export_state(self) -> dict:
+        """JSON-able allocator state.  The free list keeps its order: the
+        pop order decides which page each later allocation lands on, so
+        restoring it exactly keeps a resumed serve byte-identical."""
+        return {
+            "n_pages": self.n_pages,
+            "page_size": self.page_size,
+            "free": list(self._free),
+            "tables": [[rid, list(t)] for rid, t in self._tables.items()],
+            "refs": [[p, r] for p, r in self._refs.items()],
+            "dirty": sorted(self._dirty),
+            "cow_count": self.cow_count,
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "PageAllocator":
+        """An allocator from :meth:`export_state` output (possibly through
+        JSON); ``fault_hook`` does not survive."""
+        a = cls(int(state["n_pages"]), int(state["page_size"]))
+        a._free = [int(p) for p in state["free"]]
+        a._tables = {rid: [int(p) for p in t] for rid, t in state["tables"]}
+        a._refs = {int(p): int(r) for p, r in state["refs"]}
+        a._dirty = set(int(p) for p in state["dirty"])
+        a.cow_count = int(state["cow_count"])
+        live = set(a._refs)
+        if set(a._free) & live or NULL_PAGE in live or NULL_PAGE in a._free:
+            raise ValueError("corrupt allocator snapshot: free/live overlap")
+        if set(a._free) | live != set(range(1, a.n_pages)):
+            raise ValueError("corrupt allocator snapshot: pages leaked or invented")
+        return a
 
 
 # ------------------------------------------------------ shared-prefix cache
@@ -270,6 +314,29 @@ class PrefixCache:
             "prefill_tokens_total": self.tokens_total,
             "prefill_tokens_saved": self.tokens_saved,
         }
+
+    _STATS = ("page_lookups", "page_hits", "insertions", "evictions", "tokens_total",
+              "tokens_saved")
+
+    def export_state(self) -> dict:
+        """JSON-able state: the entries in LRU to MRU order (eviction
+        order is part of deterministic replay) and the lifetime stats."""
+        return {"entries": [[h, p] for h, p in self._entries.items()],
+                **{k: getattr(self, k) for k in self._STATS}}
+
+    @classmethod
+    def from_state(cls, allocator: PageAllocator, state: dict) -> "PrefixCache":
+        """A cache over an allocator restored from the same snapshot: its
+        holds are in the allocator's refcounts already, so none is taken."""
+        pc = cls(allocator)
+        for h, p in state["entries"]:
+            page = int(p)
+            if allocator.refcount(page) < 1:
+                raise ValueError(f"corrupt prefix snapshot: entry on non-live page {page}")
+            pc._entries[h] = page
+        for k in cls._STATS:
+            setattr(pc, k, int(state[k]))
+        return pc
 
 
 # -------------------------------------------------------------- device pools

@@ -11,9 +11,13 @@ tokens per row (``lm.paged_decode_loop``).
 
 Each plan carries its rows' sampling knobs (``samp_*``, idle rows
 greedy), and each commit streams the newly committed tokens to the
-request's ``on_token`` callback.  Left out until their slices: the
-fault-injection hook, the speculative commit (``commit_spec``) and the
-snapshot export/load.
+request's ``on_token`` callback.  Everything of the reference's scheduler
+is here: an injected allocator fault (``serve/faults.py``) preempts its
+victim (``preempt(req, fault=True)``), :meth:`Scheduler.commit_spec`
+commits a speculative round with a per-row page rollback, and
+:meth:`Scheduler.export_state`/:meth:`Scheduler.load_state` (with
+:func:`request_state`/:func:`request_from_state`) carry the in-flight
+state through an engine snapshot.
 
 Token-stream contract: prompt positions ``0..s0-1`` are written during
 (chunked) prefill and the chunk holding ``s0-1`` samples the first output
@@ -30,6 +34,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.sampling import TOP_K_DISABLED, SamplingParams
+from repro_torch.serve.faults import InjectedAllocFault
 from repro_torch.serve.paged_cache import (
     NULL_PAGE,
     PageAllocator,
@@ -89,6 +94,7 @@ class Request:
     computed: int = 0  # cache positions written so far (prompt + fed decodes)
     out: List[int] = dataclasses.field(default_factory=list)
     state: str = WAITING
+    cancelled: bool = False  # a host-initiated cancel (carried by snapshots)
     slot: Optional[int] = None  # batch row while RUNNING
     finish_reason: Optional[str] = None  # terminal outcome (FINISH_*)
     preemptions: int = 0  # times preempted (pages released, re-queued)
@@ -142,6 +148,60 @@ class Request:
         return np.concatenate(
             [self.prompt, np.asarray(self.out, np.int32)]
         ).astype(np.int32)
+
+
+def request_state(req: Request) -> dict:
+    """JSON-able state of one request, everything a byte-exact resume
+    needs: sampling keys derive from (seed, fed-stream position) and the
+    fed stream is ``prompt ‖ out[:-1]``.  ``on_token`` is process-local and
+    not captured; ``streamed`` is, so a resumed stream starts at the first
+    undelivered token."""
+    return {
+        "rid": int(req.rid),
+        "prompt": [int(t) for t in req.prompt],
+        "max_new_tokens": int(req.max_new_tokens),
+        "arrival": int(req.arrival),
+        "deadline": req.deadline,
+        "cancel_at": req.cancel_at,
+        "sampling": dataclasses.asdict(req.sampling),
+        "stop_tokens": (sorted(int(t) for t in req.stop_tokens)
+                        if req.stop_tokens is not None else None),
+        "computed": int(req.computed),
+        "out": [int(t) for t in req.out],
+        "state": req.state,
+        "slot": req.slot,
+        "finish_reason": req.finish_reason,
+        "preemptions": int(req.preemptions),
+        "committed": int(req.committed),
+        "admitted_at": int(req.admitted_at),
+        "wait_since": int(req.wait_since),
+        "cancelled": bool(req.cancelled),
+        "hashes": list(req.hashes) if req.hashes is not None else None,
+        "reg_pages": int(req.reg_pages),
+        "cow_reserved": int(req.cow_reserved),
+        "streamed": int(req.streamed),
+    }
+
+
+def request_from_state(d: dict) -> Request:
+    """The :class:`Request` of :func:`request_state` output."""
+    req = Request(
+        rid=int(d["rid"]), prompt=np.asarray(d["prompt"], np.int32),
+        max_new_tokens=int(d["max_new_tokens"]), arrival=int(d["arrival"]),
+        deadline=d["deadline"], cancel_at=d["cancel_at"],
+        sampling=SamplingParams(**d["sampling"]),
+        stop_tokens=frozenset(d["stop_tokens"]) if d["stop_tokens"] is not None else None,
+    )
+    for key in ("computed", "preemptions", "committed", "admitted_at", "wait_since",
+                "reg_pages", "cow_reserved", "streamed"):
+        setattr(req, key, int(d[key]))
+    req.out = [int(t) for t in d["out"]]
+    req.state = d["state"]
+    req.slot = d["slot"]
+    req.finish_reason = d["finish_reason"]
+    req.cancelled = bool(d["cancelled"])
+    req.hashes = list(d["hashes"]) if d["hashes"] is not None else None
+    return req
 
 
 @dataclasses.dataclass
@@ -250,7 +310,8 @@ class Scheduler:
         # admission guard that keeps on-demand growth failure-free
         self._committed = 0
         # ---- robustness stats (merged into Engine.health()) ----
-        self.preemptions = 0  # aging preemptions
+        self.preemptions = 0  # total (aging + fault-driven)
+        self.preemptions_fault = 0  # of which: injected allocator faults
         self.quarantines = 0  # rows finished by the NaN watchdog
         self.queue_high_water = 0  # max bounded-queue depth observed
         self.finished_by_reason: Dict[str, int] = {}
@@ -315,12 +376,76 @@ class Scheduler:
         """Robustness counters (Engine.health() accumulates these)."""
         out = {
             "preemptions": self.preemptions,
+            "preemptions_fault": self.preemptions_fault,
             "quarantines": self.quarantines,
             "queue_high_water": self.queue_high_water,
         }
         for reason in FINISH_REASONS:
             out[f"finished_{reason}"] = self.finished_by_reason.get(reason, 0)
         return out
+
+    # ------------------------------------------------ snapshot (durability)
+
+    def export_state(self) -> dict:
+        """JSON-able state at an iteration boundary (every commit applied,
+        no plan outstanding).  The plan buffers are not captured: they are
+        functions of the page tables and the requests, rebuilt by the
+        first plan after a restore.  Only in-flight requests are exported."""
+        reqs = list(self.pending) + list(self.queue) + [r for r in self.slots if r is not None]
+        return {
+            "iteration": int(self.iteration),
+            "committed": int(self._committed),
+            "preemptions": int(self.preemptions),
+            "preemptions_fault": int(self.preemptions_fault),
+            "quarantines": int(self.quarantines),
+            "queue_high_water": int(self.queue_high_water),
+            "finished_by_reason": dict(self.finished_by_reason),
+            "slots": [r.rid if r is not None else None for r in self.slots],
+            "queue": [r.rid for r in self.queue],
+            "pending": [r.rid for r in self.pending],
+            "requests": [request_state(r) for r in reqs],
+        }
+
+    def load_state(self, state: dict) -> List[Request]:
+        """Load :meth:`export_state` output into this fresh scheduler, whose
+        allocator comes from the same snapshot (running rows are checked
+        against its page tables).  Returns the requests ordered by rid."""
+        if self.has_work() or self.iteration != 0:
+            raise SchedulerInvariantError(
+                "load_state requires a fresh scheduler (it has work or a non-zero "
+                "iteration clock)"
+            )
+        if len(state["slots"]) != self.max_batch:
+            raise SchedulerInvariantError(
+                f"snapshot has {len(state['slots'])} batch rows, scheduler has "
+                f"{self.max_batch} — ServeConfig mismatch"
+            )
+        by_rid = {int(d["rid"]): request_from_state(d) for d in state["requests"]}
+        self.iteration = int(state["iteration"])
+        self._committed = int(state["committed"])
+        self.preemptions = int(state["preemptions"])
+        self.preemptions_fault = int(state["preemptions_fault"])
+        self.quarantines = int(state["quarantines"])
+        self.queue_high_water = int(state["queue_high_water"])
+        self.finished_by_reason = dict(state["finished_by_reason"])
+        self.pending = [by_rid[rid] for rid in state["pending"]]
+        self.queue = [by_rid[rid] for rid in state["queue"]]
+        live = set(self.allocator.live())
+        for slot, rid in enumerate(state["slots"]):
+            if rid is None:
+                continue
+            req = by_rid[rid]
+            if req.state != RUNNING or req.slot != slot:
+                raise SchedulerInvariantError(
+                    f"snapshot slot {slot} disagrees with request {rid} "
+                    f"(state={req.state!r}, slot={req.slot})"
+                )
+            if rid not in live:
+                raise SchedulerInvariantError(
+                    f"running request {rid} has no page table in the restored allocator"
+                )
+            self.slots[slot] = req
+        return [by_rid[rid] for rid in sorted(by_rid)]
 
     # ------------------------------------------------- abort / preempt paths
 
@@ -347,7 +472,7 @@ class Scheduler:
             self.finished_by_reason.get(reason, 0) + 1
         )
 
-    def preempt(self, req: Request) -> None:
+    def preempt(self, req: Request, *, fault: bool = False) -> None:
         """Preempt-and-recompute: publish ``req``'s fully computed prompt
         pages to the prefix cache (readmission re-adopts them), release
         every page, reset progress, and re-queue at the TAIL — so the
@@ -374,6 +499,8 @@ class Scheduler:
         req.preemptions += 1
         req.wait_since = self.iteration
         self.preemptions += 1
+        if fault:
+            self.preemptions_fault += 1
         self.queue.append(req)
 
     def _reap(self) -> None:
@@ -388,7 +515,7 @@ class Scheduler:
         ):
             if req.state == FINISHED:
                 continue
-            if req.cancel_at is not None and it >= req.cancel_at:
+            if req.cancelled or (req.cancel_at is not None and it >= req.cancel_at):
                 self._abort(req, FINISH_CANCELLED)
             elif req.deadline is not None and it >= req.deadline:
                 self._abort(req, FINISH_DEADLINE)
@@ -602,7 +729,11 @@ class Scheduler:
 
     def _grow_for_write(self, req, end: int, fresh, cow_pairs) -> None:
         """Allocate pages backing positions up to ``end`` and privatize
-        shared pages in the write range."""
+        shared pages in the write range.  An injected allocator fault
+        (raised before any pop, so the allocator is clean) propagates to
+        the planner, which preempts the victim and drops its partial
+        ``cow_pairs``: its pages are freed, and a copy into one would
+        clobber a page a later row may take fresh in the same step."""
         slot = req.slot
         grown = self.allocator.ensure(req.rid, end)
         self._committed -= len(grown)
@@ -647,7 +778,21 @@ class Scheduler:
             positions[slot, :n] = np.arange(
                 req.computed, req.computed + n, dtype=np.int32
             )
-            self._grow_for_write(req, req.computed + n, fresh, cow_pairs)
+            n_cow0 = len(cow_pairs)
+            try:
+                self._grow_for_write(req, req.computed + n, fresh, cow_pairs)
+            except InjectedAllocFault:
+                # fault-driven preemption: the row becomes padding, the
+                # co-batched rows carry on
+                del cow_pairs[n_cow0:]
+                tokens[slot] = 0
+                positions[slot] = -1
+                self._sample_idx[slot] = 0
+                self._sample_mask[slot] = False
+                self.preempt(req, fault=True)
+                self._sync_table_row(slot, None)
+                self._sync_samp_row(slot, None)
+                continue
             self._sync_table_row(slot, req)
             self._sync_samp_row(slot, req)
             self._sample_idx[slot] = n - 1
@@ -668,6 +813,8 @@ class Scheduler:
                 f"{self.cow_width} (rows="
                 f"{[r.rid if r else None for r in rows]})"
             )
+        if all(r is None for r in rows):
+            return None  # every row was preempted mid-plan
         self._scrub[:] = NULL_PAGE
         self._scrub[: len(fresh)] = fresh
         self._cow[:] = NULL_PAGE
@@ -723,7 +870,17 @@ class Scheduler:
                 continue
             tokens[slot, 0] = req.out[-1]
             positions[slot] = req.computed
-            self._grow_for_write(req, req.computed + k, fresh, cow_pairs)
+            n_cow0 = len(cow_pairs)
+            try:
+                self._grow_for_write(req, req.computed + k, fresh, cow_pairs)
+            except InjectedAllocFault:
+                del cow_pairs[n_cow0:]
+                tokens[slot, 0] = 0
+                positions[slot] = -1
+                self.preempt(req, fault=True)
+                self._sync_table_row(slot, None)
+                self._sync_samp_row(slot, None)
+                continue
             self._sync_table_row(slot, req)
             self._sync_samp_row(slot, req)
             rows[slot] = req
@@ -741,6 +898,8 @@ class Scheduler:
                 f"{self.cow_width} (n_steps={k}, rows="
                 f"{[r.rid if r else None for r in rows]})"
             )
+        if all(r is None for r in rows):
+            return None  # every row was preempted mid-plan
         self._run_scrub[:] = NULL_PAGE
         self._run_scrub[: len(fresh)] = fresh
         self._run_cow[:] = NULL_PAGE
@@ -902,3 +1061,70 @@ class Scheduler:
             elif len(req.out) >= req.max_new_tokens:
                 self._finish(slot, req, FINISH_LENGTH)
             self._note_progress(req)
+
+    def commit_spec(
+        self,
+        run: DecodeRun,
+        kept: np.ndarray,
+        sampled: np.ndarray,
+        bad_rows: Optional[np.ndarray] = None,
+    ) -> None:
+        """Apply a speculative draft-then-verify round of a decode plan.
+
+        ``sampled[slot, :k]`` holds the target's verified tokens of the
+        window, ``kept[slot]`` how many of them equal solo decode (>= 1
+        for a healthy row, fewer for a faulted one).  Unlike
+        :meth:`commit_run`'s whole-batch rewind, truncation is per row:
+
+        * a stop token inside the kept prefix cuts the row there (kept,
+          ``"stop"``); a fault after the stop is moot;
+        * ``bad_rows`` (non-finite draft or target logits): the row keeps
+          its ``kept`` clean tokens and is quarantined;
+        * every surviving row's page table is rolled back to its committed
+          length (``PageAllocator.truncate_to``): pages backing only the
+          rejected suffix return to the pool and are re-charged to the
+          row's lifetime reservation, and stale in-page KV past the cut is
+          causally masked until overwritten;
+        * the clock advances by the largest keep (>= 1), never past the
+          planner's ``n_steps``.
+
+        Committed tokens stream through ``on_token`` as in :meth:`commit`."""
+        advance = 1
+        for slot, req in enumerate(run.rows):
+            if req is None:
+                continue
+            n_keep = int(kept[slot])
+            bad = bad_rows is not None and bool(bad_rows[slot])
+            stopped = False
+            if req.stop_tokens:
+                for j in range(n_keep):
+                    if int(sampled[slot, j]) in req.stop_tokens:
+                        n_keep = j + 1
+                        stopped = True
+                        bad = False  # the fault landed after the stop
+                        break
+            req.computed += n_keep
+            req.out.extend(int(x) for x in sampled[slot, :n_keep])
+            advance = max(advance, n_keep)
+            if bad:
+                self._quarantine(slot, req)
+                self._note_progress(req)
+                continue
+            self._register_prefix(req)
+            if stopped:
+                self._finish(slot, req, FINISH_STOP)
+                self._note_progress(req)
+                continue
+            if len(req.out) >= req.max_new_tokens:
+                self._finish(slot, req, FINISH_LENGTH)
+                self._note_progress(req)
+                continue
+            self._note_progress(req)
+            dropped = self.allocator.truncate_to(req.rid, req.computed)
+            if dropped:
+                # re-grown if the row runs on: re-charge them to the
+                # reservation (the free pool grew by as much)
+                self._committed += len(dropped)
+                req.committed += len(dropped)
+                self._table_stale[slot] = True
+        self.iteration += advance

@@ -258,3 +258,33 @@ def generate_match(jcfg, tcfg, params, tparams, wire, kv_dtype, mode, **samp):
     assert teng.decode_calls == GEN_NEW
     assert all(c.launches == 0 for c in ops.counters().values())
     return got, teng
+
+
+# speculative decoding: the serve shape of tests/test_spec_decode.py
+# (max_seq 48) over this suite's prompts and arrivals, 10 new tokens
+SPEC_SERVE = dict(max_seq=48, page_size=8, max_batch=2, prefill_chunk=4)
+SPEC_NEW = 10
+
+
+def spec_match(jcfg, tcfg, params, tparams, wire, kv_dtype, draft, **samp):
+    """One cell of the speculative matrix: the port's spec engine (CPU)
+    serves the tokens of the port's plain continuous engine and of the
+    reference's spec engine (gather path), with the reference's
+    ``spec_stats()``.  Returns the port's spec engine."""
+    prompts = prompts_for(jcfg.vocab)
+    kw = dict(SPEC_SERVE, **PACKED, wire_dtype=wire, kv_dtype=kv_dtype, **samp)
+    jspec = jengine.SpecConfig(draft=draft, draft_nnz=2)
+    jeng = jengine.Engine(params, jcfg, jengine.ServeConfig(paged_attn="gather", spec=jspec,
+                                                            **kw))
+    want = jeng.generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
+    plain = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu"
+                           ).generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
+    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
+        spec=tengine.SpecConfig(draft=draft, draft_nnz=2), **kw), device="cpu")
+    got = teng.generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(got[i], plain[i], err_msg=f"request {i}: spec != plain")
+        np.testing.assert_array_equal(got[i], want[i], err_msg=f"request {i}: != reference")
+    assert teng.spec_stats() == jeng.spec_stats()
+    assert teng.spec_stats()["spec_runs"] > 0 and teng.paged_compiles == 3
+    return teng

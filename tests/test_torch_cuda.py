@@ -1330,3 +1330,148 @@ def test_gather_equals_fused_on_cuda(cuda, arch):
         assert (n_attn > 0) == (attn == "fused")
     for g, f in zip(outs["gather"], outs["fused"]):
         np.testing.assert_array_equal(g, f)
+
+
+# ---------------------------------------------- speculative decoding's shapes
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8_kv", "native_kv"])
+@pytest.mark.parametrize("mode", ["gqa", "latent"])
+def test_paged_attn_rows_bitwise_independent_of_window(cuda, int8, mode):
+    """Speculative decoding's verify pass runs #6 over a ``decode_block``
+    = 16 window where plain decode runs one query: a query at each index
+    of an S = 16 window gives the same bits as that query alone at S = 1
+    (same cache, pages of 16, splits over a table wider than one), GQA at
+    granite-3-8b's head shape and MLA's latent mode at minicpm3-4b's."""
+    p_cnt = 2 * paged_attn.PAGES_PER_SPLIT + 3
+    if mode == "gqa":
+        q, k, v, pos, tables, q_pos, kw = _tc_case(cuda, 4, 16, 4, 128, 8, int8, p_cnt)
+        tc = paged_attn.PAGED_ATTN_TC
+    else:
+        q, k, pos, tables, q_pos, kw = _latent_case(cuda, 16, int8, p_cnt, 16)
+        v, tc = None, paged_attn.PAGED_ATTN_LATENT_TC
+    before = tc.launches
+    full = paged_attn.paged_attn_cuda(q, k, v, pos, tables, q_pos, **kw)
+    for j in range(16):
+        one = paged_attn.paged_attn_cuda(q[:, j:j + 1].contiguous(), k, v, pos, tables,
+                                         q_pos[:, j:j + 1].contiguous(), **kw)
+        assert torch.equal(one[:, 0], full[:, j]), j
+    assert tc.launches == before + 17
+
+
+SPEC_INT8_LINEARS = (("granite-3-8b", "wq", 4096, 4096), ("granite-3-8b", "gate", 4096, 12800),
+                     ("granite-3-8b", "down", 12800, 4096))
+SPEC_NATIVE_LINEARS = (("minicpm3-4b", "q_down", 2560, 768),
+                       ("minicpm3-4b", "kv_down", 2560, 288),
+                       ("minicpm3-4b", "gate", 2560, 6400), ("minicpm3-4b", "down", 6400, 2560))
+DRAFT_ROWS = (1, 4, 16)  # a draft pass reads max_batch rows (4 on the card's paths)
+
+
+@pytest.mark.parametrize("arch,name,k,n", SPEC_INT8_LINEARS, ids=lambda v: str(v))
+def test_int8_tc_draft_nnz2_against_nnz4(cuda, arch, name, k, n):
+    """The ``nnz`` draft on the int8 wire: #3 with activations DAP-packed
+    at NNZ 2 against weights packed at NNZ 4, at granite-3-8b's full-width
+    shapes: on the tc body, int32 accumulators and the f32 output bit for
+    bit against the plain version."""
+    cfg_a, cfg_w = dbb.DBBConfig(2, 8), dbb.DBBConfig(4, 8)
+    w = (torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+    wv, wm, ws = ref.pack_weight_int8(w, cfg_w)
+    w_dense = ref.decode_w(wv, wm, cfg_w)
+    x = torch.randn((max(DRAFT_ROWS), k), generator=cuda, device="cuda").to(torch.bfloat16)
+    xv, xm, xs = ops.dap_pack_int8(x, 2, 8, act_scale="per_row")
+    assert xv.shape[-1] == 2
+    before = (dbb_matmul.AW_INT8.launches, dbb_matmul.AW_INT8_TC.launches)
+    for m in DRAFT_ROWS:
+        acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        y = dbb_matmul.dbb_matmul_aw_int8_cuda(xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg_a, cfg_w,
+                                               acc_out=acc)
+        want = ref.dbb_matmul_aw_int8_ref(xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg_a, cfg_w)
+        assert torch.equal(acc, ref.int8_acc(ref.decode_a(xv[:m], xm[:m], cfg_a), w_dense)), m
+        assert torch.equal(y, want), m
+    n_calls = len(DRAFT_ROWS)
+    assert (dbb_matmul.AW_INT8.launches, dbb_matmul.AW_INT8_TC.launches) == (
+        before[0] + n_calls, before[1] + n_calls)
+
+
+@pytest.mark.parametrize("arch,name,k,n", SPEC_NATIVE_LINEARS, ids=lambda v: str(v))
+def test_native_tc_draft_nnz2_against_nnz4(cuda, arch, name, k, n):
+    """The ``nnz`` draft on the native wire: #4 with bf16 activations
+    DAP-packed at NNZ 2 against weights at NNZ 4, at minicpm3-4b's
+    full-width shapes: on the tc body, the bf16 output within 0.0156 of
+    the plain version and the f32 output within 1e-5 of its largest."""
+    cfg_a, cfg_w = dbb.DBBConfig(2, 8), dbb.DBBConfig(4, 8)
+    w = (torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+    wv, wm = ops.pack_weight(w, cfg_w)
+    x = torch.randn((max(DRAFT_ROWS), k), generator=cuda, device="cuda").to(torch.bfloat16)
+    xv, xm = ops.dap_pack(x, 2, 8)
+    before = (dbb_matmul.AW_NATIVE.launches, dbb_matmul.AW_NATIVE_TC.launches)
+    for m in DRAFT_ROWS:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = dbb_matmul.dbb_matmul_aw_cuda(xv[:m], xm[:m], wv, wm, cfg_a, cfg_w,
+                                                out_dtype=out_dtype).float()
+            want = ref.dbb_matmul_aw_ref(xv[:m], xm[:m], wv, wm, cfg_a, cfg_w,
+                                         out_dtype=out_dtype).float()
+            err = (got - want).abs().max().item()
+            tol = 0.0156 if out_dtype == torch.bfloat16 else 1e-5 * want.abs().max().item() + 1e-6
+            assert err <= tol, (m, out_dtype, err)
+    n_calls = 2 * len(DRAFT_ROWS)
+    assert (dbb_matmul.AW_NATIVE.launches, dbb_matmul.AW_NATIVE_TC.launches) == (
+        before[0] + n_calls, before[1] + n_calls)
+
+
+@pytest.mark.parametrize("arch,wire,draft", [("granite_3_8b", "int8", "nnz"),
+                                             ("granite_3_8b", "int8", "int8_wire"),
+                                             ("minicpm3_4b", "native", "int8_wire")])
+def test_spec_engine_equals_plain_on_cuda(cuda, arch, wire, draft):
+    """A spec engine serves the plain engine's tokens on the card under
+    ``awdbb`` (bf16 smoke configs, 2 layers): the verify pass's 16-wide
+    window reproduces one-token decode bit for bit.  The minicpm3-4b
+    engine drafts on the int8 wire (#2/#3) while it verifies on the native
+    one (#1/#4)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, ServeConfig, SpecConfig
+
+    cfg, params = _small_engine_params(arch, "awdbb")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 20, 33)]
+    kw = dict(prefill_mode="continuous", pack_weights=True, max_seq=96, page_size=16,
+              max_batch=4, prefill_chunk=16, wire_dtype=wire, kv_dtype=wire)
+    plain = Engine(params, cfg, ServeConfig(**kw), device="cuda").generate_requests(
+        prompts, 24, arrivals=[0, 1, 2, 3])
+    ops.reset_counters()
+    eng = Engine(params, cfg, ServeConfig(spec=SpecConfig(draft=draft), **kw), device="cuda")
+    out = eng.generate_requests(prompts, 24, arrivals=[0, 1, 2, 3])
+    for i, (a, b) in enumerate(zip(out, plain)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+    assert eng.spec_stats()["spec_runs"] > 0 and eng.spec_stats()["proposed"] > 0
+    counts = ops.counters()
+    assert all(c.plain == 0 for c in counts.values())
+    if draft == "int8_wire" and wire == "native":
+        assert counts["dbb_matmul_aw_int8"].launches > 0 and counts["dbb_matmul_aw"].launches > 0
+
+
+@pytest.mark.parametrize("arch", ["granite_3_8b", "minicpm3_4b"])
+def test_fused_fault_falls_back_to_gather_on_cuda(cuda, arch):
+    """The injected fused-kernel fault on the card: the engine switches to
+    gather one way and serves the fault-free fused engine's tokens (under
+    ``wdbb``, where gather equals fused on the card)."""
+    import numpy as np
+
+    from repro_torch.serve import faults
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, params = _small_engine_params(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 20)]
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=64, page_size=16,
+                       max_batch=2, prefill_chunk=8, wire_dtype="native", kv_dtype="int8",
+                       paged_attn="fused")
+    want = Engine(params, cfg, scfg, device="cuda").generate_requests(prompts, 8,
+                                                                      arrivals=[0, 3, 1])
+    eng = Engine(params, cfg, scfg, device="cuda")
+    eng.set_faults(faults.FaultConfig(seed=0, fail_fused=True))
+    got = eng.generate_requests(prompts, 8, arrivals=[0, 3, 1])
+    assert eng.fallbacks == 1 and eng.cfg.sparsity.paged_attn == "gather"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -12,10 +12,10 @@ ATen could flip a near-tied argmax on other seeds.  The port's own
 invariants hold byte-exactly inside the port: continuous == each request
 served alone, ``decode_block=1`` == ``decode_block=16``, and a call that
 reuses cached prompt pages == the cold call.  Also the guards: no CUDA
-device without ``device="cpu"``, the settings not ported yet raise
-``NotImplementedError``, and each setting an earlier slice refused
-(stepped, auto, unpacked, sampled, gather) now constructs as the
-reference's does and serves the reference's tokens."""
+device without ``device="cpu"``, and each setting an earlier slice refused
+(stepped, auto, unpacked, sampled, gather, speculative decoding,
+periodic snapshots) now constructs as the reference's does and serves
+the reference's tokens."""
 
 import dataclasses
 
@@ -76,39 +76,42 @@ def test_engine_without_cuda_raises(weights, monkeypatch):
         tengine.Engine(tparams, tcfg, tengine.ServeConfig(**SERVE, **PACKED, wire_dtype="int8"))
 
 
-SLICE_LIMITS = {  # fixed ids: every xdist worker must collect the same names
-    "spec": dict(spec="draft"),
-    "snapshots": dict(snapshot_every=4, snapshot_dir="snapshots"),
-}
-
-
-@pytest.mark.parametrize("name", list(SLICE_LIMITS))
-def test_slice_limits_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.ServeConfig(**SLICE_LIMITS[name])
-
-
-# settings earlier slices refused, now served; fixed ids for xdist
+# settings earlier slices refused, now served; fixed ids for xdist ("spec"
+# and "snapshots" raised NotImplementedError until speculative decoding and
+# snapshots were ported; "spec" names its SpecConfig, "snapshots" writes
+# into the test's temporary directory)
 LIFTED = {
     "stepped": dict(prefill_mode="stepped", pack_weights=True, wire_dtype="int8"),
     "auto": dict(prefill_mode="auto"),
     "unpacked": dict(prefill_mode="continuous", pack_weights=False),
     "sampled": dict(PACKED, wire_dtype="int8", temperature=0.7, seed=11),
     "gather": dict(PACKED, wire_dtype="int8", paged_attn="gather"),
+    "spec": dict(PACKED, wire_dtype="int8", spec="nnz"),
+    "snapshots": dict(PACKED, wire_dtype="int8", snapshot_every=4, snapshot_dir="snapshots"),
 }
 
 
 @pytest.mark.parametrize("name", list(LIFTED))
-def test_lifted_limits_serve(weights, name):
+def test_lifted_limits_serve(weights, name, tmp_path):
     """The config constructs equal to the reference's, field for field,
     and a short CPU serve gives the reference's tokens: one-shot
     ``generate`` for the stepped and auto modes, continuous
     ``generate_requests`` otherwise."""
     jcfg, tcfg, params, tparams = weights
     kw = dict(SERVE, **LIFTED[name])
-    ref, port = jengine.ServeConfig(**kw), tengine.ServeConfig(**kw)
+    jkw, tkw = dict(kw), dict(kw)
+    if "spec" in kw:
+        jkw["spec"] = jengine.SpecConfig(draft=kw["spec"])
+        tkw["spec"] = tengine.SpecConfig(draft=kw["spec"])
+    if "snapshot_dir" in kw:
+        jkw["snapshot_dir"] = str(tmp_path / "reference")
+        tkw["snapshot_dir"] = str(tmp_path / "port")
+    ref, port = jengine.ServeConfig(**jkw), tengine.ServeConfig(**tkw)
     for f in dataclasses.fields(jengine.ServeConfig):
-        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        if f.name == "spec" and ref.spec is not None:
+            assert dataclasses.asdict(port.spec) == dataclasses.asdict(ref.spec)
+        elif f.name != "snapshot_dir":
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
     jeng = jengine.Engine(params, jcfg, ref)
     teng = tengine.Engine(tparams, tcfg, port, device="cpu")
     prompts = prompts_for(jcfg.vocab)
@@ -123,11 +126,21 @@ def test_lifted_limits_serve(weights, name):
     got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+    if port.spec is not None:
+        assert teng.spec_stats() == jeng.spec_stats() and teng.spec_runs > 0
+    if port.snapshot_every:
+        import os
+
+        from repro_torch.checkpoint import manager
+
+        assert manager.all_steps(port.snapshot_dir)
+        assert sorted(os.listdir(port.snapshot_dir)) == sorted(os.listdir(ref.snapshot_dir))
 
 
 def test_non_dense_family_and_sampling_raise(weights):
-    """``ssm`` still raises, naming what is left; sampled decoding is
-    ported, so a sampling temperature constructs."""
+    """``ssm`` still raises, naming what is left (the only limit left
+    besides hybrid and encdec); sampled decoding is ported, so a sampling
+    temperature constructs."""
     _, tcfg, _, tparams = weights
     with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
         tengine.Engine(tparams, dataclasses.replace(tcfg, family="ssm"),
