@@ -76,6 +76,18 @@ non-zero and prints no result:
    restored from its last snapshot and resumed, equal to the
    uninterrupted serve; ``health()``'s step p50/p99 and a snapshot's size
    and time on disk.
+8. ``phase_recurrent``: mamba2-130m (native and int8 wire) and
+   hymba-1.5b (int8 wire and KV, native wire and KV) at full width, each
+   serving 8 prompts of 64 tokens + 32 new through ``Engine.generate``
+   (stepped, by ``auto``), launches counted per pass, a fresh engine
+   re-serving byte-identically; mamba2-130m's chunked ``lm.forward`` over
+   512 tokens in f32 against stepped ``decode_step`` (the SSD duality).
+   The kernel phases also hold #1-#4 at the mixers' ``in_proj``/
+   ``out_proj`` shapes (hymba's 1600 -> 6482 through #2/#3's guarded
+   column tail), in the record under ``"shapes"``.
+9. ``phase_encdec``: whisper-base at full width on the native wire:
+   4 x 1500 frames encoded, then 32 greedy ``decode_step`` calls over the
+   ring, launches counted, a second run byte-identical.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,18 +119,30 @@ PATHS = (("granite_3_8b", "int8", "int8", None), ("minicpm3_4b", "native", "nati
          ("granite_moe_1b_a400m", "native", "native", None),
          ("qwen2_vl_72b", "int8", "int8", None), ("starcoder2_15b", "native", "native", None),
          ("phi3_5_moe_42b_a6_6b", "native", "native", 8))
+# whisper-base's encoder rows: 4 requests of 1500 frames (phase_encdec);
+# the kernel phases also hold its encoder's DAP forms and linears at this M
+WHISPER_B, WHISPER_NEW = 4, 32
+WHISPER_ENC_ROWS = WHISPER_B * 1500
 # the archs whose wq, wk and wv carry a bias: the kernel phases give those a
 # random non-zero one (the inits draw zeros)
 QKV_BIAS_ARCHS = ("qwen2-vl-72b", "qwen1.5-110b", "starcoder2-15b")
-# (K, call sites, forms of DAP (#5) served there) on the main paths and at
-# qwen1.5-110b's down input
+# (K, call sites, forms of DAP (#5) served there) on the main paths, the
+# recurrent and enc-dec phases and at qwen1.5-110b's down input
 DAP_WIDTHS = (
-    (768, "minicpm3 q_up input", ("dap_prune",)),
+    (512, "whisper wo and cross wq input; attention and MLP input, the encoder output",
+     ("dap_prune", "dap_pack")),
+    (768, "minicpm3 q_up input; mamba2 in_proj input", ("dap_prune", "dap_prune_int8")),
     (1024, "granite-moe wo and MoE input; attention input", ("dap_prune", "dap_pack")),
+    (1536, "mamba2 out_proj input", ("dap_prune", "dap_prune_int8")),
+    (1600, "hymba wo and in_proj input; attention and MLP input",
+     ("dap_prune", "dap_pack", "dap_prune_int8", "dap_pack_int8")),
+    (2048, "whisper down input", ("dap_pack",)),
     (2560, "minicpm3 wo input; attention and MLP input", ("dap_prune", "dap_pack")),
+    (3200, "hymba out_proj input", ("dap_prune", "dap_prune_int8")),
     (4096, "granite-3-8b wo input; attention and MLP input", ("dap_prune_int8",
                                                                "dap_pack_int8")),
     (4096, "phi3.5-moe wo and MoE input; attention input", ("dap_prune", "dap_pack")),
+    (5504, "hymba down input", ("dap_pack", "dap_pack_int8")),
     (6144, "starcoder2 wo input; attention and MLP input", ("dap_prune", "dap_pack")),
     (6400, "minicpm3 down input", ("dap_pack",)),
     (8192, "qwen2-vl and qwen1.5 wo input; attention and MLP input", ("dap_prune_int8",
@@ -128,9 +152,15 @@ DAP_WIDTHS = (
     (29568, "qwen2-vl down input", ("dap_pack_int8",)),
     (49152, "qwen1.5-110b down input", ("dap_pack_int8",)),
 )
-# the widths whose per-row forms are also held at M = 512 (a solo prefill's
-# rows), rows bitwise equal to M = 4's: K = 49152 takes two blocks a row
-DAP_LONG_ROWS = (29568, 49152)
+# the widths whose forms are also held at a long M, rows bitwise equal to M =
+# 4's: {K: (M, forms)}: the per-row forms at a solo prefill's 512 rows (K =
+# 49152 takes two blocks a row), whisper's encoder forms at its 6000 rows
+DAP_LONG_ROWS = {
+    512: (WHISPER_ENC_ROWS, ("dap_prune", "dap_pack")),
+    2048: (WHISPER_ENC_ROWS, ("dap_pack",)),
+    29568: (512, ("dap_prune_int8", "dap_pack_int8")),
+    49152: (512, ("dap_prune_int8", "dap_pack_int8")),
+}
 # DAP's forms: (wrapper in kernels/dap_prune.py, plain version in kernels/ref.py)
 DAP_FORMS = {
     "dap_prune": ("dap_prune_cuda", "dap_prune_ref"),
@@ -148,87 +178,130 @@ DAP_RECORD = {
 }
 # qwen2-vl-72b's int8 DAP calls a mixed-step pass (80 layers), {form: {K: calls}}
 QWEN2_VL_DAP = {"dap_prune_int8": {8192: 80}, "dap_pack_int8": {8192: 160, 29568: 80}}
-# (name, kernel, act on the main path, K, N) of granite-3-8b's linears
+# (name, kernel, act on the main path, K, N, body) of granite-3-8b's
+# linears; body: the matmul body that must take the call, "tc" or "generic"
 LINEARS = (
-    ("wq", "aw", None, 4096, 4096),
-    ("wk", "aw", None, 4096, 1024),
-    ("wv", "aw", None, 4096, 1024),
-    ("wo", "w", None, 4096, 4096),
-    ("gate", "aw", "silu", 4096, 12800),
-    ("up", "aw", None, 4096, 12800),
-    ("down", "aw", None, 12800, 4096),
-    ("lm_head", "w", None, 4096, 49408),
+    ("wq", "aw", None, 4096, 4096, "tc"),
+    ("wk", "aw", None, 4096, 1024, "tc"),
+    ("wv", "aw", None, 4096, 1024, "tc"),
+    ("wo", "w", None, 4096, 4096, "tc"),
+    ("gate", "aw", "silu", 4096, 12800, "tc"),
+    ("up", "aw", None, 4096, 12800, "tc"),
+    ("down", "aw", None, 12800, 4096, "tc"),
+    ("lm_head", "w", None, 4096, 49408, "tc"),
 )
-# (arch, name, kernel, act on the main path, K, N) of the int8-wire linears
-# of the other archs: held bit for bit in phase 3; qwen2-vl-72b's also timed
-# (its main path's pass), not in the record; qwen1.5-110b shares every
-# shape but the MLP's with qwen2-vl
+# (arch, name, kernel, act on the main path, K, N, body) of the int8-wire
+# linears of the other archs: held bit for bit in phase 3; qwen2-vl-72b's
+# also timed (its main path's pass), not in the record; qwen1.5-110b shares
+# every shape but the MLP's with qwen2-vl.  The recurrent archs' mixer
+# projections are also held as #3 (packed input), which they do not serve
 INT8_OTHER_LINEARS = (
-    ("minicpm3-4b", "q_down", "aw", None, 2560, 768),
-    ("minicpm3-4b", "kv_down", "aw", None, 2560, 288),
-    ("minicpm3-4b", "q_up", "w", None, 768, 3840),
-    ("minicpm3-4b", "wo", "w", None, 2560, 2560),
-    ("minicpm3-4b", "gate", "aw", "silu", 2560, 6400),
-    ("minicpm3-4b", "up", "aw", None, 2560, 6400),
-    ("minicpm3-4b", "down", "aw", None, 6400, 2560),
-    ("minicpm3-4b", "lm_head", "w", None, 2560, 73472),
-    ("granite-moe-1b-a400m", "wq", "aw", None, 1024, 1024),
-    ("granite-moe-1b-a400m", "wk", "aw", None, 1024, 512),
-    ("granite-moe-1b-a400m", "wv", "aw", None, 1024, 512),
-    ("granite-moe-1b-a400m", "wo", "w", None, 1024, 1024),
-    ("granite-moe-1b-a400m", "lm_head", "w", None, 1024, 49408),
-    ("qwen2-vl-72b", "wq", "aw", None, 8192, 8192),
-    ("qwen2-vl-72b", "wk", "aw", None, 8192, 1024),
-    ("qwen2-vl-72b", "wv", "aw", None, 8192, 1024),
-    ("qwen2-vl-72b", "wo", "w", None, 8192, 8192),
-    ("qwen2-vl-72b", "gate", "aw", "silu", 8192, 29568),
-    ("qwen2-vl-72b", "up", "aw", None, 8192, 29568),
-    ("qwen2-vl-72b", "down", "aw", None, 29568, 8192),
-    ("qwen2-vl-72b", "lm_head", "w", None, 8192, 152064),
-    ("qwen1.5-110b", "gate", "aw", "silu", 8192, 49152),
-    ("qwen1.5-110b", "up", "aw", None, 8192, 49152),
-    ("qwen1.5-110b", "down", "aw", None, 49152, 8192),
+    ("minicpm3-4b", "q_down", "aw", None, 2560, 768, "tc"),
+    ("minicpm3-4b", "kv_down", "aw", None, 2560, 288, "tc"),
+    ("minicpm3-4b", "q_up", "w", None, 768, 3840, "tc"),
+    ("minicpm3-4b", "wo", "w", None, 2560, 2560, "tc"),
+    ("minicpm3-4b", "gate", "aw", "silu", 2560, 6400, "tc"),
+    ("minicpm3-4b", "up", "aw", None, 2560, 6400, "tc"),
+    ("minicpm3-4b", "down", "aw", None, 6400, 2560, "tc"),
+    ("minicpm3-4b", "lm_head", "w", None, 2560, 73472, "tc"),
+    ("granite-moe-1b-a400m", "wq", "aw", None, 1024, 1024, "tc"),
+    ("granite-moe-1b-a400m", "wk", "aw", None, 1024, 512, "tc"),
+    ("granite-moe-1b-a400m", "wv", "aw", None, 1024, 512, "tc"),
+    ("granite-moe-1b-a400m", "wo", "w", None, 1024, 1024, "tc"),
+    ("granite-moe-1b-a400m", "lm_head", "w", None, 1024, 49408, "tc"),
+    ("qwen2-vl-72b", "wq", "aw", None, 8192, 8192, "tc"),
+    ("qwen2-vl-72b", "wk", "aw", None, 8192, 1024, "tc"),
+    ("qwen2-vl-72b", "wv", "aw", None, 8192, 1024, "tc"),
+    ("qwen2-vl-72b", "wo", "w", None, 8192, 8192, "tc"),
+    ("qwen2-vl-72b", "gate", "aw", "silu", 8192, 29568, "tc"),
+    ("qwen2-vl-72b", "up", "aw", None, 8192, 29568, "tc"),
+    ("qwen2-vl-72b", "down", "aw", None, 29568, 8192, "tc"),
+    ("qwen2-vl-72b", "lm_head", "w", None, 8192, 152064, "tc"),
+    ("qwen1.5-110b", "gate", "aw", "silu", 8192, 49152, "tc"),
+    ("qwen1.5-110b", "up", "aw", None, 8192, 49152, "tc"),
+    ("qwen1.5-110b", "down", "aw", None, 49152, 8192, "tc"),
+    ("mamba2-130m", "in_proj", "w", None, 768, 3352, "generic"),
+    ("mamba2-130m", "in_proj", "aw", None, 768, 3352, "generic"),
+    ("mamba2-130m", "out_proj", "w", None, 1536, 768, "tc"),
+    ("mamba2-130m", "out_proj", "aw", None, 1536, 768, "tc"),
+    ("mamba2-130m", "lm_head", "w", None, 768, 50432, "tc"),
+    ("hymba-1.5b", "wq", "aw", None, 1600, 1600, "generic"),
+    ("hymba-1.5b", "wk, wv", "aw", None, 1600, 320, "generic"),
+    ("hymba-1.5b", "wo", "w", None, 1600, 1600, "generic"),
+    ("hymba-1.5b", "gate, up", "aw", "silu", 1600, 5504, "generic"),
+    ("hymba-1.5b", "down", "aw", None, 5504, 1600, "tc"),
+    ("hymba-1.5b", "in_proj", "w", None, 1600, 6482, "generic"),
+    ("hymba-1.5b", "in_proj", "aw", None, 1600, 6482, "generic"),
+    ("hymba-1.5b", "out_proj", "w", None, 3200, 1600, "tc"),
+    ("hymba-1.5b", "out_proj", "aw", None, 3200, 1600, "tc"),
+    ("hymba-1.5b", "lm_head", "w", None, 1600, 32256, "generic"),
 )
 # int8-wire archs whose linears phase 3 times at M = 4 and 64
 INT8_TIMED = {"granite-3-8b": 40, "qwen2-vl-72b": 80}  # arch: layers
-# (arch, name, kernel, act on the main path, DAP-pruned input, K, N) of the
-# packed linears on the native wire: minicpm3-4b's and granite-moe-1b-a400m's
-# (timed), starcoder2-15b's and phi3.5-moe's (its experts stay dense), and
-# qwen2-vl-72b's, whose native wire (79 GB of layers) one card cannot serve
+# the recurrent archs' mixer projections, timed at M = 4 and 64 on both
+# wires into the record's "shapes": (arch, name): calls a decode pass
+MIXER_TIMED = {("mamba2-130m", "in_proj"): 24, ("mamba2-130m", "out_proj"): 24,
+               ("hymba-1.5b", "in_proj"): 32, ("hymba-1.5b", "out_proj"): 32}
+# (arch, name, kernel, act on the main path, DAP-pruned input, K, N, body)
+# of the packed linears on the native wire: minicpm3-4b's and
+# granite-moe-1b-a400m's (timed), starcoder2-15b's and phi3.5-moe's (its
+# experts stay dense), qwen2-vl-72b's, whose native wire (79 GB of layers)
+# one card cannot serve, the recurrent archs' (their mixer projections
+# also held as #4, which they do not serve) and whisper-base's
 NATIVE_LINEARS = (
-    ("minicpm3-4b", "q_down", "aw", None, True, 2560, 768),
-    ("minicpm3-4b", "kv_down", "aw", None, True, 2560, 288),
-    ("minicpm3-4b", "q_up", "w", None, True, 768, 3840),
-    ("minicpm3-4b", "wo", "w", None, True, 2560, 2560),
-    ("minicpm3-4b", "gate", "aw", "silu", True, 2560, 6400),
-    ("minicpm3-4b", "up", "aw", None, True, 2560, 6400),
-    ("minicpm3-4b", "down", "aw", None, True, 6400, 2560),
-    ("minicpm3-4b", "lm_head", "w", None, False, 2560, 73472),
-    ("granite-moe-1b-a400m", "wq", "aw", None, True, 1024, 1024),
-    ("granite-moe-1b-a400m", "wk", "aw", None, True, 1024, 512),
-    ("granite-moe-1b-a400m", "wv", "aw", None, True, 1024, 512),
-    ("granite-moe-1b-a400m", "wo", "w", None, True, 1024, 1024),
-    ("granite-moe-1b-a400m", "lm_head", "w", None, False, 1024, 49408),
-    ("starcoder2-15b", "wq", "aw", None, True, 6144, 6144),
-    ("starcoder2-15b", "wk", "aw", None, True, 6144, 512),
-    ("starcoder2-15b", "wv", "aw", None, True, 6144, 512),
-    ("starcoder2-15b", "wo", "w", None, True, 6144, 6144),
-    ("starcoder2-15b", "up", "aw", "gelu", True, 6144, 24576),
-    ("starcoder2-15b", "down", "aw", None, True, 24576, 6144),
-    ("starcoder2-15b", "lm_head", "w", None, False, 6144, 49152),
-    ("phi3.5-moe-42b-a6.6b", "wq", "aw", None, True, 4096, 4096),
-    ("phi3.5-moe-42b-a6.6b", "wk", "aw", None, True, 4096, 1024),
-    ("phi3.5-moe-42b-a6.6b", "wv", "aw", None, True, 4096, 1024),
-    ("phi3.5-moe-42b-a6.6b", "wo", "w", None, True, 4096, 4096),
-    ("phi3.5-moe-42b-a6.6b", "lm_head", "w", None, False, 4096, 32256),
-    ("qwen2-vl-72b", "wq", "aw", None, True, 8192, 8192),
-    ("qwen2-vl-72b", "wk", "aw", None, True, 8192, 1024),
-    ("qwen2-vl-72b", "wv", "aw", None, True, 8192, 1024),
-    ("qwen2-vl-72b", "wo", "w", None, True, 8192, 8192),
-    ("qwen2-vl-72b", "gate", "aw", "silu", True, 8192, 29568),
-    ("qwen2-vl-72b", "up", "aw", None, True, 8192, 29568),
-    ("qwen2-vl-72b", "down", "aw", None, True, 29568, 8192),
-    ("qwen2-vl-72b", "lm_head", "w", None, False, 8192, 152064),
+    ("minicpm3-4b", "q_down", "aw", None, True, 2560, 768, "tc"),
+    ("minicpm3-4b", "kv_down", "aw", None, True, 2560, 288, "tc"),
+    ("minicpm3-4b", "q_up", "w", None, True, 768, 3840, "tc"),
+    ("minicpm3-4b", "wo", "w", None, True, 2560, 2560, "tc"),
+    ("minicpm3-4b", "gate", "aw", "silu", True, 2560, 6400, "tc"),
+    ("minicpm3-4b", "up", "aw", None, True, 2560, 6400, "tc"),
+    ("minicpm3-4b", "down", "aw", None, True, 6400, 2560, "tc"),
+    ("minicpm3-4b", "lm_head", "w", None, False, 2560, 73472, "tc"),
+    ("granite-moe-1b-a400m", "wq", "aw", None, True, 1024, 1024, "tc"),
+    ("granite-moe-1b-a400m", "wk", "aw", None, True, 1024, 512, "tc"),
+    ("granite-moe-1b-a400m", "wv", "aw", None, True, 1024, 512, "tc"),
+    ("granite-moe-1b-a400m", "wo", "w", None, True, 1024, 1024, "tc"),
+    ("granite-moe-1b-a400m", "lm_head", "w", None, False, 1024, 49408, "tc"),
+    ("starcoder2-15b", "wq", "aw", None, True, 6144, 6144, "tc"),
+    ("starcoder2-15b", "wk", "aw", None, True, 6144, 512, "tc"),
+    ("starcoder2-15b", "wv", "aw", None, True, 6144, 512, "tc"),
+    ("starcoder2-15b", "wo", "w", None, True, 6144, 6144, "tc"),
+    ("starcoder2-15b", "up", "aw", "gelu", True, 6144, 24576, "tc"),
+    ("starcoder2-15b", "down", "aw", None, True, 24576, 6144, "tc"),
+    ("starcoder2-15b", "lm_head", "w", None, False, 6144, 49152, "tc"),
+    ("phi3.5-moe-42b-a6.6b", "wq", "aw", None, True, 4096, 4096, "tc"),
+    ("phi3.5-moe-42b-a6.6b", "wk", "aw", None, True, 4096, 1024, "tc"),
+    ("phi3.5-moe-42b-a6.6b", "wv", "aw", None, True, 4096, 1024, "tc"),
+    ("phi3.5-moe-42b-a6.6b", "wo", "w", None, True, 4096, 4096, "tc"),
+    ("phi3.5-moe-42b-a6.6b", "lm_head", "w", None, False, 4096, 32256, "tc"),
+    ("qwen2-vl-72b", "wq", "aw", None, True, 8192, 8192, "tc"),
+    ("qwen2-vl-72b", "wk", "aw", None, True, 8192, 1024, "tc"),
+    ("qwen2-vl-72b", "wv", "aw", None, True, 8192, 1024, "tc"),
+    ("qwen2-vl-72b", "wo", "w", None, True, 8192, 8192, "tc"),
+    ("qwen2-vl-72b", "gate", "aw", "silu", True, 8192, 29568, "tc"),
+    ("qwen2-vl-72b", "up", "aw", None, True, 8192, 29568, "tc"),
+    ("qwen2-vl-72b", "down", "aw", None, True, 29568, 8192, "tc"),
+    ("qwen2-vl-72b", "lm_head", "w", None, False, 8192, 152064, "tc"),
+    ("mamba2-130m", "in_proj", "w", None, True, 768, 3352, "tc"),
+    ("mamba2-130m", "in_proj", "aw", None, True, 768, 3352, "tc"),
+    ("mamba2-130m", "out_proj", "w", None, True, 1536, 768, "tc"),
+    ("mamba2-130m", "out_proj", "aw", None, True, 1536, 768, "tc"),
+    ("mamba2-130m", "lm_head", "w", None, False, 768, 50432, "tc"),
+    ("hymba-1.5b", "wq", "aw", None, True, 1600, 1600, "tc"),
+    ("hymba-1.5b", "wk, wv", "aw", None, True, 1600, 320, "tc"),
+    ("hymba-1.5b", "wo", "w", None, True, 1600, 1600, "tc"),
+    ("hymba-1.5b", "gate, up", "aw", "silu", True, 1600, 5504, "tc"),
+    ("hymba-1.5b", "down", "aw", None, True, 5504, 1600, "tc"),
+    ("hymba-1.5b", "in_proj", "w", None, True, 1600, 6482, "generic"),
+    ("hymba-1.5b", "in_proj", "aw", None, True, 1600, 6482, "generic"),
+    ("hymba-1.5b", "out_proj", "w", None, True, 3200, 1600, "tc"),
+    ("hymba-1.5b", "out_proj", "aw", None, True, 3200, 1600, "tc"),
+    ("hymba-1.5b", "lm_head", "w", None, False, 1600, 32256, "tc"),
+    ("whisper-base", "wq, wk, wv; cross wk, wv", "aw", None, True, 512, 512, "tc"),
+    ("whisper-base", "wo; cross wq", "w", None, True, 512, 512, "tc"),
+    ("whisper-base", "up", "aw", "gelu", True, 512, 2048, "tc"),
+    ("whisper-base", "down", "aw", None, True, 2048, 512, "tc"),
+    ("whisper-base", "lm_head", "w", None, False, 512, 51968, "tc"),
 )
 # native-wire archs whose linears phase 3 times at M = 4 and 64 (the record
 # holds minicpm3-4b's pass)
@@ -353,16 +426,39 @@ def random_bias(torch, gen, arch, name, n):
     return None
 
 
-def phase_matmuls(torch, run_ms, qwen):
+def check_body(label, body, total, tc, before):
+    """Every launch of ``total`` since ``before`` (its and ``tc``'s counts)
+    ran ``body``: all on the tc body ("tc") or none ("generic")."""
+    n, n_tc = total.launches - before[0], tc.launches - before[1]
+    check(n > 0 and n_tc == (n if body == "tc" else 0),
+          f"{label}: {n_tc} of {n} launches on the tc body, the {body} body expected")
+
+
+def shape_record(arch, name, kind, k, n, m, body, calls, t_k, t_p, nbytes, nops, rate, t_lib,
+                 err):
+    """One timed call of a recurrent arch's mixer projection, for the
+    record's "shapes"."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / rate
+    return dict(arch=arch, linear=name, K=k, N=n, M=m, body=body, served=kind == "w",
+                calls_per_decode_pass=calls, ms=t_k, plain_ms=t_p,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=t_lib,
+                max_abs_err=err)
+
+
+def phase_matmuls(torch, run_ms, qwen, shapes):
     """Kernels #2 and #3 at granite-3-8b's full-width shapes (the record)
     and qwen2-vl-72b's (its pass, into ``qwen``), and, for correctness
-    only, at minicpm3-4b's, granite-moe-1b-a400m's and qwen1.5-110b's
-    int8-wire shapes: every call through the int8 tc body, int32
-    accumulators and the act=None f32 output (with a random bias on a
-    biased wq, wk, wv) bit for bit against the plain versions at M = 1, 4
-    and 64, a row's bits the same at every M; the timed archs at M = 4 and
+    only, at minicpm3-4b's, granite-moe-1b-a400m's, qwen1.5-110b's,
+    mamba2-130m's and hymba-1.5b's int8-wire shapes: every call through
+    the body its row names (hymba's K = 1600 and mamba2's N = 3352 miss
+    the tc body), int32 accumulators and the act=None f32 output (with a
+    random bias on a biased wq, wk, wv) bit for bit against the plain
+    versions at M = 1, 4 and 64, a row's bits the same at every M; the
+    timed archs and ``MIXER_TIMED``'s rows (into ``shapes``) at M = 4 and
     64 beside torch._int_mm on the decoded operands with the weight
-    row-major and column-major (the faster is the library time)."""
+    row-major and column-major (the faster is the library time; it
+    refuses N % 8 != 0)."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -371,10 +467,8 @@ def phase_matmuls(torch, run_ms, qwen):
     cfg = dbb.DBBConfig(4, 8)
     per_kernel = {k: new_pass() for k in ("dbb_matmul_aw_int8", "dbb_matmul_int8")}
     qwen.update({k: new_pass() for k in per_kernel})
-    counters = (dbb_matmul.INT8, dbb_matmul.INT8_TC, dbb_matmul.AW_INT8, dbb_matmul.AW_INT8_TC)
-    start = [c.launches for c in counters]
     linears = [("granite-3-8b",) + row for row in LINEARS] + list(INT8_OTHER_LINEARS)
-    for arch, name, kind, act, k, n in linears:
+    for arch, name, kind, act, k, n, body in linears:
         w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
         wv, wm, ws = ref.pack_weight_int8(w.to(torch.bfloat16), cfg)
         del w
@@ -392,9 +486,9 @@ def phase_matmuls(torch, run_ms, qwen):
             plain = lambda m, a, o: ref.dbb_matmul_aw_int8_ref(  # noqa: E731
                 xv[:m], xm[:m], xs[:m], wv, wm, ws, cfg, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: xv[:m].numel() + xm[:m].numel() + 4 * m  # noqa: E731
-            tc = dbb_matmul.AW_INT8_TC
+            total, tc = dbb_matmul.AW_INT8, dbb_matmul.AW_INT8_TC
         else:
-            if name in ("wo", "q_up"):  # the attention output (MLA: q's latent) is DAP-pruned
+            if name != "lm_head":  # every other dense-input linear's input is DAP-pruned
                 x = apply_dap(x, DAPSpec(4, 8))
             xq, xs = ref.quantize_act_int8(x, per_row=True)
             x_dense = xq
@@ -403,10 +497,10 @@ def phase_matmuls(torch, run_ms, qwen):
             plain = lambda m, a, o: ref.dbb_matmul_int8_ref(  # noqa: E731
                 xq[:m], xs[:m], wv, wm, ws, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: xq[:m].numel() + 4 * m  # noqa: E731
-            tc = dbb_matmul.INT8_TC
+            total, tc = dbb_matmul.INT8, dbb_matmul.INT8_TC
         # exact: int32 accumulators and the act=None f32 output; a row's bits
-        # do not depend on M; every call runs the tc body
-        tc_before = tc.launches
+        # do not depend on M; every call runs the row's body
+        before = (total.launches, tc.launches)
         y = {}
         for m in (1, 4, 64):
             acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
@@ -415,19 +509,21 @@ def phase_matmuls(torch, run_ms, qwen):
                   f"{arch} {name} M={m}: int32 accumulators differ")
             check(torch.equal(y[m], plain(m, None, torch.float32)),
                   f"{arch} {name} M={m}: act=None f32 output differs")
-        check(tc.launches == tc_before + 3, f"{arch} {name}: not the int8 tc body")
+        check_body(f"{kname} {arch} {name}", body, total, tc, before)
         check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
               f"{arch} {name}: a row's output differs between M=1, 4 and 64")
         bm, kb_per_split, n_split = dbb_matmul.int8_plan(64, k, n)
-        path = f"path: tc body, {n_split} splits of {kb_per_split} 8-blocks at M=64"
+        path = (f"path: tc body, {n_split} splits of {kb_per_split} 8-blocks at M=64"
+                if body == "tc" else "path: generic body")
         with_bias = "" if bias is None else " with a random bias"
-        if arch not in INT8_TIMED:
+        mixer = MIXER_TIMED.get((arch, name))
+        if arch not in INT8_TIMED and mixer is None:
             say(f"kernel {kname} {arch} {name} K={k} N={n} ({path}): int32 accumulators and "
                 f"act=None f32 output{with_bias} bit-exact at M=1, 4 and 64, rows bitwise equal")
             del wv, wm, ws, w_dense, x_dense, y
             torch.cuda.empty_cache()
             continue
-        count = 1 if name == "lm_head" else INT8_TIMED[arch]  # launches per forward pass
+        count = 1 if name == "lm_head" else mixer or INT8_TIMED[arch]  # launches per pass
         w_cm = w_dense.t().contiguous().t()  # the column-major ("TN") weight for _int_mm
         for m in (4, 64):
             # silu and bf16: the f32 silu within 1e-6; bf16 within one bf16 ulp
@@ -447,7 +543,7 @@ def phase_matmuls(torch, run_ms, qwen):
             t_k = run_ms(lambda: kern(m, act, torch.bfloat16), iters=10)
             t_p = run_ms(lambda: plain(m, act, torch.bfloat16), iters=2)
             t_rm = t_cm = t_lib = None
-            if m > 16:  # torch._int_mm refuses M <= 16
+            if m > 16 and n % 8 == 0:  # torch._int_mm refuses M <= 16, N % 8 != 0
                 t_rm = run_ms(lambda: torch._int_mm(x_dense[:m], w_dense), iters=10)
                 t_cm = run_ms(lambda: torch._int_mm(x_dense[:m], w_cm), iters=10)
                 t_lib = min(t_rm, t_cm)
@@ -458,11 +554,15 @@ def phase_matmuls(torch, run_ms, qwen):
             nops = 2.0 * float((x_nz * w_nz).sum())  # non-zero products only
             bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT8_OPS_PER_S else "operations"
-            lib = ("n/a" if t_lib is None else
+            lib = ("n/a (_int_mm: M <= 16 or N % 8 != 0)" if t_lib is None else
                    f"{t_lib:.4f} (_int_mm, weight row-major {t_rm:.4f}, column-major {t_cm:.4f})")
             say(f"kernel {kname} {arch} {name} M={m} K={k} N={n}{with_bias} ({path}): kernel_ms "
                 f"{t_k:.4f} plain_ms {t_p:.3f} library_ms {lib} bound_ms {bound:.4f} ({by}) "
                 f"max_abs_err {err:.3g}")
+            if mixer is not None:
+                shapes[kname].append(shape_record(arch, name, kind, k, n, m, body, count, t_k,
+                                                  t_p, nbytes, nops, INT8_OPS_PER_S, t_lib, err))
+                continue
             # one mixed-step forward pass: the record (granite) or qwen2-vl's line
             agg = (per_kernel if arch == "granite-3-8b" else qwen)[kname]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -472,15 +572,11 @@ def phase_matmuls(torch, run_ms, qwen):
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
+        check_body(f"{kname} {arch} {name}", body, total, tc, before)
         say(f"kernel {kname} {arch} {name}: int32 accumulators and act=None f32 output"
-            f"{with_bias} bit-exact at M=1, 4 and 64, rows bitwise equal")
+            f"{with_bias} bit-exact at M=1, 4 and 64, rows bitwise equal ({body} body)")
         del wv, wm, ws, w_dense, w_cm, x_dense, y
         torch.cuda.empty_cache()
-    # every #2 / #3 call of the phase ran the tc body
-    n_int8, n_int8_tc, n_aw, n_aw_tc = (c.launches - s for c, s in zip(counters, start))
-    check(n_int8 == n_int8_tc and n_aw == n_aw_tc,
-          f"int8 matmuls: {n_int8_tc} of {n_int8} #2 and {n_aw_tc} of {n_aw} #3 launches on "
-          f"the tc body")
     for name in per_kernel:
         finish_bound(per_kernel[name], INT8_OPS_PER_S)
         finish_bound(qwen[name], INT8_OPS_PER_S)
@@ -768,15 +864,18 @@ def large_page_attention(torch, gen, latent):
     return worst
 
 
-def phase_native_matmuls(torch, run_ms):
+def phase_native_matmuls(torch, run_ms, shapes):
     """Kernels #1 and #4 at every full-width native-wire shape
     (``NATIVE_LINEARS``: minicpm3-4b, granite-moe-1b-a400m, starcoder2-15b
-    with its gelu ``up``, phi3.5-moe and qwen2-vl-72b), bf16 operands, a
-    random bias on a biased wq, wk, wv: every call through the tc body,
-    held against their plain versions (float64 products, rounded once)
-    within 1e-5 of the largest output in f32, a row's bits checked equal
-    at M=1, 4 and 64; minicpm3-4b's and granite-moe-1b-a400m's timed at
-    M=4 and 64.  The record holds minicpm3-4b's pass."""
+    with its gelu ``up``, phi3.5-moe, qwen2-vl-72b, mamba2-130m,
+    hymba-1.5b and whisper-base), bf16 operands, a random bias on a biased
+    wq, wk, wv: every call through the body its row names (hymba's N =
+    6482 misses the tc body), held against their plain versions (float64
+    products, rounded once) within 1e-5 of the largest output in f32, a
+    row's bits checked equal at M=1, 4 and 64 (whisper's encoder linears
+    also at its ``WHISPER_ENC_ROWS``); minicpm3-4b's and
+    granite-moe-1b-a400m's and ``MIXER_TIMED``'s rows (into ``shapes``)
+    timed at M=4 and 64.  The record holds minicpm3-4b's pass."""
     from repro_torch.core import dbb
     from repro_torch.core.dap import DAPSpec, apply_dap
     from repro_torch.kernels import dbb_matmul, ops, ref
@@ -785,7 +884,10 @@ def phase_native_matmuls(torch, run_ms):
     cfg = dbb.DBBConfig(4, 8)
     bf16 = torch.bfloat16
     per_kernel = {k: new_pass() for k in ("dbb_matmul_aw", "dbb_matmul")}
-    for arch, name, kind, act, dap, k, n in NATIVE_LINEARS:
+    for arch, name, kind, act, dap, k, n, body in NATIVE_LINEARS:
+        rows = (1, 4, 64)
+        if arch == "whisper-base" and name != "lm_head":
+            rows += (WHISPER_ENC_ROWS,)
         w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
         wv, wm = ops.pack_weight(w, cfg)
         del w
@@ -793,7 +895,7 @@ def phase_native_matmuls(torch, run_ms):
         w_nz = (w_dense != 0).sum(dim=1).double()  # non-zeros per k row
         kname = "dbb_matmul_aw" if kind == "aw" else "dbb_matmul"
         bias = random_bias(torch, gen, arch, name, n)
-        x = torch.randn((64, k), generator=gen, device="cuda").to(bf16)
+        x = torch.randn((rows[-1], k), generator=gen, device="cuda").to(bf16)
         if dap:
             x = apply_dap(x, DAPSpec(4, 8))
         if kind == "aw":
@@ -811,18 +913,21 @@ def phase_native_matmuls(torch, run_ms):
             plain = lambda m, a, o: ref.dbb_matmul_ref(  # noqa: E731
                 x[:m], wv, wm, cfg, bias=bias, act=a, out_dtype=o)
             x_bytes = lambda m: 2 * m * k  # noqa: E731
-        # a row's bits do not depend on M; every call runs the tc body
-        tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
-        tc_before = tc.launches
-        y = {m: kern(m, act, torch.float32) for m in (1, 4, 64)}
-        check(tc.launches == tc_before + 3, f"{arch} {name}: not the tc body")
-        check(torch.equal(y[1][0], y[4][0]) and torch.equal(y[4], y[64][:4]),
-              f"{arch} {name}: a row's output differs between M=1, 4 and 64")
+        # a row's bits do not depend on M; every call runs the row's body
+        total, tc = ((dbb_matmul.AW_NATIVE, dbb_matmul.AW_NATIVE_TC) if kind == "aw"
+                     else (dbb_matmul.NATIVE, dbb_matmul.NATIVE_TC))
+        before = (total.launches, tc.launches)
+        y = {m: kern(m, act, torch.float32) for m in rows}
+        check_body(f"{kname} {arch} {name}", body, total, tc, before)
+        check(all(torch.equal(y[a], y[b][:a]) for a, b in zip(rows, rows[1:])),
+              f"{arch} {name}: a row's output differs between M={rows}")
         bn, kb_per_split, n_split = dbb_matmul.native_plan(k, n)
-        path = f"path: tc body, BN {bn}, {n_split} splits of {kb_per_split} 8-blocks"
+        path = (f"path: tc body, BN {bn}, {n_split} splits of {kb_per_split} 8-blocks"
+                if body == "tc" else "path: generic body")
         served = f" act={act}" + ("" if bias is None else " with a random bias")
+        mixer = MIXER_TIMED.get((arch, name))
         errs = []
-        for m in (4, 64):
+        for m in rows[1:]:
             # f32 output within 1e-5 of the largest output; bf16 within that
             # plus one bf16 ulp of the larger of the two outputs (an f32
             # difference can straddle a rounding, up into the next binade)
@@ -839,9 +944,9 @@ def phase_native_matmuls(torch, run_ms):
                   f"{arch} {name} M={m}: bf16 output off by {errb.max().item():.3g}")
             err = max(err32, errb.max().item())
             errs.append(err)
-            if arch not in NATIVE_TIMED:
+            if m > 64 or (arch not in NATIVE_TIMED and mixer is None):
                 continue
-            count = 1 if name == "lm_head" else NATIVE_TIMED[arch]  # launches per pass
+            count = 1 if name == "lm_head" else mixer or NATIVE_TIMED[arch]  # calls a pass
             t_k = run_ms(lambda: kern(m, act, bf16), iters=10)
             t_p = run_ms(lambda: plain(m, act, bf16), iters=2)
             t_lib = run_ms(lambda: torch.matmul(x_dense[:m], w_dense), iters=10)
@@ -854,17 +959,21 @@ def phase_native_matmuls(torch, run_ms):
             say(f"kernel {kname} {arch} {name} M={m} K={k} N={n} bf16 ({path}): kernel_ms "
                 f"{t_k:.4f} plain_ms {t_p:.3f} library_ms {t_lib:.4f} (matmul) bound_ms "
                 f"{bound:.4f} ({by}) max_abs_err {err:.3g} (f32 {err32:.3g})")
-            if m == 64 and arch == "minicpm3-4b":  # the JSON record: one mixed-step pass
+            if mixer is not None:
+                shapes[kname].append(shape_record(arch, name, kind, k, n, m, body, count, t_k,
+                                                  t_p, nbytes, nops, BF16_OPS_PER_S, t_lib, err))
+            elif m == 64 and arch == "minicpm3-4b":  # the JSON record: one mixed-step pass
                 agg = per_kernel[kname]
                 agg["ms"] += count * t_k
                 agg["plain_ms"] += count * t_p
                 agg["library_ms"] += count * t_lib
                 agg["bytes"] += count * nbytes
                 agg["ops"] += count * nops
+        check_body(f"{kname} {arch} {name}", body, total, tc, before)
         per_kernel[kname]["max_abs_err"] = max(per_kernel[kname]["max_abs_err"], *errs)
         say(f"kernel {kname} {arch} {name} K={k} N={n} bf16{served} ({path}): within "
-            f"tolerance at M=4 and 64 (max_abs_err {max(errs):.3g}), rows bitwise equal at "
-            f"M=1, 4 and 64")
+            f"tolerance at M={', '.join(map(str, rows[1:]))} (max_abs_err {max(errs):.3g}), "
+            f"rows bitwise equal at M={', '.join(map(str, rows))}")
         del wv, wm, w_dense, x_dense, y
         torch.cuda.empty_cache()
     for agg in per_kernel.values():
@@ -1007,12 +1116,13 @@ def dap_inputs(torch, gen, m, k, dtype):
 def phase_dap_prune(torch, run_ms, qwen):
     """Kernel #5's four forms (dense, pack, dense_int8, pack_int8) bit for
     bit against their plain versions at every width each serves on the
-    main paths (``DAP_WIDTHS``), bf16 and f32, M = 1, 4 and 64 (a row's
-    bits the same at every M; the per-row forms at K 29568 and 49152 also
-    at M = 512), with a NaN block, +-inf, ties and -0.0 planted; timed in
-    bf16 at M = 4 and 64 beside the plain version and the bytes bound (no
-    library call computes DAP: ``torch.topk`` breaks ties in no fixed
-    order).  dense_int8 is also timed beside the chain it replaces on
+    main paths and the recurrent and enc-dec phases (``DAP_WIDTHS``), bf16
+    and f32, M = 1, 4 and 64 (a row's bits the same at every M; the long
+    rows of ``DAP_LONG_ROWS`` too: the per-row forms at K 29568 and 49152
+    at M = 512, whisper's encoder forms at its 6000 rows), with a NaN
+    block, +-inf, ties and -0.0 planted; timed in bf16 at M = 4 and 64
+    beside the plain version and the bytes bound (no library call
+    computes DAP: ``torch.topk`` breaks ties in no fixed order).  dense_int8 is also timed beside the chain it replaces on
     granite's wo (#5's dense form, then the plain per-row quantize).  The
     record holds one form's pass (``DAP_RECORD``), ``qwen`` qwen2-vl-72b's
     int8 forms' pass."""
@@ -1026,8 +1136,9 @@ def phase_dap_prune(torch, run_ms, qwen):
         for name in served:
             kern, plain = getattr(dap_prune, DAP_FORMS[name][0]), getattr(ref, DAP_FORMS[name][1])
             rows = (1, 4, 64)
-            if k in DAP_LONG_ROWS and name in ("dap_prune_int8", "dap_pack_int8"):
-                rows += (512,)
+            long_m, long_forms = DAP_LONG_ROWS.get(k, (None, ()))
+            if name in long_forms:
+                rows += (long_m,)
             for dtype in (torch.bfloat16, torch.float32):
                 x = dap_inputs(torch, gen, rows[-1], k, dtype)
                 full = kern(x, 4)
@@ -1835,6 +1946,249 @@ def phase_durability(torch, np, card, want, dense, launches):
     say(f"durability: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------- recurrent and enc-dec families
+
+# the recurrent serves: (arch, wire, KV dtype), 8 prompts of 64 tokens, 32
+# new, stepped (what "auto" resolves to for ssm and hybrid)
+RECURRENT_PATHS = (("mamba2_130m", "native", "native"), ("mamba2_130m", "int8", "native"),
+                   ("hymba_1_5b", "int8", "int8"), ("hymba_1_5b", "native", "native"))
+REC_S0, REC_NEW = 64, 32
+DUALITY_S, DUALITY_TOL = 512, 5e-4  # forward vs stepped; tests/test_torch_ssm.py's bound
+
+
+def recurrent_launches(cfg, wire):
+    """Kernel launches of one stepped pass (``lm.decode_step``) of an ssm or
+    hybrid model on ``wire``.  An ssm layer runs its mixer's ``in_proj``
+    and ``out_proj``, each on a dense input DAP-pruned by #5's dense form
+    (its int8 dense form on the int8 wire) then #1 (#2); the head adds one
+    undapped #1 (#2).  A hybrid layer is a ring-cache decoder layer (its
+    attention plain over the ring) plus the mixer's two such linears."""
+    int8 = wire == "int8"
+    w_mm = "dbb_matmul_int8" if int8 else "dbb_matmul"
+    prune = "dap_prune_int8" if int8 else "dap_prune"
+    n_l = cfg.n_layers
+    if cfg.family == "ssm":
+        return {w_mm: 2 * n_l + 1, prune: 2 * n_l}
+    out = ring_launches(cfg, wire)
+    out[w_mm] += 2 * n_l
+    out[prune] += 2 * n_l
+    return out
+
+
+def encdec_launches(cfg, encode: bool):
+    """Kernel launches of whisper's ``encode`` (``encode=True``) or of one
+    ``decode_step`` on the native wire.  An encoder layer packs its
+    attention input once for wq/wk/wv (#5's packed form, #4 each),
+    DAP-prunes wo's input (#5's dense form, #1) and packs its gelu MLP's
+    input and hidden state (#4 each); a decoder layer adds the
+    cross-attention: wq on its DAP-pruned input (#1), one pack of the
+    encoder output for wk/wv (#4 each), wo (#1); the head is one undapped
+    #1."""
+    if encode:
+        n_l = cfg.n_enc_layers
+        return {"dbb_matmul_aw": 5 * n_l, "dbb_matmul": n_l, "dap_pack": 3 * n_l,
+                "dap_prune": n_l}
+    n_l = cfg.n_layers
+    return {"dbb_matmul_aw": 7 * n_l, "dbb_matmul": 3 * n_l + 1, "dap_pack": 4 * n_l,
+            "dap_prune": 3 * n_l}
+
+
+def greedy_alone(torch, eng, prompt, n_new):
+    """``prompt`` served alone, greedy, through ``lm.decode_step`` over
+    ``eng``'s packed params and a fresh cache, as a stepped
+    ``Engine.generate`` does: (prompt and ``n_new`` tokens, whether every
+    step's logits were finite)."""
+    from repro_torch.core.sampling import greedy_tokens
+    from repro_torch.models import lm
+
+    cfg, v, dev = eng.cfg, eng.cfg.vocab, eng.device
+    cache = lm.make_cache(cfg, 1, eng.scfg.max_seq, dev)
+    toks = [torch.tensor(prompt[None], dtype=torch.int32, device=dev)]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    for t in range(prompt.shape[0] + n_new - 1):
+        cur = toks[0][:, t:t + 1] if t < prompt.shape[0] else toks[-1]
+        logits, cache = lm.decode_step(eng.params, cache, cur, t, cfg)
+        finite &= torch.isfinite(logits[:, -1, :v]).all()
+        if t >= prompt.shape[0] - 1:
+            toks.append(greedy_tokens(logits[:, -1, :v])[:, None])
+    return torch.cat(toks, dim=1)[0].cpu().numpy(), bool(finite)
+
+
+def phase_recurrent(torch, np, card, launches):
+    """mamba2-130m (24 layers, d 768, 24 SSD heads of 64, state 128) and
+    hymba-1.5b (32 layers, 25 heads over 5 KV heads, a window of 1024, the
+    mixer's ``in_proj`` 1600 -> 6482) at full width, seeded random bf16
+    weights packed as drawn, each served through ``Engine.generate`` (8
+    prompts of 64 tokens, 32 new; ``auto`` resolves to stepped) on
+    ``RECURRENT_PATHS``: launches counted per pass against
+    ``recurrent_launches`` (every packed linear on #1-#4, every DAP call
+    site on #5, one launch a call, no plain version), a fresh engine
+    re-serves byte-identically, and whether one request served alone
+    (``greedy_alone``, its logits finite) equals its row of the batch is
+    printed.  Then mamba2-130m in f32 on
+    the native wire: ``lm.forward`` over 512 tokens (two chunks of 256)
+    against stepped ``decode_step`` on the same prompt, the SSD duality at
+    full width, held to ``DUALITY_TOL`` of the logits' scale without DAP
+    (``wdbb``: under DAP a top-4 selection flipped by an ulp moves the
+    logits by far more than the duality's error)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    for arch, wire, kv in RECURRENT_PATHS:
+        cfg = configs.get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                                wire_dtype=wire)
+        torch.cuda.synchronize()
+        t_init, peak_init = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        scfg = ServeConfig(pack_weights=True, max_seq=REC_S0 + REC_NEW, wire_dtype=wire,
+                           kv_dtype=kv)
+        prompts = rng.integers(0, cfg.vocab, (N_REQUESTS, REC_S0)).astype(np.int32)
+        eng = Engine(params, cfg, scfg, device="cuda")
+        out, counts, passes, wall, peak = drive(torch, lambda: eng.generate(prompts, REC_NEW))
+        label = f"{arch} {wire} wire {kv} KV"
+        check(passes == REC_S0 + REC_NEW and eng.prefill_calls == REC_S0,
+              f"{label}: {passes} passes, {eng.prefill_calls} prefill calls (not stepped)")
+        check_launches(label, counts, recurrent_launches(cfg, wire), passes)
+        add_launches(launches, counts)
+        gen = out[:, REC_S0:]
+        check(out.shape == (N_REQUESTS, REC_S0 + REC_NEW) and (gen >= 0).all()
+              and (gen < cfg.vocab).all(), f"{label}: tokens out of range")
+        again = Engine(params, cfg, scfg, device="cuda").generate(prompts, REC_NEW)
+        check(np.array_equal(again, out), f"{label}: a fresh engine served different tokens")
+        alone, finite = greedy_alone(torch, eng, prompts[3], REC_NEW)
+        check(finite, f"{label}: non-finite logits serving request 3 alone")
+        same = bool(np.array_equal(alone, out[3]))
+        say(f"recurrent {label} ({cfg.n_layers} layers, d {cfg.d_model}): init_params "
+            f"{t_init:.2f} s, peak memory after init {peak_init} B; stepped generate "
+            f"({N_REQUESTS} x {REC_S0} prompt tokens, {REC_NEW} new) wall {wall:.2f} s, "
+            f"{N_REQUESTS * REC_NEW / wall:.2f} generated tokens/s, peak memory serving {peak} "
+            f"B, {passes} passes; launches {json.dumps(counts)}; a fresh engine re-served "
+            f"byte-identically; request 3 served alone {'equals' if same else 'DIFFERS FROM'} "
+            f"its row of the batch ({card})")
+        del eng, params
+        torch.cuda.empty_cache()
+
+    # -- the SSD duality at full width: chunked forward vs the recurrent step
+    base = dataclasses.replace(configs.get_config("mamba2_130m"), dtype="float32")
+    prompt = torch.tensor(rng.integers(0, base.vocab, (1, DUALITY_S)).astype(np.int32),
+                          device="cuda")
+    cfg = dataclasses.replace(base, sparsity=dataclasses.replace(base.sparsity, mode="wdbb"))
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                            wire_dtype="native")
+
+    def duality():
+        full = lm.forward(params, prompt, cfg)
+        cache = lm.make_cache(cfg, 1, DUALITY_S, "cuda")
+        steps = []
+        for t in range(DUALITY_S):
+            lg, cache = lm.decode_step(params, cache, prompt[:, t:t + 1], t, cfg)
+            steps.append(lg)
+        return full, torch.cat(steps, dim=1)
+
+    (full, stepped), counts, passes, wall, _ = drive(torch, duality)
+    add_launches(launches, counts)
+    check(passes == DUALITY_S, f"duality: {passes} stepped passes")
+    check(bool(torch.isfinite(full).all() and torch.isfinite(stepped).all()),
+          "duality: non-finite logits")
+    diff = (full - stepped)[..., : cfg.vocab].abs().max().item()
+    scale = full[..., : cfg.vocab].abs().max().item()
+    bound = DUALITY_TOL * max(1.0, scale)
+    check(diff <= bound, f"duality: max |dlogit| {diff:.3g} > {bound:.3g}")
+    say(f"recurrent mamba2-130m f32 native wire wdbb: lm.forward over {DUALITY_S} tokens "
+        f"(chunks of {cfg.ssm.chunk}) vs {DUALITY_S} stepped decode_step calls: max |dlogit| "
+        f"{diff:.3g}, bound {bound:.3g} ({DUALITY_TOL} x max(1, max |logit| {scale:.3g})); "
+        f"wall {wall:.2f} s")
+    del params, full, stepped
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - t_phase
+    say(f"recurrent: phase wall {t:.1f} s")
+    return t
+
+
+def phase_encdec(torch, np, card, launches):
+    """whisper-base at full width (6 + 6 layers, d 512, 1500 frames, vocab
+    51865 padded to 51968): seeded random bf16 weights (``encdec
+    .init_params``) packed on the native wire by
+    ``pack_params_for_serving``; 4 seeded frame tensors ``[4, 1500, 512]``
+    encoded, then a 32-token greedy loop of ``encdec.decode_step`` over the
+    ring cache.  Launches counted against ``encdec_launches`` (every packed
+    linear on #1/#4, every DAP call site on #5, one launch a call, no plain
+    version), finite encoder output and logits, a second run
+    byte-identical, and whether one request run alone equals its row of
+    the batch printed."""
+    from repro_torch import configs
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.engine import pack_params_for_serving
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("whisper_base")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = encdec.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    params = pack_params_for_serving(dense, cfg, "native")
+    del dense
+    torch.cuda.synchronize()
+    t_init, peak_init = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    frames = torch.randn((WHISPER_B, cfg.n_frames, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    start = torch.tensor(np.random.default_rng(SEED + 7).integers(0, cfg.vocab, (WHISPER_B, 1)),
+                         dtype=torch.int32, device="cuda")
+    times = {}
+
+    def run(fr, tok):
+        t0 = time.perf_counter()
+        enc = encdec.encode(params, fr, cfg)
+        torch.cuda.synchronize()
+        times["encode"] = time.perf_counter() - t0
+        cache = lm.make_cache(cfg, fr.shape[0], WHISPER_NEW, "cuda")
+        finite = torch.isfinite(enc).all()
+        outs = []
+        for t in range(WHISPER_NEW):
+            logits, cache = encdec.decode_step(params, cache, enc, tok, t, cfg)
+            row = logits[:, -1, : cfg.vocab]
+            finite = finite & torch.isfinite(row).all()
+            tok = row.argmax(dim=-1, keepdim=True).to(torch.int32)
+            outs.append(tok)
+        return torch.cat(outs, dim=1).cpu().numpy(), bool(finite)
+
+    (toks, finite), counts, _, wall, peak = drive(torch, lambda: run(frames, start))
+    enc_want, dec_want = encdec_launches(cfg, True), encdec_launches(cfg, False)
+    per_run = {k: enc_want.get(k, 0) + WHISPER_NEW * dec_want.get(k, 0)
+               for k in set(enc_want) | set(dec_want)}
+    check_launches("whisper-base", counts, per_run, 1)
+    add_launches(launches, counts)
+    check(finite, "whisper-base: non-finite encoder output or logits")
+    check(toks.shape == (WHISPER_B, WHISPER_NEW) and (toks >= 0).all() and (toks < cfg.vocab).all(),
+          "whisper-base: tokens out of range")
+    t_encode = times["encode"]
+    again, _ = run(frames, start)
+    check(np.array_equal(again, toks), "whisper-base: a second run gave different tokens")
+    alone, _ = run(frames[1:2], start[1:2])
+    same = bool(np.array_equal(alone[0], toks[1]))
+    say(f"encdec whisper-base ({cfg.n_enc_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_frames} frames, vocab {cfg.padded_vocab} padded, native wire): init "
+        f"{t_init:.2f} s, peak memory after init {peak_init} B; encode of {WHISPER_B} x "
+        f"{cfg.n_frames} frames {t_encode:.3f} s, then {WHISPER_NEW} greedy decode_step calls "
+        f"(cross-attention re-projects the encoder output every step): wall {wall:.2f} s, "
+        f"{WHISPER_B * WHISPER_NEW / (wall - t_encode):.2f} generated tokens/s after the encode, "
+        f"peak memory {peak} B; launches {json.dumps(counts)}; finite; a second run "
+        f"byte-identical; request 1 run alone {'equals' if same else 'DIFFERS FROM'} its row "
+        f"of the batch ({card})")
+    del params, frames
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - t_phase
+    say(f"encdec: phase wall {t:.1f} s")
+    return t
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -1876,9 +2230,11 @@ def main():
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     run_ms = timer(torch, flush)
     qwen = {}  # qwen2-vl-72b's pass, per kernel
-    stats = phase_matmuls(torch, run_ms, qwen)
+    rec_shapes = {k: [] for k in ("dbb_matmul", "dbb_matmul_int8", "dbb_matmul_aw_int8",
+                                  "dbb_matmul_aw")}  # MIXER_TIMED's calls, per kernel
+    stats = phase_matmuls(torch, run_ms, qwen, rec_shapes)
     stats["paged_attn"] = phase_attention(torch, run_ms, qwen)
-    stats.update(phase_native_matmuls(torch, run_ms))
+    stats.update(phase_native_matmuls(torch, run_ms, rec_shapes))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
     stats.update(phase_dap_prune(torch, run_ms, qwen))
     say_pass("qwen2-vl-72b", 80, qwen)
@@ -1901,6 +2257,8 @@ def main():
     phase_durability(torch, np, card, greedy["granite_3_8b"], dense, launches)
     del dense, packed
     torch.cuda.empty_cache()
+    t_new = phase_recurrent(torch, np, card, launches) + phase_encdec(torch, np, card, launches)
+    say(f"recurrent and encdec phases together: {t_new:.1f} s")
 
     record = []
     for name, info in KERNELS.items():
@@ -1913,13 +2271,17 @@ def main():
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": st["library_ms"],
         })
+        if name in rec_shapes:
+            record[-1]["shapes"] = rec_shapes[name]
     say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
         "query tokens per request; attention on a mixed step's rows: decode rows and a "
         "chunk tail padded to S), summed over its launches, of granite-3-8b for "
         "dbb_matmul_int8, dbb_matmul_aw_int8, paged_attn, dap_prune_int8 and dap_pack_int8, "
         "of minicpm3-4b for "
         "dbb_matmul, dbb_matmul_aw, paged_attn_latent and dap_pack, of granite-moe-1b-a400m "
-        "for dap_prune; launches summed over the main paths and the serving-mode phases")
+        "for dap_prune; launches summed over the main paths, the serving-mode, spec, "
+        "durability, recurrent and encdec phases; under \"shapes\" the #1-#4 calls at the "
+        "recurrent families' mixer shapes (M=4 and 64)")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config(name, smoke=False)``.
 
-The port serves every arch the reference serves continuously:
-granite-3-8b, starcoder2-15b and qwen1.5-110b (dense GQA), minicpm3-4b
-(MLA), granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b (MoE) and
-qwen2-vl-72b (the VLM backbone, M-RoPE).  The recurrent and enc-dec
-archs follow with their families.
+Every arch of the reference: granite-3-8b, starcoder2-15b and
+qwen1.5-110b (dense GQA), minicpm3-4b (MLA), granite-moe-1b-a400m and
+phi3.5-moe-42b-a6.6b (MoE) and qwen2-vl-72b (the VLM backbone, M-RoPE),
+served continuously; mamba2-130m (SSM) and hymba-1.5b (hybrid), served
+stepped; whisper-base (enc-dec), driven through ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -12,16 +12,20 @@ from __future__ import annotations
 from repro_torch.configs import (
     granite_3_8b,
     granite_moe_1b_a400m,
+    hymba_1_5b,
+    mamba2_130m,
     minicpm3_4b,
     phi3_5_moe_42b_a6_6b,
     qwen1_5_110b,
     qwen2_vl_72b,
     starcoder2_15b,
+    whisper_base,
 )
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 ARCH_IDS = ("granite_3_8b", "minicpm3_4b", "granite_moe_1b_a400m", "qwen2_vl_72b",
-            "starcoder2_15b", "phi3_5_moe_42b_a6_6b", "qwen1_5_110b")
+            "starcoder2_15b", "phi3_5_moe_42b_a6_6b", "qwen1_5_110b", "mamba2_130m",
+            "hymba_1_5b", "whisper_base")
 
 _MODULES = {
     "granite_3_8b": granite_3_8b,
@@ -31,6 +35,9 @@ _MODULES = {
     "starcoder2_15b": starcoder2_15b,
     "phi3_5_moe_42b_a6_6b": phi3_5_moe_42b_a6_6b,
     "qwen1_5_110b": qwen1_5_110b,
+    "mamba2_130m": mamba2_130m,
+    "hymba_1_5b": hymba_1_5b,
+    "whisper_base": whisper_base,
 }
 
 
@@ -42,8 +49,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     key = canon(name)
     if key not in _MODULES:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}); "
-            "see ROADMAP.md queue 1"
+            f"architecture {name!r} is not ported: the reference has no such arch "
+            f"(ported: {ARCH_IDS})"
         )
     mod = _MODULES[key]
     return mod.SMOKE if smoke else mod.CONFIG

@@ -1,8 +1,9 @@
 """Model configuration (port of ``repro.configs.base``).
 
-Only the fields a served decoder (dense GQA, MLA, MoE or the VLM
-backbone) reads are carried; each has the reference's name, default and
-meaning, and a test holds them equal field for field.
+Only the fields a served model (a decoder: dense GQA, MLA, MoE, the VLM
+backbone, the mamba2 SSM or the hymba hybrid; or the whisper enc-dec)
+reads are carried; each has the reference's name, default and meaning,
+and a test holds them equal field for field.
 """
 
 from __future__ import annotations
@@ -33,9 +34,27 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) mixer configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.headdim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"  # dense | moe | vlm are ported
+    family: str = "dense"  # dense | moe | ssm | hybrid | vlm | encdec
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -52,7 +71,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     m_rope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl
+    # enc-dec (whisper): encoder layer count + frame count for the stub
+    n_enc_layers: int = 0
+    n_frames: int = 1500
     sparsity: SparsityConfig = DENSE
     # MoE dispatch groups: routing and capacity are local to each group
     # of tokens (see models/moe.py)

@@ -3,8 +3,8 @@
 ``params_from_numpy(tree, device)`` takes the reference's parameter tree
 with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and
 returns the port's: the same dictionaries, with the layer-stacked
-``[L, ...]`` leaves under ``"layers"`` unstacked into a list of per-layer
-dictionaries.  Raw and wire-packed trees convert alike.  bfloat16 leaves
+``[L, ...]`` leaves under ``"layers"`` (and whisper's ``"enc_layers"`` and
+``"dec_layers"``) unstacked into lists of per-layer dictionaries.  Raw and wire-packed trees convert alike.  bfloat16 leaves
 (ml_dtypes arrays) cross bit for bit through a ``uint16`` view.
 """
 
@@ -30,16 +30,21 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the reference's layer-stacked subtrees (decoder-only LM; whisper's
+# encoder and decoder)
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def _unstack(subtree, device):
+    leaves = []
+    _map(subtree, leaves.append)
+    n_layers = int(np.asarray(leaves[0]).shape[0])
+    return [_map(subtree, lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
+            for i in range(n_layers)]
+
+
 def params_from_numpy(tree, device="cpu"):
     """The reference's parameter tree (numpy leaves) -> the port's."""
-    out = {k: _map(v, lambda a: tensor_from_numpy(a, device))
-           for k, v in tree.items() if k != "layers"}
-    if "layers" in tree:
-        leaves = []
-        _map(tree["layers"], leaves.append)
-        n_layers = int(np.asarray(leaves[0]).shape[0])
-        out["layers"] = [
-            _map(tree["layers"], lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
-            for i in range(n_layers)
-        ]
-    return out
+    return {k: (_unstack(v, device) if k in STACKED
+                else _map(v, lambda a: tensor_from_numpy(a, device)))
+            for k, v in tree.items()}

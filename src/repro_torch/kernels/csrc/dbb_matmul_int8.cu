@@ -20,8 +20,9 @@
 // (dbb_int8_tc_kernel, counted in INT8_TC / AW_INT8_TC by the wrapper):
 // K % 128 == 0, N % 16 == 0, NNZ <= 4 on both operands, 16-byte aligned
 // operands.  Other shapes run the generic body (dbb_int8_generic_kernel),
-// the port's first: synchronous loads, a branchy decode into shared rows, and
-// for split-K an int32 workspace (memset, atomics, a second epilogue launch).
+// the port's first: synchronous loads (byte loads with a guarded column tail
+// where N % 4 != 0), a branchy decode into shared rows, and for split-K an
+// int32 workspace (memset, atomics, a second epilogue launch).
 // Integer sums are exact in any order, so both give the oracle's bits at
 // any split and any M.
 //
@@ -193,6 +194,10 @@ dbb_int8_generic_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict_
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+  // 4 columns in one 32-bit load where every weight row is 4-byte aligned;
+  // otherwise (N % 4 != 0) byte loads with a guarded tail of columns, the
+  // columns past N decoding to zero (mask 0)
+  const bool vec = (N & 3) == 0 && ((uintptr_t)w_vals & 3) == 0 && ((uintptr_t)w_mask & 3) == 0;
 
   for (int kb0 = kb_begin; kb0 < kb_end; kb0 += KBT) {
     // weight tile: one thread per (8-block, 4 adjacent columns)
@@ -201,12 +206,25 @@ dbb_int8_generic_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict_
       const int n = n0 + n4, kb = kb0 + bb;
       uint32_t lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
       if (n < N && kb < kb_end) {
-        const uint32_t masks = *(const uint32_t*)(w_mask + (size_t)kb * N + n);
+        const uint8_t* mrow = w_mask + (size_t)kb * N + n;
         const int8_t* base = w_vals + (size_t)kb * nnz_w * N + n;
-        uint32_t vals[8];
+        uint32_t masks = 0u, vals[8];
+        if (vec) {
+          masks = *(const uint32_t*)mrow;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          vals[j] = j < nnz_w ? *(const uint32_t*)(base + (size_t)j * N) : 0u;
+          for (int j = 0; j < 8; ++j)
+            vals[j] = j < nnz_w ? *(const uint32_t*)(base + (size_t)j * N) : 0u;
+        } else {
+          const int nc = min(4, N - n);
+          for (int c = 0; c < nc; ++c) masks |= (uint32_t)mrow[c] << (8 * c);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            vals[j] = 0u;
+            if (j < nnz_w)
+              for (int c = 0; c < nc; ++c)
+                vals[j] |= (uint32_t)(uint8_t)base[(size_t)j * N + c] << (8 * c);
+          }
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           decode8((masks >> (8 * c)) & 0xFFu, nnz_w,
@@ -778,9 +796,10 @@ extern "C" int dbb_matmul_int8_tiles(int M, int N) {
 // splits of kb_per_split 8-blocks (a multiple of 16, none empty), KB % 16
 // == 0, N % 16 == 0, nnz_a, nnz_w <= 4, x, x_mask, w_vals and w_mask
 // 16-byte aligned, lut the [4][256] decode tables (one per NNZ), no scratch.
-// body 0 runs the generic body: N % 4 == 0, w_vals and w_mask 4-byte
-// aligned, split_k > 1 needs acc_ws, int32 [M, N] scratch (bm,
-// kb_per_split and lut unread).  Returns cudaGetLastError() after the
+// body 0 runs the generic body at any N (4 columns a load where N % 4 == 0
+// and w_vals and w_mask are 4-byte aligned, byte loads with a guarded
+// column tail otherwise); split_k > 1 needs acc_ws, int32 [M, N] scratch
+// (bm, kb_per_split and lut unread).  Returns cudaGetLastError() after the
 // launches; cudaErrorInvalidValue for arguments the chosen body does not take.
 extern "C" int dbb_matmul_int8(const void* x, const void* x_mask, const void* x_scale,
                                int x_scale_per_row, const void* w_vals, const void* w_mask,
@@ -811,7 +830,7 @@ extern "C" int dbb_matmul_int8(const void* x, const void* x_mask, const void* x_
                        (const float*)bias, out, (int32_t*)acc_out, (const uint32_t*)lut, M, N,
                        KB, packed_a ? nnz_a : 1, nnz_w, kb_per_split, split_k, act, out_bf16, s);
   }
-  if (body != 0 || N % 4 != 0 || (split_k > 1 && acc_ws == nullptr))
+  if (body != 0 || (split_k > 1 && acc_ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{(const int8_t*)x, (const uint8_t*)x_mask, (const float*)x_scale,
                x_scale_per_row, (const int8_t*)w_vals, (const uint8_t*)w_mask,

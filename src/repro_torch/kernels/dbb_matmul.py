@@ -15,7 +15,8 @@ two byte permutes whose selectors come from a mask-indexed table
 thread-block cluster, one launch a call, planned by :func:`int8_plan` —
 counted in ``INT8_TC`` / ``AW_INT8_TC`` as well as ``INT8`` / ``AW_INT8``;
 any other call runs the generic body (an int32 split-K workspace, a
-memset and a second launch).
+memset and a second launch), at any N: a guarded column tail where N % 4
+!= 0.
 
 Native wire (values in the model dtype, bf16 or f32): kernel #1
 (``dbb_matmul_cuda``) replaces ``dbb_matmul_pallas`` and kernel #4
@@ -188,11 +189,6 @@ def _launch(counter, tc_counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w
     p_xm = None if x_mask is None else x_mask.data_ptr()
     ptrs = (p_x, p_wv, p_wm) + (() if p_xm is None else (p_xm,))
     tc = int8_body_error(kb, n, max(nnz_a, nnz_w), ptrs) is None
-    if not tc:
-        if n % 4 != 0:
-            raise ValueError(f"the generic body reads 4 columns at a time: N={n} % 4 != 0")
-        if p_wv % 4 or p_wm % 4:
-            raise ValueError("w_vals and w_mask must be 4-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fn, tiles = _entries()
     if tc:

@@ -1,6 +1,6 @@
 """Attention (port of ``repro.models.attention``): GQA and MLA over the
 ring-buffer KV cache (one-shot and stepped serving), over the paged KV
-cache (continuous serving), and cache-less.
+cache (continuous serving), and cache-less; whisper's cross-attention.
 
 **Ring cache.**  Per layer ``k/v [B, W, KV*D]`` plus absolute slot
 positions ``pos [B, W]`` (-1: empty); a full-attention cache has
@@ -46,7 +46,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.models import common, rope
-from repro_torch.models.common import linear, make_linear, make_norm, rmsnorm
+from repro_torch.models.common import einsum_f32, linear, make_linear, make_norm, rmsnorm
 
 NEG_INF = -1e30
 NULL_PAGE = 0
@@ -212,14 +212,6 @@ def _mask_bias(q_pos, k_pos, window: Optional[int]):
     return torch.where(valid, 0.0, NEG_INF).float()
 
 
-def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum`` with the reference's f32 result (``preferred_element_type
-    =float32``), multiplied in float64 and rounded once: the library picks
-    its summation order from the shapes, and float64 keeps a row's rounded
-    result independent of how many rows share the call."""
-    return torch.einsum(eq, a.double(), b.double()).float()
-
-
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis in f32: ``exp(x - max) / sum``,
     the sum in float64 on CUDA (a row's result then does not depend on the
@@ -244,10 +236,10 @@ def mha(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
     def block(qc, qp):
         sc = qc.shape[1]
         qg = qc.reshape(b, sc, kv, g, d)
-        logits = _einsum_f32("bskgd,btkd->bkgst", qg, k) * scale
+        logits = einsum_f32("bskgd,btkd->bkgst", qg, k) * scale
         logits = logits + _mask_bias(qp, k_pos, window)[:, None, None, :, :]
         probs = _softmax(logits)
-        out = _einsum_f32("bkgst,btke->bskge", probs.to(v.dtype), v)
+        out = einsum_f32("bkgst,btke->bskge", probs.to(v.dtype), v)
         return out.reshape(b, sc, h, v.shape[-1]).to(q.dtype)
 
     if chunk is None or s <= chunk or s % chunk != 0:
@@ -260,6 +252,18 @@ def _gather(sp) -> bool:
     """Whether the paged read materializes the window (``"gather"``) or
     runs the fused kernel (``"auto"``/``"fused"``)."""
     return sp is not None and sp.paged_attn == "gather"
+
+
+def make_gqa(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: p):
+    """Seeded GQA projections ``wq``/``wk``/``wv`` (with ``cfg.qkv_bias``)
+    and ``wo``, each passed through ``pack`` as it is drawn."""
+    d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+
+    def lin(d_in, d_out, bias=False):
+        return pack(make_linear(gen, d_in, d_out, bias=bias, dtype=dtype, device=device))
+
+    return {"wq": lin(d, h * dh, cfg.qkv_bias), "wk": lin(d, kvh * dh, cfg.qkv_bias),
+            "wv": lin(d, kvh * dh, cfg.qkv_bias), "wo": lin(h * dh, d)}
 
 
 def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=None,
@@ -360,14 +364,14 @@ def _mla_absorb_q(q_nope, w_kv_up, m, out_dtype):
     """q absorbed through the k half of ``kv_up`` per head:
     ``[B, S, H, lora]``."""
     wk = w_kv_up[..., : m.qk_nope_head_dim]  # [lora, H, nope]
-    return _einsum_f32("bshn,lhn->bshl", q_nope, wk.to(q_nope.dtype)).to(out_dtype)
+    return einsum_f32("bshn,lhn->bshl", q_nope, wk.to(q_nope.dtype)).to(out_dtype)
 
 
 def _mla_up_project(ctx, w_kv_up, m, out_dtype):
     """The latent context through the v half of ``kv_up``:
     ``[B, S, H, dv]``."""
     wv = w_kv_up[..., m.qk_nope_head_dim:]  # [lora, H, dv]
-    return _einsum_f32("bshl,lhv->bshv", ctx.to(out_dtype), wv.to(out_dtype)).to(out_dtype)
+    return einsum_f32("bshl,lhv->bshv", ctx.to(out_dtype), wv.to(out_dtype)).to(out_dtype)
 
 
 def _mla_absorbed(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtype):
@@ -378,10 +382,10 @@ def _mla_absorbed(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtyp
     lora = m.kv_lora_rank
     c_all, kr_all = lat[..., :lora], lat[..., lora:]
     q_abs = _mla_absorb_q(q_nope, w_kv_up, m, out_dtype)
-    logits = (_einsum_f32("bshl,btl->bhst", q_abs, c_all)
-              + _einsum_f32("bshr,btr->bhst", q_rope, kr_all)) * scale
+    logits = (einsum_f32("bshl,btl->bhst", q_abs, c_all)
+              + einsum_f32("bshr,btr->bhst", q_rope, kr_all)) * scale
     probs = _softmax(logits + _mask_bias(q_pos, k_pos, None)[:, None, :, :])
-    ctx = _einsum_f32("bhst,btl->bshl", probs.to(c_all.dtype), c_all)
+    ctx = einsum_f32("bhst,btl->bshl", probs.to(c_all.dtype), c_all)
     return _mla_up_project(ctx, w_kv_up, m, out_dtype)
 
 
@@ -474,10 +478,43 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
             c_kv, k_rope = lat_rt[..., : m.kv_lora_rank], lat_rt[..., m.kv_lora_rank:]
         fill_ring(cache_layer, latent, dummy_v, s, quantized=pre)
 
-    kv_up = _einsum_f32("btl,lhe->bthe", c_kv, w_kv_up.to(c_kv.dtype)).to(c_kv.dtype)
+    kv_up = einsum_f32("btl,lhe->bthe", c_kv, w_kv_up.to(c_kv.dtype)).to(c_kv.dtype)
     k_nope, v = kv_up[..., :qk_nope], kv_up[..., qk_nope:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, qk_rope)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
     out = mha(qq, k, v, positions, positions,
               chunk=cfg.attn_chunk if s > cfg.attn_chunk else None, softmax_scale=scale)
     return linear(p["wo"], out.reshape(b, s, h * dv), sparsity=sp, layer_idx=li)
+
+
+# --------------------------------------------------------------- cross-attn
+
+
+def make_cross_attn(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: p):
+    """Seeded cross-attention projections (no bias), each through ``pack``."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim()
+
+    def lin(d_in, d_out):
+        return pack(make_linear(gen, d_in, d_out, dtype=dtype, device=device))
+
+    return {"wq": lin(d, h * dh), "wk": lin(d, h * dh), "wv": lin(d, h * dh),
+            "wo": lin(h * dh, d)}
+
+
+def cross_attn_forward(p, x: torch.Tensor, enc_kv: torch.Tensor, cfg, *,
+                       layer_idx=None) -> torch.Tensor:
+    """``x [B, S, d]`` attends to the encoder output ``enc_kv [B, T, d]``,
+    unmasked.  ``wk`` and ``wv`` share one DAP+pack of ``enc_kv``; the
+    encoder output is projected anew at every call, as in the reference."""
+    b, s, _ = x.shape
+    t = enc_kv.shape[1]
+    h, dh = cfg.n_heads, cfg.head_dim()
+    sp, li = cfg.sparsity, layer_idx
+    kvin = common.maybe_pack_input(enc_kv, (p["wk"], p["wv"]), sp, li)
+    q = linear(p["wq"], x, sparsity=sp, layer_idx=li).reshape(b, s, h, dh)
+    k = linear(p["wk"], kvin, sparsity=sp, layer_idx=li).reshape(b, t, h, dh)
+    v = linear(p["wv"], kvin, sparsity=sp, layer_idx=li).reshape(b, t, h, dh)
+    qp = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kp = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    out = mha(q, k, v, qp, kp)
+    return linear(p["wo"], out.reshape(b, s, h * dh), sparsity=sp, layer_idx=li)

@@ -1,35 +1,92 @@
-"""Pre-norm decoder block (port of ``repro.models.blocks.decoder_block``):
-GQA or MLA attention over the paged cache, the ring cache or no cache,
-then a dense MLP or, under ``cfg.moe``, the MoE FFN."""
+"""Per-layer blocks (port of ``repro.models.blocks``): the pre-norm
+decoder block (GQA or MLA attention over the paged cache, the ring cache
+or no cache; then a dense MLP or, under ``cfg.moe``, the MoE FFN), with
+hymba's hybrid branch (a mamba2 mixer beside the attention), and
+whisper's encoder and cross-attending decoder blocks."""
 
 from __future__ import annotations
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import mlp_forward, rmsnorm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import layernorm, make_linear, make_norm, mlp_forward, rmsnorm
+
+# a cache layer's attention planes (a hybrid's also holds ssm_state/ssm_conv)
+_ATTN_PLANES = ("k", "v", "pos", "k_scale", "v_scale")
+
+
+def make_mlp(gen, d: int, f: int, *, act: str, dtype, device, pack=lambda p: p):
+    """Seeded MLP linears (``gate`` and ``up`` under swiglu, ``up`` under
+    gelu, then ``down``), each through ``pack``."""
+
+    def lin(d_in, d_out):
+        return pack(make_linear(gen, d_in, d_out, dtype=dtype, device=device))
+
+    mlp = {"gate": lin(d, f), "up": lin(d, f)} if act == "swiglu" else {"up": lin(d, f)}
+    mlp["down"] = lin(f, d)
+    return mlp
+
+
+def make_decoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
+    """One decoder layer's seeded parameters: norms, attention (MLA or
+    GQA), the hybrid's mixer and branch norms, then the MoE FFN or MLP."""
+    d = cfg.d_model
+    layer = {"ln1": make_norm(d, device=device), "ln2": make_norm(d, device=device)}
+    if cfg.mla is not None:
+        layer["attn"] = attn.make_mla(gen, cfg, dtype=dtype, device=device, pack=pack)
+    else:
+        layer["attn"] = attn.make_gqa(gen, cfg, dtype=dtype, device=device, pack=pack)
+    if cfg.family == "hybrid":
+        layer["ssm"] = ssm_mod.make_mamba2(gen, cfg, dtype=dtype, device=device, pack=pack)
+        layer["ln_attn_out"] = make_norm(d, device=device)
+        layer["ln_ssm_out"] = make_norm(d, device=device)
+    if cfg.moe is not None:
+        layer["moe"] = moe_mod.make_moe(gen, cfg, dtype=dtype, device=device)
+    else:
+        layer["mlp"] = make_mlp(gen, d, cfg.d_ff, act=cfg.mlp_act, dtype=dtype, device=device,
+                                pack=pack)
+    return layer
 
 
 def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
                   decode_pos=None, rope_cs=None, page_tables=None):
-    """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``.  The MoE load-balance
-    loss is dropped: serving has no use for it.
+    """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; a hybrid adds
+    ``0.5 * (rmsnorm(attn) + rmsnorm(mixer))`` instead, the mixer taking
+    the same dense ``ln1(x)`` (its ``in_proj`` prunes its own input).  The
+    MoE load-balance loss is dropped: serving has no use for it.
 
     ``cache_layer`` holds this layer's cache, written in place: with
     ``page_tables`` its page pools and the already-updated shared slot
     table, otherwise its ring (``decode_pos`` None: the prompt fills it;
-    an int: one decode step at that position)."""
+    an int: one decode step at that position), and for a hybrid its
+    ``ssm_state``/``ssm_conv``.  A prompt fill leaves the recurrent state
+    untouched (the chunked scan has no exact one-shot state fill: engines
+    step hybrids) while the attention ring fills exactly."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    attn_cache = cache_layer
+    if cache_layer is not None and cfg.family == "hybrid":
+        attn_cache = {k: cache_layer[k] for k in _ATTN_PLANES if k in cache_layer}
     if cfg.mla is not None:
         a_out = attn.mla_forward(
             p["attn"], h, cfg, positions, layer_idx=layer_idx,
-            cache_layer=cache_layer, decode_pos=decode_pos, page_tables=page_tables,
+            cache_layer=attn_cache, decode_pos=decode_pos, page_tables=page_tables,
         )
     else:
         a_out = attn.gqa_forward(
-            p["attn"], h, cfg, positions, layer_idx=layer_idx, cache_layer=cache_layer,
+            p["attn"], h, cfg, positions, layer_idx=layer_idx, cache_layer=attn_cache,
             decode_pos=decode_pos, rope_cs=rope_cs, page_tables=page_tables,
         )
-    x = x + a_out
+    if cfg.family == "hybrid":
+        prefill_fill = cache_layer is not None and decode_pos is None and page_tables is None
+        ssm_cache = None
+        if cache_layer is not None and not prefill_fill:
+            ssm_cache = {"state": cache_layer["ssm_state"], "conv": cache_layer["ssm_conv"]}
+        s_out = ssm_mod.mamba2_forward(p["ssm"], h, cfg, layer_idx=layer_idx,
+                                       cache_layer=ssm_cache)
+        x = x + 0.5 * (rmsnorm(a_out, p["ln_attn_out"], cfg.norm_eps)
+                       + rmsnorm(s_out, p["ln_ssm_out"], cfg.norm_eps))
+    else:
+        x = x + a_out
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         m_out, _ = moe_mod.moe_forward(
@@ -40,3 +97,53 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
             p["mlp"], h2, act=cfg.mlp_act, sparsity=cfg.sparsity, layer_idx=layer_idx
         )
     return x + m_out
+
+
+# ----------------------------------------------------------------- whisper
+
+
+def make_encoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
+    """Seeded encoder layer: biased layernorms, GQA, a gelu MLP."""
+    d = cfg.d_model
+    return {
+        "ln1": make_norm(d, device=device, bias=True),
+        "ln2": make_norm(d, device=device, bias=True),
+        "attn": attn.make_gqa(gen, cfg, dtype=dtype, device=device, pack=pack),
+        "mlp": make_mlp(gen, d, cfg.d_ff, act="gelu", dtype=dtype, device=device, pack=pack),
+    }
+
+
+def encoder_block(p, x, cfg, positions, *, layer_idx=None):
+    """Pre-layernorm encoder layer: unmasked self-attention, gelu MLP."""
+    h = layernorm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.gqa_forward(p["attn"], h, cfg, positions, layer_idx=layer_idx, causal=False)
+    h2 = layernorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_forward(p["mlp"], h2, act="gelu", sparsity=cfg.sparsity, layer_idx=layer_idx)
+
+
+def make_xdecoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
+    """Seeded cross-attending decoder layer: three biased layernorms,
+    causal GQA, cross-attention, a gelu MLP."""
+    d = cfg.d_model
+    return {
+        "ln1": make_norm(d, device=device, bias=True),
+        "ln_x": make_norm(d, device=device, bias=True),
+        "ln2": make_norm(d, device=device, bias=True),
+        "attn": attn.make_gqa(gen, cfg, dtype=dtype, device=device, pack=pack),
+        "xattn": attn.make_cross_attn(gen, cfg, dtype=dtype, device=device, pack=pack),
+        "mlp": make_mlp(gen, d, cfg.d_ff, act="gelu", dtype=dtype, device=device, pack=pack),
+    }
+
+
+def xdecoder_block(p, x, enc_out, cfg, positions, *, layer_idx=None, cache_layer=None,
+                   decode_pos=None):
+    """Decoder layer: causal self-attention (over the ring ``cache_layer``
+    at ``decode_pos``, written in place, or cache-less), cross-attention to
+    ``enc_out``, gelu MLP; each behind its layernorm."""
+    h = layernorm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.gqa_forward(p["attn"], h, cfg, positions, layer_idx=layer_idx,
+                             cache_layer=cache_layer, decode_pos=decode_pos)
+    hx = layernorm(x, p["ln_x"], cfg.norm_eps)
+    x = x + attn.cross_attn_forward(p["xattn"], hx, enc_out, cfg, layer_idx=layer_idx)
+    h2 = layernorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_forward(p["mlp"], h2, act="gelu", sparsity=cfg.sparsity, layer_idx=layer_idx)

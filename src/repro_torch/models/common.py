@@ -41,8 +41,11 @@ def make_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fal
     return params
 
 
-def make_norm(d: int, *, device="cuda"):
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def make_norm(d: int, *, device="cuda", bias: bool = False):
+    params = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if bias:
+        params["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return params
 
 
 # ---------------------------------------------------- packed activation flow
@@ -119,6 +122,34 @@ def rmsnorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
         var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 mean and variance (``scale``, optional ``bias``).
+    On CUDA the two means sum in float64 and round once, as
+    :func:`rmsnorm`'s does, so a row's result does not depend on its
+    batch; the CPU sums in f32 like the reference."""
+    xf = x.float()
+    if xf.device.type == "cuda":
+        mu = xf.double().mean(dim=-1, keepdim=True).float()
+        c = xf - mu
+        var = (c.double() * c.double()).mean(dim=-1, keepdim=True).float()
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        c = xf - mu
+        var = (c * c).mean(dim=-1, keepdim=True)
+    out = c * torch.rsqrt(var + eps) * p["scale"].float()
+    if "bias" in p:
+        out = out + p["bias"].float()
+    return out.to(x.dtype)
+
+
+def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with the reference's f32 result (``preferred_element_type
+    =float32``), multiplied in float64 and rounded once: the library picks
+    its summation order from the shapes, and float64 keeps a row's rounded
+    result independent of how many rows share the call."""
+    return torch.einsum(eq, a.double(), b.double()).float()
 
 
 def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,

@@ -1,7 +1,9 @@
-"""Decoder-only LM (port of ``repro.models.lm`` for the attention
-families): dense GQA or MLA, with a dense MLP or an MoE FFN, and the VLM
-backbone (M-RoPE over three position streams; the vision frontend is a
-stub in the reference too, so text tokens serve).
+"""Decoder-only LM (port of ``repro.models.lm``): dense GQA or MLA, with a
+dense MLP or an MoE FFN; the VLM backbone (M-RoPE over three position
+streams; the vision frontend is a stub in the reference too, so text
+tokens serve); the mamba2 SSM (``ssm``) and hymba's hybrid of attention
+and a mamba2 mixer (``hybrid``), whose recurrent state the ring-cache
+modes carry and the paged modes refuse.
 
 Entry points: :func:`forward` (cache-less), the one-shot and stepped
 modes over the ring cache (:func:`make_cache`, :func:`prefill`,
@@ -15,7 +17,8 @@ Parameters are ``{"embed": {"w"}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}, "lm_head": {...}}`` — the reference's tree with
 its stacked ``[L, ...]`` layer axis unstacked into a list
 (``convert.params_from_numpy``), so the layer loop is a Python loop.
-Both caches are written in place (``models/attention.py``).
+Both caches are written in place (``models/attention.py``,
+``models/ssm.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sampling import sample_or_greedy
-from repro_torch.models import attention, blocks, moe, rope
+from repro_torch.models import attention, blocks, rope, ssm
 from repro_torch.models.common import (
     dtype_of,
     linear,
@@ -37,18 +40,33 @@ from repro_torch.models.common import (
 )
 
 
+# the families this decoder-only LM serves; encdec runs through encdec.py
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# families with recurrent state: no exact one-shot fill, no paged state
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family in LM_FAMILIES:
+        return
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the port serves dense (GQA "
-            "or MLA), MoE and VLM decoders; ssm, hybrid and encdec wait for "
-            "ROADMAP queue 1, item 9"
+            "family 'encdec' is not served by the decoder-only LM: drive it through "
+            "repro_torch.models.encdec (encode, forward, decode_step); what the port "
+            "lacks is training (ROADMAP queue 1, item 10) and distribution (item 11)"
         )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported: the reference has no such family "
+        f"(the LM serves {LM_FAMILIES}; encdec runs through models/encdec.py)"
+    )
 
 
 def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[str] = "int8"):
     """Seeded random parameters with ``lm.init_lm``'s scale rules: linears
-    ``N(0, 1/d_in)``, embedding ``N(0, 0.02^2)``, norms one, biases zero.
+    ``N(0, 1/d_in)``, embedding ``N(0, 0.02^2)``, norms one, biases zero;
+    a mamba2 mixer's own rules (``ssm.make_mamba2``).  An ``ssm`` layer is
+    ``{"mixer", "ln"}``; every other family's a decoder block
+    (``blocks.make_decoder_block``).
 
     With ``wire_dtype="int8"`` or ``"native"`` every DBB-eligible linear
     is packed to that wire as soon as it is drawn, layer by layer, so the
@@ -64,35 +82,22 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
             return pack_linear_params(p, sp, wire_dtype)
         return p
 
-    def lin(d_in, d_out, bias=False):
-        return pack(make_linear(generator, d_in, d_out, bias=bias, dtype=dtype, device=device))
-
-    d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    d = cfg.d_model
     emb = torch.randn((cfg.padded_vocab, d), generator=generator, device=device)
     params = {"embed": {"w": (emb * 0.02).to(dtype)}, "layers": []}
     for _ in range(cfg.n_layers):
-        if cfg.mla is not None:
-            attn = attention.make_mla(generator, cfg, dtype=dtype, device=device, pack=pack)
+        if cfg.family == "ssm":
+            layer = {"mixer": ssm.make_mamba2(generator, cfg, dtype=dtype, device=device,
+                                              pack=pack),
+                     "ln": make_norm(d, device=device)}
         else:
-            attn = {
-                "wq": lin(d, h * dh, cfg.qkv_bias),
-                "wk": lin(d, kvh * dh, cfg.qkv_bias),
-                "wv": lin(d, kvh * dh, cfg.qkv_bias),
-                "wo": lin(h * dh, d),
-            }
-        layer = {"ln1": make_norm(d, device=device), "ln2": make_norm(d, device=device),
-                 "attn": attn}
-        if cfg.moe is not None:
-            layer["moe"] = moe.make_moe(generator, cfg, dtype=dtype, device=device)
-        else:
-            mlp = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff)} \
-                if cfg.mlp_act == "swiglu" else {"up": lin(d, cfg.d_ff)}
-            mlp["down"] = lin(cfg.d_ff, d)
-            layer["mlp"] = mlp
+            layer = blocks.make_decoder_block(generator, cfg, dtype=dtype, device=device,
+                                              pack=pack)
         params["layers"].append(layer)
     params["final_norm"] = make_norm(d, device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = lin(d, cfg.padded_vocab)
+        params["lm_head"] = pack(make_linear(generator, d, cfg.padded_vocab, dtype=dtype,
+                                             device=device))
     return params
 
 
@@ -127,6 +132,11 @@ def forward(params, tokens, cfg):
     _check_family(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
+    if cfg.family == "ssm":
+        for layer_p in params["layers"]:
+            x = x + ssm.mamba2_forward(layer_p["mixer"], rmsnorm(x, layer_p["ln"], cfg.norm_eps),
+                                       cfg)
+        return _head(params, x, cfg)
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions)
     for layer_p in params["layers"]:
@@ -140,9 +150,15 @@ def make_cache(cfg, batch: int, max_seq: int, device):
     window).  Under the int8 KV wire the planes are int8 with per-token
     ``k_scale/v_scale [L, B, W]`` f32 planes; empty slots hold zeros with
     scale 1.0.  MLA caches the latent in k, a 1-wide dummy in v, and
-    quantizes only k."""
-    _check_family(cfg)
+    quantizes only k.  An ``ssm`` cache is the mixer's ``state [L, B, H,
+    P, N]`` (f32) and ``conv [L, B, K-1, C]``; a hybrid's adds them to the
+    ring as ``ssm_state``/``ssm_conv``.  An encdec cache is its decoder's
+    self-attention ring."""
+    if cfg.family != "encdec":  # encdec.decode_step runs over this ring
+        _check_family(cfg)
     native = dtype_of(cfg.dtype)
+    if cfg.family == "ssm":
+        return ssm.make_ssm_cache(batch, cfg, cfg.n_layers, native, device)
     window = max_seq if cfg.sliding_window is None else min(max_seq, cfg.sliding_window)
     kv_int8 = cfg.sparsity.kv_dtype == "int8"
     v_int8 = kv_int8 and cfg.mla is None
@@ -160,6 +176,9 @@ def make_cache(cfg, batch: int, max_seq: int, device):
         cache["k_scale"] = torch.ones(lbw, dtype=torch.float32, device=device)
     if v_int8:
         cache["v_scale"] = torch.ones(lbw, dtype=torch.float32, device=device)
+    if cfg.family == "hybrid":
+        rec = ssm.make_ssm_cache(batch, cfg, cfg.n_layers, native, device)
+        cache["ssm_state"], cache["ssm_conv"] = rec["state"], rec["conv"]
     return cache
 
 
@@ -174,6 +193,11 @@ def decode_step(params, cache, tokens, pos: int, cfg):
     _check_family(cfg)
     b = tokens.shape[0]
     x = _embed(params, tokens)
+    if cfg.family == "ssm":
+        for i, layer_p in enumerate(params["layers"]):
+            h = rmsnorm(x, layer_p["ln"], cfg.norm_eps)
+            x = x + ssm.mamba2_forward(layer_p["mixer"], h, cfg, cache_layer=_ring_layer(cache, i))
+        return _head(params, x, cfg), cache
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     rope_cs = None
     if cfg.mla is None:
@@ -190,9 +214,13 @@ def prefill(params, tokens, cfg, cache=None):
     logits, and with ``cache`` the filled ring too (``(logits, cache)``).
     Single pass: each attention layer attends over the fresh K/V and
     writes them into its ring in the same call, bytes equal to what
-    per-token stepping writes."""
-    if cache is None:
-        return forward(params, tokens, cfg)
+    per-token stepping writes.  The recurrent state has no exact one-shot
+    fill: an ``ssm`` cache stays as it was (zero), a hybrid's attention
+    ring fills and its ``ssm_state``/``ssm_conv`` stay untouched (engines
+    serve both families stepped)."""
+    if cache is None or cfg.family == "ssm":
+        logits = forward(params, tokens, cfg)
+        return logits if cache is None else (logits, cache)
     _check_family(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
@@ -224,8 +252,14 @@ def paged_step(params, cache, tokens, positions, page_tables, cfg,
     """One continuous-batching step: ``tokens/positions [B, S]`` is a mixed
     batch (chunked prefill rows, decode rows, padding at position -1) over
     per-row page tables ``[B, P]``.  Returns ``(logits [B, S, V_padded],
-    cache)``; the cache is updated in place."""
+    cache)``; the cache is updated in place.  The recurrent families have
+    no paged state: they raise ``ValueError``."""
     _check_family(cfg)
+    if cfg.family in RECURRENT_FAMILIES:
+        raise ValueError(
+            f"paged_step unsupported for recurrent family {cfg.family!r}: "
+            "only attention state pages (see serve/scheduler.py)"
+        )
     x = _embed(params, tokens)
     pos3 = None
     if cfg.m_rope_sections is not None:
@@ -264,8 +298,14 @@ def paged_decode_loop(params, cache, tokens, positions, page_tables, n_steps: in
     token 0 at position -1 like the mixed step's padding).  Returns
     ``(sampled [B, max_steps] int32, bad_at [B] int32, cache)``: ``bad_at``
     is the first iteration whose raw logits held a non-finite value on an
-    active row (``max_steps`` when clean)."""
+    active row (``max_steps`` when clean).  The recurrent families raise
+    ``ValueError``, as :func:`paged_step` does."""
     _check_family(cfg)
+    if cfg.family in RECURRENT_FAMILIES:
+        raise ValueError(
+            f"paged_decode_loop unsupported for recurrent family {cfg.family!r}: "
+            "only attention state pages"
+        )
     _prepare_pages(cache, scrub_pages, cow_pages)
     b = tokens.shape[0]
     v = cfg.vocab  # slice off vocab padding before sampling

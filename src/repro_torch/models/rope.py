@@ -1,7 +1,9 @@
-"""Rotary position embeddings (port of ``repro.models.rope``): standard
-RoPE and M-RoPE (Qwen2-VL)."""
+"""Position encodings (port of ``repro.models.rope``): standard RoPE,
+M-RoPE (Qwen2-VL) and whisper's fixed sinusoidal table."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,3 +45,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     s = sin[..., None, :].float()
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(n_pos: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper's fixed sinusoidal table ``[n_pos, d]`` (float32): ``sin``
+    then ``cos`` of ``pos * exp(-log(1e4) * i / (d/2 - 1))``."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

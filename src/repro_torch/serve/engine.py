@@ -1,12 +1,18 @@
 """Serving engine (port of ``repro.serve.engine``): prefill and seeded
-sampled decode (greedy at ``temperature=0``) for the attention families.
+sampled decode (greedy at ``temperature=0``) for the decoder-only
+families: the attention ones (dense, MoE, VLM) and the recurrent ones
+(the mamba2 ``ssm``, the hymba ``hybrid``).
 
 ``prefill_mode`` picks how prompts reach the cache, as in the reference:
 
-* ``"batched"`` (what ``"auto"`` resolves to): :meth:`Engine.generate`
-  prefills the whole prompt in one ``lm.prefill`` call over the ring
-  cache, then decodes in lock step (``lm.decode_step``);
-* ``"stepped"``: the prompt goes in one ``lm.decode_step`` a token;
+* ``"batched"`` (what ``"auto"`` resolves to for the attention
+  families): :meth:`Engine.generate` prefills the whole prompt in one
+  ``lm.prefill`` call over the ring cache, then decodes in lock step
+  (``lm.decode_step``);
+* ``"stepped"`` (what ``"auto"`` resolves to for ``ssm`` and
+  ``hybrid``, whose recurrent state has no exact one-shot fill): the
+  prompt goes in one ``lm.decode_step`` a token; ``"batched"`` and
+  ``"continuous"`` raise for those families;
 * ``"continuous"``: :meth:`Engine.generate_requests` and
   :meth:`Engine.serve_requests` (every mode) serve requests of mixed
   lengths with staggered arrivals over the paged KV cache — the
@@ -48,8 +54,10 @@ A kernel failure raises.  The one fallback is the reference's: an
 injected ``FusedKernelFault`` (which only the fault injector raises)
 switches the engine to ``paged_attn="gather"`` for good and retries the
 dispatch; any other error, a CUDA error or a shape #6 refuses included,
-propagates.  The ssm, hybrid and encdec families raise
-``NotImplementedError`` (``models/lm.py``).
+propagates.  The encdec family (whisper) is not a decoder-only LM: it
+runs through ``models/encdec.py`` and the engine refuses it
+(``NotImplementedError``, ``models/lm.py``).  ``kv_dtype="int8"`` on a
+pure ``ssm`` model raises: it has no attention KV to quantize.
 """
 
 from __future__ import annotations
@@ -120,7 +128,7 @@ class ServeConfig:
     """Serving knobs, with the reference's names, defaults and meanings.
 
     ``prefill_mode``: ``"auto"`` (``"batched"`` for the attention
-    families), ``"batched"``, ``"stepped"`` or ``"continuous"`` (see the
+    families, ``"stepped"`` for ``ssm`` and ``hybrid``), ``"batched"``, ``"stepped"`` or ``"continuous"`` (see the
     module docstring); ``generate_requests`` and ``serve_requests`` are
     continuous in every mode.  ``temperature``/``top_k``/``top_p``/``seed``
     are the engine-wide sampling defaults; continuous requests may
@@ -350,6 +358,15 @@ class Engine:
                 "wire_dtype='int8' requires pack_weights=True and a wdbb/awdbb "
                 f"sparsity mode (got pack_weights={scfg.pack_weights}, "
                 f"mode={cfg.sparsity.mode!r})"
+            )
+        if scfg.kv_dtype != "native" and cfg.family == "ssm":
+            # never let the caller believe a quantized cache is active when
+            # the family has no attention KV at all (a hybrid's attention
+            # ring quantizes; its recurrent state stays native)
+            raise ValueError(
+                f"kv_dtype={scfg.kv_dtype!r} has no effect on pure-SSM family "
+                f"{cfg.family!r}: there is no attention KV cache to quantize "
+                "(use kv_dtype='native')"
             )
         self.scfg = scfg
         raw = _to_device(params, self.device)

@@ -40,16 +40,16 @@ def small_cfgs(arch="granite_3_8b", **over):
 
 def check_config_fields(arch, smoke):
     """Every field of the port's config equals the reference's, the
-    nested sparsity, MLA and MoE configs field for field."""
+    nested sparsity, MLA, MoE and SSM configs field for field."""
     jcfg = jconfigs.get_config(arch, smoke=smoke)
     tcfg = tconfigs.get_config(arch, smoke=smoke)
     for f in dataclasses.fields(tcfg):
-        if f.name in ("sparsity", "mla", "moe"):
+        if f.name in ("sparsity", "mla", "moe", "ssm"):
             continue
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     for f in dataclasses.fields(tcfg.sparsity):
         assert getattr(tcfg.sparsity, f.name) == getattr(jcfg.sparsity, f.name), f.name
-    for sub in ("mla", "moe"):
+    for sub in ("mla", "moe", "ssm"):
         tsub, jsub = getattr(tcfg, sub), getattr(jcfg, sub)
         assert (tsub is None) == (jsub is None), sub
         if tsub is not None:
@@ -61,6 +61,10 @@ def check_config_fields(arch, smoke):
     assert (tcfg.head_dim(), tcfg.padded_vocab, tcfg.kv_dim()) == (
         jcfg.head_dim(), jcfg.padded_vocab, jcfg.kv_dim()
     )
+    if tcfg.ssm is not None:
+        d = tcfg.d_model
+        assert (tcfg.ssm.d_inner(d), tcfg.ssm.n_heads(d)) == (jcfg.ssm.d_inner(d),
+                                                               jcfg.ssm.n_heads(d))
 
 
 def effective(jcfg, tcfg, kv_dtype="native", wire="int8"):
@@ -288,3 +292,26 @@ def spec_match(jcfg, tcfg, params, tparams, wire, kv_dtype, draft, **samp):
     assert teng.spec_stats() == jeng.spec_stats()
     assert teng.spec_stats()["spec_runs"] > 0 and teng.paged_compiles == 3
     return teng
+
+
+def chip_smoke_module():
+    """``chip_smoke.py`` as a module (its launch-count tables and rules)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_counts", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stepped_plain_calls(tcfg, tparams, wire, kv_dtype):
+    """A small stepped engine's plain-version calls by kernel over one
+    ``generate`` (2 prompts of 6 tokens, 3 new) and its number of passes:
+    what ``chip_smoke.recurrent_launches`` predicts a pass."""
+    eng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
+        max_seq=16, pack_weights=True, wire_dtype=wire, kv_dtype=kv_dtype), device="cpu")
+    ops.reset_counters()
+    eng.generate(gen_prompts(tcfg.vocab, b=2, s0=6), 3)
+    return {name: c.plain for name, c in ops.counters().items()}, eng

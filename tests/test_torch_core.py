@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_parity import check_config_fields
+from repro import configs as jconfigs
 from repro.core import dbb as jdbb
 from repro.core import quant as jquant
 from repro.kernels import epilogue as jepi
@@ -196,5 +197,8 @@ def test_minicpm3_config_matches_reference(smoke):
 
 
 def test_unported_architecture_raises():
+    """Every arch of the reference is registered; a name the reference
+    does not have raises."""
+    assert set(tconfigs.ARCH_IDS) == set(jconfigs.ARCH_IDS)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("mamba2_130m")
+        tconfigs.get_config("llama_3_8b")

@@ -78,12 +78,12 @@ def _smoke_module():
 
 
 def _smoke_int8_linears():
-    """Every full-width int8-wire linear of ``chip_smoke.py``: granite-3-8b's
-    (``LINEARS``) and the other archs' (``INT8_OTHER_LINEARS``), as (arch,
-    name, kernel, K, N)."""
+    """Every full-width int8-wire linear of ``chip_smoke.py`` that the int8
+    tc body takes: granite-3-8b's (``LINEARS``) and the other archs'
+    (``INT8_OTHER_LINEARS``), as (arch, name, kernel, K, N)."""
     mod = _smoke_module()
-    rows = [("granite-3-8b", name, kind, k, n) for name, kind, _, k, n in mod.LINEARS]
-    return rows + [(arch, name, kind, k, n) for arch, name, kind, _, k, n in mod.INT8_OTHER_LINEARS]
+    rows = [("granite-3-8b",) + row for row in mod.LINEARS] + list(mod.INT8_OTHER_LINEARS)
+    return [(arch, name, kind, k, n) for arch, name, kind, _, k, n, body in rows if body == "tc"]
 
 
 def _int8_operands(gen, m, k, n, kind, nnz=4, per_row=True):
@@ -496,9 +496,9 @@ def test_native_matmul_tc_nnz(cuda, nnz, kind):
 
 
 def _smoke_native_linears():
-    """``chip_smoke.py``'s full-width native-wire linears: (arch, name,
-    kernel, activation, DAP-pruned input, K, N)."""
-    return list(_smoke_module().NATIVE_LINEARS)
+    """``chip_smoke.py``'s full-width native-wire linears that the tc body
+    takes: (arch, name, kernel, activation, DAP-pruned input, K, N)."""
+    return [row[:-1] for row in _smoke_module().NATIVE_LINEARS if row[-1] == "tc"]
 
 
 @pytest.mark.parametrize("arch,name,kind,act,dap,k,n", _smoke_native_linears(),
@@ -1036,7 +1036,7 @@ def _served_bias(gen, arch, name, n):
 
 
 @pytest.mark.parametrize("arch,name,kind,act,k,n", [
-    row for row in _smoke_module().INT8_OTHER_LINEARS if row[0] in NEW_ARCHS],
+    row[:-1] for row in _smoke_module().INT8_OTHER_LINEARS if row[0] in NEW_ARCHS],
     ids=lambda v: str(v))
 def test_int8_tc_full_width_served_epilogue(cuda, arch, name, kind, act, k, n):
     """qwen2-vl-72b's and qwen1.5-110b's int8-wire shapes at M = 1, 4, 64
@@ -1070,7 +1070,7 @@ def test_int8_tc_full_width_served_epilogue(cuda, arch, name, kind, act, k, n):
 
 
 @pytest.mark.parametrize("arch,name,kind,act,dap,k,n", [
-    row for row in _smoke_module().NATIVE_LINEARS if row[0] in NEW_ARCHS],
+    row[:-1] for row in _smoke_module().NATIVE_LINEARS if row[0] in NEW_ARCHS],
     ids=lambda v: str(v))
 def test_native_matmul_tc_full_width_served_epilogue(cuda, arch, name, kind, act, dap, k, n):
     """starcoder2-15b's, phi3.5-moe's and qwen2-vl-72b's native-wire
@@ -1475,3 +1475,116 @@ def test_fused_fault_falls_back_to_gather_on_cuda(cuda, arch):
     assert eng.fallbacks == 1 and eng.cfg.sparsity.paged_attn == "gather"
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------ recurrent families
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1600, 6482), (4, 1600, 6482), (64, 1600, 6482),
+                                   (3, 64, 6), (5, 1600, 6)])
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_int8_generic_any_n(cuda, m, k, n, kind):
+    """#2 and #3 take any N: the generic body's guarded column tail at
+    N % 4 != 0 (hymba-1.5b's ``in_proj``, 1600 -> 6482, and N = 6), the
+    packed weight in the reference's layout, unpadded.  Int32 accumulators
+    and the f32 output with a random bias bit for bit with the plain
+    versions, on the generic body."""
+    cfg, xop, wop = _int8_operands(cuda, m, k, n, kind)
+    bias = torch.randn((n,), generator=cuda, device="cuda")
+    total, tc = _int8_counters(kind)
+    before = (total.launches, tc.launches)
+    y, want, acc, x_dense = _int8_run(kind, cfg, xop, wop, bias=bias)
+    assert torch.equal(acc, ref.int8_acc(x_dense, ref.decode_w(wop[0], wop[1], cfg)))
+    assert torch.equal(y, want)
+    assert dbb_matmul.int8_body_error(k // 8, n) is not None
+    assert (total.launches, tc.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("arch,wire", [("mamba2_130m", "native"), ("mamba2_130m", "int8"),
+                                       ("hymba_1_5b", "native"), ("hymba_1_5b", "int8")])
+def test_engine_serves_recurrent_archs_bf16(cuda, arch, wire):
+    """bf16 smoke engines of mamba2-130m (ssm; native KV) and hymba-1.5b
+    (hybrid; KV on the wire's dtype) served stepped (``auto``) on CUDA and
+    on the CPU with the same weights, prompts past hymba's window of 32.
+    Without DAP (``wdbb``) the tokens equal the CPU engine's.  With DAP
+    (``awdbb``) one bf16 ulp can become another token, so that engine is
+    held to itself: a fresh engine re-serves the same tokens.  Every
+    linear ran a kernel, no plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    kv = "native" if arch == "mamba2_130m" else wire
+    scfg = ServeConfig(pack_weights=True, max_seq=96, wire_dtype=wire, kv_dtype=kv)
+    prompts = np.random.default_rng(21).integers(0, 512, (3, 40)).astype(np.int32)
+    for mode in ("wdbb", "awdbb"):
+        cfg = configs.get_config(arch, smoke=True)
+        cfg = dataclasses.replace(cfg, dtype="bfloat16",
+                                  sparsity=dataclasses.replace(cfg.sparsity, mode=mode))
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+        outs = {}
+        for device in ("cpu", "cuda"):
+            ops.reset_counters()
+            eng = Engine(params, cfg, scfg, device=device)
+            outs[device] = eng.generate(prompts, 8)
+            assert eng.prefill_calls == prompts.shape[1]
+        counts = ops.counters()
+        assert all(c.plain == 0 for c in counts.values()), counts
+        mm = "dbb_matmul_int8" if wire == "int8" else "dbb_matmul"
+        assert counts[mm].launches > 0
+        if mode == "wdbb":
+            np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+        else:
+            again = Engine(params, cfg, scfg, device="cuda").generate(prompts, 8)
+            np.testing.assert_array_equal(again, outs["cuda"])
+
+
+@pytest.mark.parametrize("wire", ["native", "int8"])
+def test_whisper_decode_loop_cuda_matches_cpu(cuda, wire):
+    """whisper-base's smoke config in bf16 under ``wdbb`` (no DAP: one bf16
+    ulp cannot become another selection), packed on ``wire``: ``encode``
+    of 2 seeded frame tensors, then a 12-token greedy ``decode_step`` loop
+    over the ring cache, on CUDA and on the CPU with the same weights.
+    The encoder outputs agree within 2e-2 of their scale, the tokens are
+    equal, and every linear ran a kernel on CUDA, no plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.engine import _to_device, pack_params_for_serving
+
+    cfg = configs.get_config("whisper_base", smoke=True)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16",
+                              sparsity=dataclasses.replace(cfg.sparsity, mode="wdbb"))
+    dense = encdec.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    packed = pack_params_for_serving(dense, cfg, wire)
+    rng = np.random.default_rng(23)
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.n_frames, cfg.d_model))
+                              .astype(np.float32)).to(torch.bfloat16)
+    start = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32))
+    n_new = 12
+    encs, toks = {}, {}
+    for device in ("cpu", "cuda"):
+        params = _to_device(packed, device)
+        ops.reset_counters()
+        enc = encdec.encode(params, frames.to(device), cfg)
+        cache = lm.make_cache(cfg, 2, n_new, device)
+        tok, out = start.to(device), []
+        for t in range(n_new):
+            logits, cache = encdec.decode_step(params, cache, enc, tok, t, cfg)
+            tok = logits[:, -1, :cfg.vocab].argmax(dim=-1, keepdim=True).to(torch.int32)
+            out.append(tok)
+        encs[device], toks[device] = enc.float().cpu(), torch.cat(out, dim=1).cpu()
+    counts = ops.counters()
+    assert all(c.plain == 0 for c in counts.values()), counts
+    mm = "dbb_matmul_int8" if wire == "int8" else "dbb_matmul"
+    assert counts[mm].launches > 0
+    scale = encs["cpu"].abs().max().item()
+    assert (encs["cuda"] - encs["cpu"]).abs().max().item() <= 2e-2 * scale
+    assert torch.equal(toks["cuda"], toks["cpu"])

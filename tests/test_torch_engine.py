@@ -138,12 +138,12 @@ def test_lifted_limits_serve(weights, name, tmp_path):
 
 
 def test_non_dense_family_and_sampling_raise(weights):
-    """``ssm`` still raises, naming what is left (the only limit left
-    besides hybrid and encdec); sampled decoding is ported, so a sampling
-    temperature constructs."""
+    """``encdec`` raises (whisper runs through ``models/encdec.py``, not the
+    engine), naming what the port lacks; sampled decoding is ported, so a
+    sampling temperature constructs."""
     _, tcfg, _, tparams = weights
-    with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
-        tengine.Engine(tparams, dataclasses.replace(tcfg, family="ssm"),
+    with pytest.raises(NotImplementedError, match="family 'encdec' is not served"):
+        tengine.Engine(tparams, dataclasses.replace(tcfg, family="encdec"),
                        tengine.ServeConfig(**SERVE), device="cpu")
     assert not SamplingParams(temperature=0.5).greedy
 

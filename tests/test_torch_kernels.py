@@ -322,13 +322,14 @@ def test_tc_shape_rule_latent():
 
 def _smoke_native_shapes():
     """The full-width (K, N) of ``chip_smoke.py``'s native-wire linears
-    (``NATIVE_LINEARS``: minicpm3-4b, granite-moe-1b-a400m,
-    starcoder2-15b, phi3.5-moe-42b-a6.6b and qwen2-vl-72b)."""
+    that the tc body takes (``NATIVE_LINEARS``: minicpm3-4b,
+    granite-moe-1b-a400m, starcoder2-15b, phi3.5-moe-42b-a6.6b,
+    qwen2-vl-72b, mamba2-130m, hymba-1.5b and whisper-base)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return sorted({row[-2:] for row in mod.NATIVE_LINEARS})
+    return sorted({row[-3:-1] for row in mod.NATIVE_LINEARS if row[-1] == "tc"})
 
 
 @pytest.mark.parametrize("k,n", _smoke_native_shapes())
@@ -349,6 +350,32 @@ def test_native_plan_full_width(k, n):
     assert dbb_matmul.tc_body_error(torch.bfloat16, kb, n, 4, (0, 16), (8,)) is None
 
 
+def test_smoke_tables_name_each_body():
+    """``chip_smoke.py``'s body column agrees with the wrappers' rules on
+    every full-width linear: "tc" exactly where the tc body takes its K
+    and N (int8 wire: K % 128 and N % 16; native: K % 64 and N % 8), and
+    the recurrent archs' misses (hymba's K = 1600 on the int8 wire,
+    mamba2's N = 3352 there, hymba's N = 6482 on both) are named
+    "generic"."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    int8 = [("granite-3-8b",) + row for row in mod.LINEARS] + list(mod.INT8_OTHER_LINEARS)
+    for arch, name, _, _, k, n, body in int8:
+        takes = dbb_matmul.int8_body_error(k // 8, n) is None
+        assert body == ("tc" if takes else "generic"), (arch, name, k, n)
+    for arch, name, _, _, _, k, n, body in mod.NATIVE_LINEARS:
+        takes = dbb_matmul.tc_body_error(torch.bfloat16, k // 8, n) is None
+        assert body == ("tc" if takes else "generic"), (arch, name, k, n)
+    generic = {(r[0], r[1], r[-3], r[-2]) for r in int8 if r[-1] == "generic"}
+    assert ("hymba-1.5b", "in_proj", 1600, 6482) in generic
+    assert ("mamba2-130m", "in_proj", 768, 3352) in generic
+    assert {r[1] for r in generic if r[0] == "hymba-1.5b"} >= {"wq", "wo", "in_proj", "lm_head"}
+    native_generic = {(r[0], r[1]) for r in mod.NATIVE_LINEARS if r[-1] == "generic"}
+    assert native_generic == {("hymba-1.5b", "in_proj")}
+
+
 def test_tc_body_rule():
     """What the tc body refuses, by name: f32 values, N not a multiple of
     8 (70, 290), K not a multiple of 64, more than 4 values an 8-block,
@@ -365,14 +392,16 @@ def test_tc_body_rule():
 
 
 def _smoke_int8_shapes():
-    """The full-width (K, N) of ``chip_smoke.py``'s int8-wire linears
-    (``LINEARS``: granite-3-8b, ``INT8_OTHER_LINEARS``: minicpm3-4b,
-    granite-moe-1b-a400m, qwen2-vl-72b and qwen1.5-110b)."""
+    """The full-width (K, N) of ``chip_smoke.py``'s int8-wire linears that
+    the int8 tc body takes (``LINEARS``: granite-3-8b,
+    ``INT8_OTHER_LINEARS``: minicpm3-4b, granite-moe-1b-a400m,
+    qwen2-vl-72b, qwen1.5-110b, mamba2-130m and hymba-1.5b)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return sorted({row[-2:] for row in mod.LINEARS + mod.INT8_OTHER_LINEARS})
+    return sorted({row[-3:-1] for row in mod.LINEARS + mod.INT8_OTHER_LINEARS
+                   if row[-1] == "tc"})
 
 
 @pytest.mark.parametrize("k,n", _smoke_int8_shapes())

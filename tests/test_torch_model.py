@@ -162,5 +162,7 @@ def test_paged_step_logits_vs_reference(setup, kv_dtype):
 
 def test_unported_family_raises():
     _, tcfg = small_cfgs()
-    with pytest.raises(NotImplementedError, match="family 'ssm' is not ported"):
-        tlm.init_params(dataclasses.replace(tcfg, family="ssm"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="family 'encdec' is not served"):
+        tlm.init_params(dataclasses.replace(tcfg, family="encdec"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="family 'audio' is not ported"):
+        tlm.init_params(dataclasses.replace(tcfg, family="audio"), torch.Generator(), "cpu")

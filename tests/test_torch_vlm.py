@@ -237,9 +237,9 @@ def test_vlm_invariants_byte_exact(weights, wire):
 
 
 def test_vlm_family_is_served_and_others_raise(weights):
-    """``vlm`` is admitted by the model and the engine; ``ssm`` still
-    raises, naming what is left."""
+    """``vlm`` is admitted by the model and the engine; ``encdec`` raises,
+    naming what the port lacks (training and distribution)."""
     _, tcfg, _, tparams = weights
     tengine.Engine(tparams, tcfg, tengine.ServeConfig(**PACKED), device="cpu")
-    with pytest.raises(NotImplementedError, match="ssm, hybrid and encdec"):
-        tlm.init_params(dataclasses.replace(tcfg, family="hybrid"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tlm.init_params(dataclasses.replace(tcfg, family="encdec"), torch.Generator(), "cpu")
