@@ -88,6 +88,16 @@ non-zero and prints no result:
 9. ``phase_encdec``: whisper-base at full width on the native wire:
    4 x 1500 frames encoded, then 32 greedy ``decode_step`` calls over the
    ring, launches counted, a second run byte-identical.
+10. ``phase_train``: granite-moe-1b-a400m trained whole at full width and
+   depth (bf16, awdbb 4/8 with the straight-through DAP gradient,
+   ``remat="full"``): 12 ``Trainer`` steps of AdamW over ``MarkovLM(2048,
+   8 x 512)`` with the W-DBB schedule reaching 4/8 at step 8; #5's
+   launches a step against ``train_launches``, the loss falling, every
+   masked weight 4-of-8; int8 gradient compression at the same width; a
+   kill-and-resume check at 2 layers under
+   ``torch.use_deterministic_algorithms``; one smoke step on the card
+   against the CPU; the STE at the training shape ``[4096, 1024]``, bit
+   for bit, #5 timed there (the record's ``dap_prune`` ``"train"``).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +105,7 @@ The line before the last is the per-kernel JSON record; the last line is
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2189,6 +2200,355 @@ def phase_encdec(torch, np, card, launches):
     return t
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_ARCH = "granite_moe_1b_a400m"
+# the stream's vocabulary: the reference's launcher caps it at 2048 (a
+# Markov table is vocab x vocab in float64, 19.3 GB at 49155); its ids are
+# valid ids of the model's full 49155-token head
+TRAIN_VOCAB, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2048, 8, 512, 12
+TRAIN_WDBB = dict(begin_step=0, end_step=8, update_every=4)
+RESUME_LAYERS = 2  # the kill-and-resume check's depth (full width)
+
+
+def train_launches(cfg):
+    """#5's dense-form launches of one training step of a GQA arch under
+    awdbb: each of wq, wk, wv and wo prunes its own input
+    (``maybe_pack_input`` packs only for packed weights), the MoE FFN its
+    input once (a dense MLP each of its linears'), the head none; twice
+    under remat (the backward recomputes every layer's forward; the
+    straight-through backward launches nothing)."""
+    mlp = 1 if cfg.moe is not None else (3 if cfg.mlp_act == "swiglu" else 2)
+    passes = 1 if cfg.remat == "none" else 2
+    return {"dap_prune": (4 + mlp) * cfg.n_layers * passes}
+
+
+def train_opt_cfg(opt_mod):
+    return opt_mod.OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+
+def ste_phase(torch, run_ms, gen, launches_per_step):
+    """The STE (``core/dap.DAPSTE``) at the training shape ``[B*S, d]``
+    bf16 on the card, bit for bit against its plain version on the same
+    tensors (``dbb.prune`` forward, the gradient times a recomputed
+    ``dbb.topk_block_mask`` backward), on an input with zero-filled and
+    part-zero blocks, -0.0, ties and a NaN block; #5's dense form timed at
+    that shape beside its plain version, its bytes bound, and the STE
+    backward's plain ms.  Returns the record's ``"train"`` entry."""
+    from repro_torch.core import dap, dbb
+    from repro_torch.kernels import dap_prune, ref
+
+    m, k = TRAIN_B * TRAIN_S, 1024
+    x = dap_inputs(torch, gen, m, k, torch.float32)
+    x[3, :64] = 0.0  # whole zero blocks
+    x[4, ::3] = 0.0  # blocks with fewer than 4 non-zeros
+    x[5, 8:16] = -0.0
+    x = x.to(torch.bfloat16)
+    g = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    xa = x.clone().requires_grad_(True)
+    y = dap.DAPSTE.apply(xa, 4, 8)
+    y.backward(g)
+    cfg = dbb.DBBConfig(4, 8)
+    want_y = dbb.prune(x, cfg)
+    want_g = torch.where(dbb.topk_block_mask(x, cfg), g, torch.zeros_like(g))
+    v = torch.int16
+    check(torch.equal(y.detach().view(v), want_y.view(v)),
+          "STE forward at the training shape differs from dbb.prune")
+    check(torch.equal(xa.grad.view(v), want_g.view(v)),
+          "STE backward at the training shape differs from the recomputed selection")
+    xb = x[8:]  # the timed calls: no planted rows
+    out = dap_prune.dap_prune_cuda(xb, 4)
+    t_k = run_ms(lambda: dap_prune.dap_prune_cuda(xb, 4), iters=15)
+    t_p = run_ms(lambda: ref.dap_prune_ref(xb, 4), iters=3)
+    gb = g[8:]
+    t_bwd = run_ms(lambda: torch.where(dap.selection_mask(xb, out[0], 4, 8), gb,
+                                       torch.zeros_like(gb)), iters=15)
+    nbytes = xb.numel() * 2 + sum(t.numel() * t.element_size() for t in out)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    n = launches_per_step
+    say(f"kernel dap_prune (training shape M={m} K={k}, bf16: the DAP input of granite-moe's "
+        f"wq/wk/wv/wo and MoE FFN at batch {TRAIN_B} x {TRAIN_S}): kernel_ms {t_k:.4f} plain_ms "
+        f"{t_p:.3f} bound_ms {bound:.5f} (bytes) library_ms none; the STE backward (plain: "
+        f"selection from the output, then where) {t_bwd:.4f} ms; {n} launches a step, "
+        f"{n * t_k:.2f} ms of #5 a step; STE forward and backward bit for bit against "
+        f"dbb.prune and the recomputed topk_block_mask (zero blocks, -0.0, ties, NaN)")
+    return dict(M=m, K=k, ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by="bytes",
+                library_ms=None, ste_backward_plain_ms=t_bwd, launches_per_step=n)
+
+
+def masked_leaves(params, masks):
+    """``(path, param)`` of every leaf whose W-DBB mask drops something."""
+    from repro_torch.core import tree
+
+    out = []
+    for g, mg in zip(tree.groups(params), tree.groups(masks)):
+        for path, p, m in zip(g.piece_paths(), g.pieces, mg.pieces):
+            if not bool(m.all()):
+                out.append((path, p))
+    return out
+
+
+def train_vs_cpu(torch):
+    """One ``train_step`` of granite-moe-1b-a400m's smoke config in f32
+    under wdbb (no DAP, so no selection flips) on the card and on the CPU
+    from the same params, masks and batch: loss within 1e-5 relative,
+    moments within 1e-4 of each leaf's largest, params within 1e-4 (AdamW's
+    first step divides a moment by its root, so an element whose gradient
+    is near eps moves by up to lr x a rounding difference; lr 1e-3).
+    Returns the largest differences."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import dbb, schedule, tree
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer, train_step
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH, smoke=True, sparsity_mode="wdbb"),
+                              dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu", wire_dtype=None)
+    masks = schedule.wdbb_masks(params, dbb.DBBConfig(4, 8))
+    rng = torch.Generator().manual_seed(SEED + 9)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=rng, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    ocfg = optimizer.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda t: t.to(dev)
+        out[dev] = train_step.train_step(
+            tree.tree_map(mv, params), optimizer.init(tree.tree_map(mv, params)),
+            {k: v.to(dev) for k, v in batch.items()}, cfg=cfg, opt_cfg=ocfg,
+            masks=tree.tree_map(mv, masks))
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out["cuda"]
+    dl = abs(float(mc["loss"]) - float(mg["loss"])) / abs(float(mc["loss"]))
+    check(dl <= 1e-5, f"train_step card vs CPU: loss differs by {dl:.3g} relative")
+    worst = {"loss_rel": dl}
+    for name, a, b, bound, rel in (("params", pc, pg, 1e-4, False), ("mu", sc.mu, sg.mu, 1e-4, True),
+                                   ("nu", sc.nu, sg.nu, 1e-4, True)):
+        w = 0.0
+        for x, y in zip(tree.leaves(a), tree.leaves(b)):
+            d = (x - y.cpu()).abs().max().item()
+            scale = x.abs().max().item() if rel else 1.0
+            w = max(w, d / max(scale, 1e-30))
+            check(d <= bound * max(scale, 1e-30) if rel else d <= bound,
+                  f"train_step card vs CPU: {name} differs by {d:.3g}")
+        worst[name] = w
+    return worst
+
+
+def resume_check(torch, cfg):
+    """Kill and resume at full width and ``RESUME_LAYERS`` layers under
+    ``torch.use_deterministic_algorithms``: 4 steps straight against 2
+    steps, a save, a new ``Trainer`` restored from it and 2 more steps
+    (the W-DBB schedule refreshing every 2 steps, so the resumed trainer's
+    recomputed masks are the uninterrupted run's).  Params and moments bit
+    for bit; an op without a deterministic CUDA path is named and the
+    check held to 1 bf16 ulp of each param leaf's largest value and 1e-3
+    of each moment leaf's largest instead.  Returns the line's text."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.core import dbb, tree
+    from repro_torch.core.schedule import WDBBSchedule
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg2 = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    sched = WDBBSchedule(dbb.DBBConfig(4, 8), begin_step=0, end_step=8, update_every=2)
+
+    def trainer(ckpt_dir=None):
+        return Trainer(cfg2, train_opt_cfg(optimizer),
+                       TrainerConfig(total_steps=4, log_every=0, ckpt_dir=ckpt_dir, wdbb=sched),
+                       MarkovLM(TRAIN_VOCAB, TRAIN_B, TRAIN_S, seed=SEED),
+                       torch.Generator(device="cuda").manual_seed(SEED + 1), device="cuda")
+
+    d = tempfile.mkdtemp(prefix="train_resume_", dir=os.environ.get("TMPDIR"))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a = trainer()
+                a.run(4)
+                b = trainer(d)
+                b.run(2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b.save()
+                t_save = time.perf_counter() - t0
+                del b
+                t0 = time.perf_counter()
+                c = trainer(d)
+                torch.cuda.synchronize()
+                t_restore = time.perf_counter() - t0
+                check(c.step == 2, f"resume: restored at step {c.step}, not 2")
+                c.run(2)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        nbytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ops_nd = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    worst = {}
+    for name, ta, tc, tol in (("params", a.params, c.params, 2 ** -8),
+                              ("mu", a.opt_state.mu, c.opt_state.mu, 1e-3),
+                              ("nu", a.opt_state.nu, c.opt_state.nu, 1e-3)):
+        w = 0.0
+        for x, y in zip(tree.leaves(ta), tree.leaves(tc)):
+            if ops_nd:
+                d_ = (x.float() - y.float()).abs().max().item()
+                w = max(w, d_ / max(x.float().abs().max().item(), 1e-30))
+                check(w <= tol, f"resume: {name} differs by {w:.3g} of a leaf's largest "
+                                f"(bound {tol}; non-deterministic ops {ops_nd})")
+            else:
+                v = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+                check(torch.equal(x.view(v), y.view(v)), f"resume: {name} not bit for bit")
+        worst[name] = w
+    check(int(a.opt_state.step) == int(c.opt_state.step) == 4, "resume: optimizer steps differ")
+    verdict = ("bit for bit (params, mu, nu) under use_deterministic_algorithms" if not ops_nd
+               else f"held to a tolerance, ops without a deterministic CUDA path: {ops_nd}; "
+                    f"largest differences {worst}")
+    return (f"kill and resume at {RESUME_LAYERS} of {cfg.n_layers} layers, full width: 4 steps "
+            f"== 2 steps, save, restore into a new Trainer, 2 steps: {verdict}; checkpoint "
+            f"{nbytes} B, save {t_save:.2f} s, new Trainer with restore {t_restore:.2f} s")
+
+
+def phase_train(torch, np, card, launches, stats):
+    """granite-moe-1b-a400m trained whole at full width and depth (24
+    layers, 32 experts top-8, padded vocabulary 49408), bf16, its awdbb
+    4/8 sparsity with the STE at every DAP site, ``remat="full"``: 12
+    ``Trainer`` steps of AdamW over ``MarkovLM(2048, batch 8, seq 512)``
+    through a ``Prefetcher`` (the stream's ids are valid ids of the full
+    head), W-DBB ramping to 4/8 by step 8.  Launches counted over the run
+    (every one of #5's dense form, none plain); asserts finite losses, the
+    last below the first, 4-of-8 on every masked weight after the schedule
+    ends.  Then int8 gradient compression at the same width, the
+    kill-and-resume check, the card against the CPU on a smoke step, and
+    the STE at the training shape."""
+    from repro_torch import configs
+    from repro_torch.core import dbb, tree
+    from repro_torch.core.schedule import WDBBSchedule
+    from repro_torch.data.pipeline import MarkovLM, Prefetcher
+    from repro_torch.kernels import ops
+    from repro_torch.train import compression, optimizer, train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    run_ms = timer(torch, flush)
+    cfg = configs.get_config(TRAIN_ARCH)
+    per_step = train_launches(cfg)
+    sched = WDBBSchedule(dbb.DBBConfig(cfg.sparsity.w_nnz, cfg.sparsity.bz), **TRAIN_WDBB)
+    data = Prefetcher(MarkovLM(TRAIN_VOCAB, TRAIN_B, TRAIN_S, seed=SEED))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, train_opt_cfg(optimizer),
+                     TrainerConfig(total_steps=TRAIN_STEPS, log_every=0, wdbb=sched), data,
+                     torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        torch.cuda.synchronize()
+        t_init, peak_init = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in tree.leaves(tr.params))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counters()
+        hist, step_launches = [], []
+        for _ in range(TRAIN_STEPS):
+            before = ops.counters()["dap_prune"].launches
+            hist += tr.run(1)
+            step_launches.append(ops.counters()["dap_prune"].launches - before)
+        torch.cuda.synchronize()
+        peak_train = torch.cuda.max_memory_allocated()
+        counters = ops.counters()
+    finally:
+        data.close()
+    check(all(c.plain == 0 for c in counters.values()),
+          f"train: a plain version ran on the card: {[k for k, c in counters.items() if c.plain]}")
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    check_launches("train granite-moe-1b-a400m", counts, per_step, TRAIN_STEPS)
+    check(all(n == per_step["dap_prune"] for n in step_launches),
+          f"train: #5 launches a step {step_launches}, expected {per_step['dap_prune']}")
+    add_launches(launches, counts)
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    masked = masked_leaves(tr.params, tr.masks)
+    want_masked = (4 + 3) * cfg.n_layers + 1  # wq wk wv wo, the experts' gate up down; the head
+    check(len(masked) == want_masked, f"train: {len(masked)} masked leaves, {want_masked} expected")
+    bad = [p for p, w in masked
+           if not bool(dbb.satisfies(w.transpose(-2, -1), dbb.DBBConfig(4, 8)))]
+    check(not bad, f"train: weights past 4-of-8 after step {TRAIN_WDBB['end_step']}: {bad[:4]}")
+    times = [h["step_time"] for h in hist]
+    steady = times[1:]
+    p50 = statistics.median(steady)
+    tok = TRAIN_B * TRAIN_S
+    say(f"train {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, vocab {cfg.vocab} padded {cfg.padded_vocab}; {n_params} params, "
+        f"bf16, awdbb 4/8 with the STE, remat {cfg.remat}; batch {TRAIN_B} x {TRAIN_S} from "
+        f"MarkovLM({TRAIN_VOCAB}) through a Prefetcher: the stream's ids are valid ids of the "
+        f"full head; AdamW lr 3e-4, warmup 2, W-DBB to 4/8 by step {TRAIN_WDBB['end_step']}, "
+        f"refreshed every {TRAIN_WDBB['update_every']}): init {t_init:.2f} s, peak memory after "
+        f"init {peak_init} B, while training {peak_train} B; losses "
+        f"{[round(x, 4) for x in losses]}; step time first {times[0]:.3f} s, then p50 "
+        f"{p50:.4f} s, max {max(steady):.4f} s; {tok / p50:.1f} tokens/s; #5 launches a step "
+        f"{step_launches[0]} (predicted {per_step['dap_prune']}: 5 DAP sites x "
+        f"{cfg.n_layers} layers x 2 with remat); every masked weight 4-of-8 after step "
+        f"{TRAIN_WDBB['end_step']} ({len(masked)} leaves) ({card})")
+
+    # int8 gradient compression with error feedback at the same width
+    batch = {k: torch.as_tensor(np.asarray(v), device="cuda")
+             for k, v in next(iter(MarkovLM(TRAIN_VOCAB, TRAIN_B, TRAIN_S, seed=SEED + 5))).items()}
+    flat = tree.leaves(tr.params)
+    req = [p.detach().requires_grad_(True) for p in flat]
+    loss, _ = train_step.loss_fn(tree.unflatten(tr.params, req), batch, cfg)
+    grads = tree.unflatten(tr.params, list(torch.autograd.grad(loss, req)))
+    del req, loss
+    res = compression.init_residuals(tr.params)
+    qtree, res = compression.compress_tree(grads, res)
+    deq = compression.decompress_tree(qtree)
+    worst = 0.0
+    for g, q, dq in zip(tree.leaves(grads), tree.leaves(qtree), tree.leaves(deq)):
+        err = (dq - g.float()).abs().max().item() / q[1].item()
+        worst = max(worst, err)
+    check(worst <= 0.5 + 1e-4, f"compression: a decompressed gradient {worst:.4f} scales off")
+    del grads, qtree, deq
+    p, s = tr.params, tr.opt_state
+    losses_c = []
+    for _ in range(2):
+        p, s, m, res = train_step.train_step(p, s, batch, cfg=cfg, opt_cfg=train_opt_cfg(optimizer),
+                                             masks=tr.masks, residuals=res)
+        losses_c.append(float(m["loss"]))
+    finite = all(bool(torch.isfinite(r).all()) for r in tree.leaves(res))
+    check(finite and all(math.isfinite(x) for x in losses_c),
+          f"compression: non-finite residuals or losses {losses_c}")
+    say(f"train compression (int8, error feedback, one scale per stacked leaf): decompressed "
+        f"gradients within {worst:.4f} of a scale of their input (bound 0.5); two train_steps "
+        f"with residuals at full width: losses {[round(x, 4) for x in losses_c]}, residuals "
+        f"finite ({card})")
+    del p, s, res, tr
+    torch.cuda.empty_cache()
+
+    say("train " + resume_check(torch, cfg) + f" ({card})")
+    torch.cuda.empty_cache()
+    w = train_vs_cpu(torch)
+    say(f"train card vs CPU (granite-moe smoke, f32, wdbb, one train_step): loss "
+        f"{w['loss_rel']:.3g} relative, params {w['params']:.3g} absolute, mu {w['mu']:.3g} and "
+        f"nu {w['nu']:.3g} of each leaf's largest (bounds 1e-5, 1e-4, 1e-4, 1e-4)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    stats["dap_prune"]["train"] = ste_phase(torch, run_ms, gen, per_step["dap_prune"])
+    del flush
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - t_phase
+    say(f"train: phase wall {t:.1f} s")
+    return t
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -2204,6 +2564,7 @@ def say_pass(arch, n_layers, per_kernel):
 
 
 def main():
+    t_start = time.perf_counter()
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
         print(f"chip_smoke: {src / 'repro_torch'} not found: run from a checkout",
@@ -2216,6 +2577,10 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # read at the first cuBLAS call: phase_train's resume check runs under
+    # torch.use_deterministic_algorithms, which needs a fixed workspace
+    # (the size is Hopper's default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2259,6 +2624,7 @@ def main():
     torch.cuda.empty_cache()
     t_new = phase_recurrent(torch, np, card, launches) + phase_encdec(torch, np, card, launches)
     say(f"recurrent and encdec phases together: {t_new:.1f} s")
+    phase_train(torch, np, card, launches, stats)
 
     record = []
     for name, info in KERNELS.items():
@@ -2273,6 +2639,8 @@ def main():
         })
         if name in rec_shapes:
             record[-1]["shapes"] = rec_shapes[name]
+        if "train" in st:
+            record[-1]["train"] = st["train"]
     say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
         "query tokens per request; attention on a mixed step's rows: decode rows and a "
         "chunk tail padded to S), summed over its launches, of granite-3-8b for "
@@ -2282,6 +2650,7 @@ def main():
         "for dap_prune; launches summed over the main paths, the serving-mode, spec, "
         "durability, recurrent and encdec phases; under \"shapes\" the #1-#4 calls at the "
         "recurrent families' mixer shapes (M=4 and 64)")
+    say(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f} s, the build included")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-"""PyTorch / CUDA port of the S2TA serving stack for NVIDIA Hopper.
+"""PyTorch / CUDA port of the S2TA serving and training stack for NVIDIA
+Hopper.
 
 Mirrors the JAX package ``repro`` module for module
-(``repro_torch/{configs,core,kernels,models,serve}``) and is held against
-it by the ``tests/test_torch_*.py`` parity suite.  This package imports
+(``repro_torch/{configs,core,data,kernels,launch,models,runtime,serve,
+train}``) and is held against it by the ``tests/test_torch_*.py`` parity
+suite.  This package imports
 ``torch`` and ``numpy`` only — never ``jax`` and nothing of ``repro``.
 
 Slice 1 covers int8 DBB continuous serving of dense GQA decoders

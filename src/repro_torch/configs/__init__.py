@@ -1,4 +1,4 @@
-"""Architecture registry: ``get_config(name, smoke=False)``.
+"""Architecture registry: ``get_config(name, smoke=False, sparsity_mode=None)``.
 
 Every arch of the reference: granite-3-8b, starcoder2-15b and
 qwen1.5-110b (dense GQA), minicpm3-4b (MLA), granite-moe-1b-a400m and
@@ -8,6 +8,8 @@ stepped; whisper-base (enc-dec), driven through ``models/encdec.py``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs import (
     granite_3_8b,
@@ -45,7 +47,10 @@ def canon(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
 
 
-def get_config(name: str, smoke: bool = False) -> ModelConfig:
+def get_config(name: str, smoke: bool = False, sparsity_mode: str | None = None) -> ModelConfig:
+    """The published configuration of ``name`` (or its reduced smoke
+    variant), with the sparsity mode replaced when ``sparsity_mode`` is
+    given (``dense`` | ``wdbb`` | ``awdbb``)."""
     key = canon(name)
     if key not in _MODULES:
         raise NotImplementedError(
@@ -53,4 +58,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
             f"(ported: {ARCH_IDS})"
         )
     mod = _MODULES[key]
-    return mod.SMOKE if smoke else mod.CONFIG
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    if sparsity_mode is not None:
+        cfg = dataclasses.replace(
+            cfg, sparsity=dataclasses.replace(cfg.sparsity, mode=sparsity_mode))
+    return cfg

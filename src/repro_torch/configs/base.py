@@ -1,9 +1,9 @@
 """Model configuration (port of ``repro.configs.base``).
 
-Only the fields a served model (a decoder: dense GQA, MLA, MoE, the VLM
-backbone, the mamba2 SSM or the hymba hybrid; or the whisper enc-dec)
-reads are carried; each has the reference's name, default and meaning,
-and a test holds them equal field for field.
+Only the fields a served or trained model (a decoder: dense GQA, MLA,
+MoE, the VLM backbone, the mamba2 SSM or the hymba hybrid; or the whisper
+enc-dec) reads are carried; each has the reference's name, default and
+meaning, and a test holds them equal field for field.
 """
 
 from __future__ import annotations
@@ -83,6 +83,8 @@ class ModelConfig:
     # embedding / lm_head rows are padded to a multiple of this
     vocab_pad_multiple: int = 256
     dtype: str = "bfloat16"
+    # per-layer activation checkpointing of the training forward
+    remat: str = "full"  # none | full | dots
 
     def head_dim(self) -> int:
         return self.d_head if self.d_head is not None else self.d_model // self.n_heads
@@ -98,3 +100,37 @@ class ModelConfig:
         if self.mla is not None:
             return self.mla.kv_lora_rank + self.mla.qk_rope_head_dim
         return self.n_kv_heads * self.head_dim()
+
+    def param_count(self) -> int:
+        """Approximate parameter count (dense equivalent), the reference's
+        arithmetic."""
+        d, f, v, n_l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd = self.head_dim()
+        if self.family == "ssm":
+            s = self.ssm
+            di = s.d_inner(d)
+            per = d * (2 * di + 2 * s.ngroups * s.d_state + s.n_heads(d)) + di * d
+            return v * d + n_l * per + d
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        if self.mla is not None:
+            m = self.mla
+            attn = (
+                d * m.q_lora_rank
+                + m.q_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                + self.n_heads * m.v_head_dim * d
+            )
+        mlp = 3 * d * f if self.mlp_act == "swiglu" else 2 * d * f
+        if self.moe is not None:
+            mlp = mlp * self.moe.n_experts + d * self.moe.n_experts
+        total = v * d + n_l * (attn + mlp) + d
+        if not self.tie_embeddings:
+            total += v * d
+        if self.family == "encdec":
+            total += self.n_enc_layers * (attn + mlp)
+        if self.family == "hybrid":
+            s = self.ssm
+            di = s.d_inner(d)
+            total += n_l * (d * (2 * di + 2 * s.ngroups * s.d_state + s.n_heads(d)) + di * d)
+        return total

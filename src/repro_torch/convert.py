@@ -5,7 +5,10 @@ with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and
 returns the port's: the same dictionaries, with the layer-stacked
 ``[L, ...]`` leaves under ``"layers"`` (and whisper's ``"enc_layers"`` and
 ``"dec_layers"``) unstacked into lists of per-layer dictionaries.  Raw and wire-packed trees convert alike.  bfloat16 leaves
-(ml_dtypes arrays) cross bit for bit through a ``uint16`` view.
+(ml_dtypes arrays) cross bit for bit through a ``uint16`` view.  Any
+tree shaped like the params converts the same way: the W-DBB masks, the
+error-feedback residuals, and the optimizer's moments
+(:func:`opt_state_from_numpy`).
 """
 
 from __future__ import annotations
@@ -48,3 +51,13 @@ def params_from_numpy(tree, device="cpu"):
     return {k: (_unstack(v, device) if k in STACKED
                 else _map(v, lambda a: tensor_from_numpy(a, device)))
             for k, v in tree.items()}
+
+
+def opt_state_from_numpy(step, mu, nu, device="cpu"):
+    """The reference's ``OptState`` (numpy leaves) -> the port's: ``mu``
+    and ``nu`` unstacked like the params, ``step`` a 0-d int32 tensor on
+    the CPU (where the port keeps it)."""
+    from repro_torch.train.optimizer import OptState
+
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                    mu=params_from_numpy(mu, device), nu=params_from_numpy(nu, device))

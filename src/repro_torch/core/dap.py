@@ -1,9 +1,10 @@
-"""Dynamic Activation Pruning forward (port of ``repro.core.dap``).
+"""Dynamic Activation Pruning (port of ``repro.core.dap``).
 
 Within each block of ``bz`` channels keep the ``nnz`` largest magnitudes
-(the paper's cascaded maxpool, Fig. 8): kernel #5 on a CUDA tensor, its
-plain version (``dbb.prune``) on a CPU tensor.  Serving needs the forward
-only; the straight-through gradient is a later slice (training).
+(the paper's cascaded maxpool, Fig. 8): kernel #5's dense form on a CUDA
+tensor, its plain version (``dbb.prune``) on a CPU tensor.  Training
+(paper §8.1) passes the gradient straight through the kept elements only:
+``d DAP(a) / d a`` is the Top-NNZ *selection* mask (:class:`DAPSTE`).
 """
 
 from __future__ import annotations
@@ -41,9 +42,56 @@ class DAPSpec:
         return self.nnz == self.bz
 
 
+def selection_mask(a: torch.Tensor, pruned: torch.Tensor, nnz: int, bz: int) -> torch.Tensor:
+    """The reference's Top-NNZ selection ``dbb.topk_block_mask(a)``, read
+    off DAP's output instead of recomputed: a non-zero is selected iff it
+    was kept (``pruned != 0``, what #5's bitmask marks); a block with
+    ``c < nnz`` kept non-zeros also selects its ``nnz - c`` lowest-index
+    zeros (``-0.0`` included: the cascade's ties go to the lower index);
+    a block holding a NaN selects nothing (its max is NaN, which equals
+    no element)."""
+    kept = dbb._to_blocks(pruned != 0, bz)
+    ab = dbb._to_blocks(a, bz)
+    zero = ab == 0
+    # earlier zeros in the block: a product with the strictly upper
+    # triangular ones (small integers, exact in f32); a cumsum along the
+    # 8-wide axis is a slow scan on CUDA (3.4 ms at [4096, 1024])
+    earlier = torch.ones((bz, bz), dtype=torch.float32, device=a.device).triu(1)
+    zero_rank = torch.matmul(zero.to(torch.float32), earlier)
+    room = nnz - kept.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    fill = zero & (zero_rank < room) & ~torch.isnan(ab).any(dim=-1, keepdim=True)
+    return dbb._from_blocks(kept | fill)
+
+
+class DAPSTE(torch.autograd.Function):
+    """DAP with the straight-through gradient.  Forward: exactly
+    ``ops.dap_prune`` (kernel #5's dense form on CUDA, its plain version
+    on the CPU).  Backward: the gradient times the selection mask
+    (:func:`selection_mask`, derived from the forward's output and the
+    saved input: a few elementwise ops, a block sum and an 8 x 8 product,
+    where recomputing the cascade takes ``nnz`` rounds of six).  The
+    backward is plain PyTorch, as it is plain JAX in the reference."""
+
+    @staticmethod
+    def forward(ctx, a, nnz: int, bz: int):
+        pruned = ops.dap_prune(a, nnz, bz)[0]
+        ctx.save_for_backward(a, pruned)
+        ctx.nnz, ctx.bz = nnz, bz
+        return pruned
+
+    @staticmethod
+    def backward(ctx, g):
+        a, pruned = ctx.saved_tensors
+        sel = selection_mask(a, pruned, ctx.nnz, ctx.bz)
+        return torch.where(sel, g, torch.zeros_like(g)), None, None
+
+
 def apply_dap(a: torch.Tensor, spec: DAPSpec | None) -> torch.Tensor:
-    """Top-NNZ-per-block pruning (``ops.dap_prune``, pruned tensor only);
-    identity when ``spec`` is None or dense."""
+    """Top-NNZ-per-block pruning (``ops.dap_prune``, pruned tensor only),
+    through :class:`DAPSTE` when a gradient is wanted; identity when
+    ``spec`` is None or dense."""
     if spec is None or spec.is_dense:
         return a
+    if torch.is_grad_enabled() and a.requires_grad:
+        return DAPSTE.apply(a, spec.nnz, spec.bz)
     return ops.dap_prune(a, spec.nnz, spec.bz)[0]

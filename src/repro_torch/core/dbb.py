@@ -123,3 +123,13 @@ def pack_bitmask_int8(x: torch.Tensor, cfg: DBBConfig, scale_axis=None):
     vals, bitmask = pack_bitmask(x, cfg)
     q, scale = quant.quantize(vals, axis=scale_axis)
     return q, bitmask, scale
+
+
+def block_density(x: torch.Tensor, bz: int = DEFAULT_BZ) -> torch.Tensor:
+    """Non-zeros in each block of ``bz`` along the last axis."""
+    return (_to_blocks(x, bz) != 0).sum(dim=-1)
+
+
+def satisfies(x: torch.Tensor, cfg: DBBConfig) -> torch.Tensor:
+    """Scalar bool: every block obeys the NNZ bound."""
+    return torch.all(block_density(x, cfg.bz) <= cfg.nnz)

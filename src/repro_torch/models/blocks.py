@@ -6,6 +6,8 @@ whisper's encoder and cross-attending decoder blocks."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -49,11 +51,13 @@ def make_decoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
 
 
 def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
-                  decode_pos=None, rope_cs=None, page_tables=None):
+                  decode_pos=None, rope_cs=None, page_tables=None, with_aux=False):
     """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; a hybrid adds
     ``0.5 * (rmsnorm(attn) + rmsnorm(mixer))`` instead, the mixer taking
-    the same dense ``ln1(x)`` (its ``in_proj`` prunes its own input).  The
-    MoE load-balance loss is dropped: serving has no use for it.
+    the same dense ``ln1(x)`` (its ``in_proj`` prunes its own input).
+    With ``with_aux`` returns ``(x, aux)``: the MoE load-balance loss
+    (f32 zero without MoE), which training adds to its loss; serving
+    drops it.
 
     ``cache_layer`` holds this layer's cache, written in place: with
     ``page_tables`` its page pools and the already-updated shared slot
@@ -88,15 +92,20 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
     else:
         x = x + a_out
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    aux = None
     if cfg.moe is not None:
-        m_out, _ = moe_mod.moe_forward(
+        m_out, aux = moe_mod.moe_forward(
             p["moe"], h2, cfg, layer_idx=layer_idx, n_groups=cfg.moe_groups
         )
     else:
         m_out = mlp_forward(
             p["mlp"], h2, act=cfg.mlp_act, sparsity=cfg.sparsity, layer_idx=layer_idx
         )
-    return x + m_out
+    if not with_aux:
+        return x + m_out
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m_out, aux
 
 
 # ----------------------------------------------------------------- whisper

@@ -10,6 +10,7 @@ wire.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Union
 
@@ -150,6 +151,35 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     its summation order from the shapes, and float64 keeps a row's rounded
     result independent of how many rows share the call."""
     return torch.einsum(eq, a.double(), b.double()).float()
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of products without batch dimensions (``mm``, ``addmm``),
+    recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, remat: str, x: torch.Tensor, *args):
+    """``fn(x, *args)`` under the reference's per-layer remat while a
+    gradient flows through ``x``: ``"full"`` keeps only the layer's input
+    and recomputes the layer in the backward, ``"dots"`` also keeps the
+    outputs of its unbatched matmuls, ``"none"`` keeps everything.
+    Without a gradient (serving) ``fn`` runs plainly."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}; none|full|dots")
+    if remat == "none" or not (torch.is_grad_enabled() and x.requires_grad):
+        return fn(x, *args)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, x, *args, use_reentrant=False, **kw)
 
 
 def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,

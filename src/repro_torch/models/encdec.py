@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks, rope
 from repro_torch.models.common import (
+    checkpointed,
     dtype_of,
     layernorm,
     linear,
@@ -93,17 +94,29 @@ def _head(params, x, cfg):
     return linear(params["lm_head"], x)
 
 
-def forward(params, frames: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def forward(params, frames: torch.Tensor, tokens: torch.Tensor, cfg, *,
+            with_aux: bool = False):
     """Teacher-forced forward: ``frames [B, T, d]``, ``tokens [B, S]`` ->
-    logits ``[B, S, V_padded]`` (the reference's ``forward(...)[0]``)."""
+    logits ``[B, S, V_padded]``, or with ``with_aux`` the reference's
+    ``(logits, aux)`` with ``aux`` an f32 zero.  While a gradient is taken
+    each decoder layer is checkpointed (``"dots"`` as ``"full"``, as the
+    reference does); the encoder is not."""
     enc_out = encode(params, frames, cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
     x = x + rope.sinusoidal_embedding(s, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+    def layer(h, layer_p):
+        return blocks.xdecoder_block(layer_p, h, enc_out, cfg, positions)
+
+    remat = "full" if cfg.remat == "dots" else cfg.remat
     for layer_p in params["dec_layers"]:
-        x = blocks.xdecoder_block(layer_p, x, enc_out, cfg, positions)
-    return _head(params, x, cfg)
+        x = checkpointed(layer, remat, x, layer_p)
+    logits = _head(params, x, cfg)
+    if not with_aux:
+        return logits
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def decode_step(params, cache, enc_out: torch.Tensor, tokens: torch.Tensor, pos: int, cfg):

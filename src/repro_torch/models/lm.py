@@ -5,7 +5,8 @@ tokens serve); the mamba2 SSM (``ssm``) and hymba's hybrid of attention
 and a mamba2 mixer (``hybrid``), whose recurrent state the ring-cache
 modes carry and the paged modes refuse.
 
-Entry points: :func:`forward` (cache-less), the one-shot and stepped
+Entry points: :func:`forward` (cache-less; training's, with the MoE
+aux loss and per-layer remat), the one-shot and stepped
 modes over the ring cache (:func:`make_cache`, :func:`prefill`,
 :func:`decode_step`), continuous serving over the paged cache
 (:func:`paged_step`, :func:`paged_decode_loop`, and
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.core.sampling import sample_or_greedy
 from repro_torch.models import attention, blocks, rope, ssm
 from repro_torch.models.common import (
+    checkpointed,
     dtype_of,
     linear,
     make_linear,
@@ -53,7 +55,7 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             "family 'encdec' is not served by the decoder-only LM: drive it through "
             "repro_torch.models.encdec (encode, forward, decode_step); what the port "
-            "lacks is training (ROADMAP queue 1, item 10) and distribution (item 11)"
+            "lacks is distribution (ROADMAP queue 1, item 11)"
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported: the reference has no such family "
@@ -124,24 +126,47 @@ def _head(params, x, cfg):
     return linear(params["lm_head"], x, sparsity=cfg.sparsity, dap_input=False)
 
 
-def forward(params, tokens, cfg):
-    """Full-sequence cache-less forward of text tokens at positions
-    ``0..S-1``: ``tokens [B, S]`` -> logits ``[B, S, V_padded]`` (the
-    reference's ``forward(...)[0]``; the MoE load-balance loss is
-    training's and is dropped)."""
+def forward(params, tokens, cfg, *, positions=None, pos3=None, patch_embeds=None,
+            with_aux: bool = False):
+    """Full-sequence cache-less forward (training, one-shot prefill):
+    ``tokens [B, S]`` -> logits ``[B, S', V_padded]``, or with
+    ``with_aux`` the reference's ``(logits, aux)``, ``aux`` the MoE
+    load-balance loss summed over the layers (f32 zero without MoE).
+
+    ``positions [B, S']`` default to ``0..S'-1``; ``pos3 [3, B, S']`` are
+    the VLM's M-RoPE streams (standard RoPE over ``positions`` without
+    them); ``patch_embeds [B, S_vis, d]`` (the VLM's stubbed vision
+    frontend) are concatenated before the token embeddings, so ``S' =
+    S_vis + S``.  While a gradient is taken every layer is checkpointed
+    as ``cfg.remat`` says (``models.common.checkpointed``)."""
     _check_family(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        s = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
+        def ssm_layer(h, layer_p):
+            return h + ssm.mamba2_forward(layer_p["mixer"], rmsnorm(h, layer_p["ln"], cfg.norm_eps),
+                                          cfg)
+
         for layer_p in params["layers"]:
-            x = x + ssm.mamba2_forward(layer_p["mixer"], rmsnorm(x, layer_p["ln"], cfg.norm_eps),
-                                       cfg)
-        return _head(params, x, cfg)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions)
-    for layer_p in params["layers"]:
-        x = blocks.decoder_block(layer_p, x, cfg, positions, rope_cs=rope_cs)
-    return _head(params, x, cfg)
+            x = checkpointed(ssm_layer, cfg.remat, x, layer_p)
+    else:
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions, pos3)
+
+        def layer(h, layer_p):
+            return blocks.decoder_block(layer_p, h, cfg, positions, rope_cs=rope_cs,
+                                        with_aux=True)
+
+        for layer_p in params["layers"]:
+            x, layer_aux = checkpointed(layer, cfg.remat, x, layer_p)
+            aux = aux + layer_aux
+    logits = _head(params, x, cfg)
+    return (logits, aux) if with_aux else logits
 
 
 def make_cache(cfg, batch: int, max_seq: int, device):

@@ -1,8 +1,8 @@
-"""Serving-step health (port of ``repro.runtime.monitor``'s serving part):
-a step timer, a nearest-rank percentile and the hang watchdog that
-``Engine.health()`` reads.  The reference's ``StragglerDetector`` and
-``PreemptionGuard`` serve training and distribution and wait for those
-slices (ROADMAP queue 1)."""
+"""Runtime health (port of ``repro.runtime.monitor``): a step timer, a
+nearest-rank percentile and the hang watchdog that ``Engine.health()``
+reads; the straggler detector over per-host step times and the
+cooperative preemption guard that ``train.trainer.Trainer`` checks every
+step."""
 
 from __future__ import annotations
 
@@ -64,3 +64,40 @@ class HangWatchdog:
                 self.trips += 1
         self.times.append(dt)
         return slow
+
+
+class StragglerDetector:
+    """Flags hosts whose rolling median step time exceeds the fleet median
+    (the median of the hosts' medians) by ``threshold`` x."""
+
+    def __init__(self, n_hosts: int, window: int = 20, threshold: float = 1.5):
+        self.threshold = threshold
+        self.hosts = [collections.deque(maxlen=window) for _ in range(n_hosts)]
+
+    def report(self, host_id: int, step_time: float):
+        self.hosts[host_id].append(step_time)
+
+    def stragglers(self):
+        meds = [statistics.median(h) if h else None for h in self.hosts]
+        known = [m for m in meds if m is not None]
+        if not known:
+            return []
+        fleet = statistics.median(known)
+        return [i for i, m in enumerate(meds)
+                if m is not None and fleet > 0 and m > self.threshold * fleet]
+
+
+class PreemptionGuard:
+    """Cooperative preemption: an orchestrator calls ``signal()``; the
+    training loop reads ``should_stop`` every step and checkpoints before
+    it exits."""
+
+    def __init__(self):
+        self._stop = False
+
+    def signal(self):
+        self._stop = True
+
+    @property
+    def should_stop(self) -> bool:
+        return self._stop

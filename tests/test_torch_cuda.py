@@ -1588,3 +1588,117 @@ def test_whisper_decode_loop_cuda_matches_cpu(cuda, wire):
     scale = encs["cpu"].abs().max().item()
     assert (encs["cuda"] - encs["cpu"]).abs().max().item() <= 2e-2 * scale
     assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+# ------------------------------------------------------------------ training
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(64, 1024), (17, 40)])
+def test_dap_ste_on_the_card(cuda, dtype, m, k):
+    """The straight-through DAP (``core/dap.DAPSTE``) on a CUDA tensor: #5's
+    dense form forward, bit for bit with ``dbb.prune``; the backward bit for
+    bit with the gradient times a recomputed ``dbb.topk_block_mask``, on
+    zero-filled and part-zero blocks, -0.0, ties and a NaN block."""
+    from repro_torch.core.dap import DAPSTE
+
+    x = torch.randn((m, k), generator=cuda, device="cuda")
+    x[0, :8] = 0.0
+    x[1, ::3] = 0.0
+    x[2, :8] = -0.0
+    x[3, :8] = torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 0.0, -0.0, 2.0], device="cuda")
+    x[4, 8:16] = float("nan")
+    x = x.to(dtype)
+    g = torch.randn((m, k), generator=cuda, device="cuda").to(dtype)
+    before = dap_prune.DAP_PRUNE.launches
+    xa = x.clone().requires_grad_(True)
+    y = DAPSTE.apply(xa, 4, 8)
+    y.backward(g)
+    assert dap_prune.DAP_PRUNE.launches == before + 1
+    cfg = dbb.DBBConfig(4, 8)
+    v = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(y.detach().view(v), dbb.prune(x, cfg).view(v))
+    want = torch.where(dbb.topk_block_mask(x, cfg), g, torch.zeros_like(g))
+    assert torch.equal(xa.grad.view(v), want.view(v))
+
+
+def _train_smoke(arch, mode="awdbb", dtype="float32", **over):
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch, smoke=True, sparsity_mode=mode)
+    return dataclasses.replace(cfg, dtype=dtype, **over)
+
+
+def _train_batch(cfg, b=2, s=16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+
+
+def _grads(cfg, params, batch):
+    from repro_torch.core import tree
+    from repro_torch.train import train_step
+
+    req = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    loss, _ = train_step.loss_fn(tree.unflatten(params, req), batch, cfg)
+    return torch.autograd.grad(loss, req)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "granite_3_8b"])
+def test_remat_same_grads_on_the_card(cuda, arch):
+    """Under awdbb on the card (#5 in every DAP site, twice with remat),
+    ``remat="full"`` and ``"none"`` give the same gradients bit for bit."""
+    from repro_torch.core import tree
+    from repro_torch.models import lm
+
+    cfg = _train_smoke(arch, dtype="bfloat16")
+    params = lm.init_params(cfg, cuda, "cuda", wire_dtype=None)
+    batch = {k: v.cuda() for k, v in _train_batch(cfg).items()}
+    before = dap_prune.DAP_PRUNE.launches
+    full = _grads(cfg, params, batch)
+    n_full = dap_prune.DAP_PRUNE.launches - before
+    import dataclasses
+
+    none = _grads(dataclasses.replace(cfg, remat="none"), params, batch)
+    n_none = dap_prune.DAP_PRUNE.launches - before - n_full
+    assert n_full == 2 * n_none > 0
+    for a, b in zip(full, none):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert len(full) == len(tree.leaves(params))
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One smoke ``train_step`` of granite-moe in f32 under wdbb (no DAP, so
+    no selection flip) with W-DBB masks: the card against the CPU, loss
+    within 1e-5 relative, moments within 1e-4 of each leaf's largest,
+    params within 1e-4 absolute at lr 1e-3 (AdamW's first step divides a
+    moment by its own root)."""
+    from repro_torch.core import schedule, tree
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer, train_step
+
+    cfg = _train_smoke("granite_moe_1b_a400m", mode="wdbb")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    masks = schedule.wdbb_masks(params, dbb.DBBConfig(4, 8))
+    batch = _train_batch(cfg)
+    ocfg = optimizer.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda t, dev=dev: t.to(dev)  # noqa: E731
+        out[dev] = train_step.train_step(
+            tree.tree_map(mv, params), optimizer.init(tree.tree_map(mv, params)),
+            {k: v.to(dev) for k, v in batch.items()}, cfg=cfg, opt_cfg=ocfg,
+            masks=tree.tree_map(mv, masks))
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out["cuda"]
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5 * abs(float(mc["loss"]))
+    assert float(mc["lr"]) == float(mg["lr"])
+    for a, b in zip(tree.leaves(pc), tree.leaves(pg)):
+        assert (a - b.cpu()).abs().max().item() <= 1e-4
+    for ta, tb in ((sc.mu, sg.mu), (sc.nu, sg.nu)):
+        for a, b in zip(tree.leaves(ta), tree.leaves(tb)):
+            assert (a - b.cpu()).abs().max().item() <= 1e-4 * max(a.abs().max().item(), 1e-30)
+    cmask = schedule.wdbb_masks(tree.tree_map(lambda t: t.cuda(), params), dbb.DBBConfig(4, 8))
+    for a, b in zip(tree.leaves(masks), tree.leaves(cmask)):
+        assert torch.equal(a, b.cpu())
