@@ -77,7 +77,8 @@ non-zero and prints no result:
    uninterrupted serve; ``health()``'s step p50/p99 and a snapshot's size
    and time on disk.
 8. ``phase_recurrent``: mamba2-130m (native and int8 wire) and
-   hymba-1.5b (int8 wire and KV, native wire and KV) at full width, each
+   hymba-1.5b (int8 wire and KV, native wire and KV; 16 of its 32 layers)
+   at full width, each
    serving 8 prompts of 64 tokens + 32 new through ``Engine.generate``
    (stepped, by ``auto``), launches counted per pass, a fresh engine
    re-serving byte-identically; mamba2-130m's chunked ``lm.forward`` over
@@ -98,6 +99,19 @@ non-zero and prints no result:
    ``torch.use_deterministic_algorithms``; one smoke step on the card
    against the CPU; the STE at the training shape ``[4096, 1024]``, bit
    for bit, #5 timed there (the record's ``dap_prune`` ``"train"``).
+11. ``phase_distributed``: the two distributed regions over
+   ``torch.distributed`` at full width, nccl at world size 1 (a
+   ``FileStore``), the (1, 1) ``("data", "model")`` mesh:
+   granite-moe-1b-a400m (24 layers) through the expert-parallel region
+   (``lm.forward`` over 4 x 512; f32 under wdbb against the grouped path,
+   bf16 under awdbb held to itself) and granite-3-8b (40 layers, native
+   wire and KV) prefilled into a window-sharded ring and decoded 32 steps
+   through ``flash_decode`` (f32 under wdbb against the plain ring path,
+   bf16 under awdbb held to itself); then both again with two spawned
+   ranks sharing the card over gloo in a (1, 2) mesh (experts and ring
+   window split in two; f32 against the undistributed paths, the ranks
+   byte-identical; the MoE in bf16 too); launches, collectives a step
+   and their bytes printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1963,6 +1977,10 @@ def phase_durability(torch, np, card, want, dense, launches):
 # new, stepped (what "auto" resolves to for ssm and hybrid)
 RECURRENT_PATHS = (("mamba2_130m", "native", "native"), ("mamba2_130m", "int8", "native"),
                    ("hymba_1_5b", "int8", "int8"), ("hymba_1_5b", "native", "native"))
+# hymba-1.5b's stepped serves are host-bound (6 of the phase's runs, 11-15 s
+# each at 32 layers): served at full width and half depth, so that the
+# whole script stays inside its time limit with phase_distributed
+REC_DEPTH = {"hymba_1_5b": 16}
 REC_S0, REC_NEW = 64, 32
 DUALITY_S, DUALITY_TOL = 512, 5e-4  # forward vs stepped; tests/test_torch_ssm.py's bound
 
@@ -2027,8 +2045,9 @@ def greedy_alone(torch, eng, prompt, n_new):
 
 def phase_recurrent(torch, np, card, launches):
     """mamba2-130m (24 layers, d 768, 24 SSD heads of 64, state 128) and
-    hymba-1.5b (32 layers, 25 heads over 5 KV heads, a window of 1024, the
-    mixer's ``in_proj`` 1600 -> 6482) at full width, seeded random bf16
+    hymba-1.5b (16 of its 32 layers, ``REC_DEPTH``; 25 heads over 5 KV
+    heads, a window of 1024, the mixer's ``in_proj`` 1600 -> 6482) at full
+    width, seeded random bf16
     weights packed as drawn, each served through ``Engine.generate`` (8
     prompts of 64 tokens, 32 new; ``auto`` resolves to stepped) on
     ``RECURRENT_PATHS``: launches counted per pass against
@@ -2052,6 +2071,10 @@ def phase_recurrent(torch, np, card, launches):
     rng = np.random.default_rng(SEED + 9)
     for arch, wire, kv in RECURRENT_PATHS:
         cfg = configs.get_config(arch)
+        depth = f"{cfg.n_layers} layers"
+        if arch in REC_DEPTH:
+            depth = f"{REC_DEPTH[arch]} of {cfg.n_layers} layers"
+            cfg = dataclasses.replace(cfg, n_layers=REC_DEPTH[arch])
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
@@ -2076,7 +2099,7 @@ def phase_recurrent(torch, np, card, launches):
         alone, finite = greedy_alone(torch, eng, prompts[3], REC_NEW)
         check(finite, f"{label}: non-finite logits serving request 3 alone")
         same = bool(np.array_equal(alone, out[3]))
-        say(f"recurrent {label} ({cfg.n_layers} layers, d {cfg.d_model}): init_params "
+        say(f"recurrent {label} ({depth}, d {cfg.d_model}): init_params "
             f"{t_init:.2f} s, peak memory after init {peak_init} B; stepped generate "
             f"({N_REQUESTS} x {REC_S0} prompt tokens, {REC_NEW} new) wall {wall:.2f} s, "
             f"{N_REQUESTS * REC_NEW / wall:.2f} generated tokens/s, peak memory serving {peak} "
@@ -2549,6 +2572,295 @@ def phase_train(torch, np, card, launches, stats):
     return t
 
 
+# ------------------------------------------------------------ distribution
+
+DIST_MOE_ARCH, DIST_MOE_B, DIST_MOE_S = "granite_moe_1b_a400m", 4, 512
+DIST_DEC_ARCH, DIST_DEC_B, DIST_DEC_S0, DIST_DEC_NEW = "granite_3_8b", 4, 64, 32
+# ranks sharing the one card over gloo in the (1, 2) run: nccl takes one
+# rank a device, and gloo carries CUDA tensors for every collective the
+# regions make (scripts/probe_gloo_cuda.py)
+DIST_SHARED_RANKS = 2
+
+
+def wdbb_launches(cfg):
+    """Launches of a forward pass of native-packed weights under wdbb: no
+    DAP, every packed linear on #1 (the attention's four, a dense MLP's,
+    the head; MoE experts stay dense)."""
+    mlp = 0 if cfg.moe is not None else (3 if cfg.mlp_act == "swiglu" else 2)
+    return {"dbb_matmul": (4 + mlp) * cfg.n_layers + 1}
+
+
+def _f32_wdbb(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, dtype="float32",
+                               sparsity=dataclasses.replace(cfg.sparsity, mode="wdbb"))
+
+
+def _per_pass(stats, passes):
+    return {name: (calls / passes, nbytes / passes) for name, (calls, nbytes) in stats.items()}
+
+
+def _same_on_every_rank(torch, *tensors):
+    """Every rank of the default group holds the same bytes."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, h.hexdigest())
+    return len(set(digests)) == 1
+
+
+def _dist_where(mesh, world):
+    return (f"mesh {tuple(mesh.shape)}, " +
+            ("nccl" if world == 1 else f"{world} ranks sharing the card over gloo"))
+
+
+def dist_moe(torch, np, card, mesh, log):
+    """granite-moe-1b-a400m at full width and depth through the
+    expert-parallel region: ``lm.forward`` over 4 x 512 tokens under
+    ``mesh``, native-packed weights, the experts placed by
+    ``local_tree``.  f32 under wdbb against the grouped path without a
+    context (the reference's 1e-4, of the logits' scale); at more than
+    one model shard the tokens split over the sequence, so there at a
+    capacity that drops nothing.  bf16 under the served awdbb: logits
+    finite, two runs byte-identical on one rank, every rank's logits
+    byte-identical on several.  Launches against ``ring_launches``/
+    ``wdbb_launches``.  Returns the launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.context import use_mesh
+
+    world = dist.get_world_size()
+    cfg = configs.get_config(DIST_MOE_ARCH)
+    f32 = _f32_wdbb(cfg)
+    if world > 1:
+        f32 = dataclasses.replace(f32, moe=dataclasses.replace(
+            f32.moe, capacity_factor=f32.moe.n_experts / f32.moe.top_k))
+    toks = torch.tensor(np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (DIST_MOE_B, DIST_MOE_S)), dtype=torch.int32, device="cuda")
+    total = {}
+    for label, c in (("f32 wdbb", f32), ("bf16 awdbb", cfg)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        t0 = time.perf_counter()
+        whole = lm.init_params(c, gen, "cuda", wire_dtype="native")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        with torch.no_grad():
+            grouped = lm.forward(whole, toks, c) if c is f32 else None  # no context
+            params = partition.local_tree(whole, lm.local_specs(c), mesh)
+            del whole
+            runs = []
+            for _ in range(2 if c is cfg and world == 1 else 1):
+                with use_mesh(mesh) as ctx:
+                    logits, counts, _, wall, peak = drive(
+                        torch, lambda: lm.forward(params, toks, c))
+                runs.append(logits)
+        want = ring_launches(c, "native") if c is cfg else wdbb_launches(c)
+        check_launches(f"distributed {DIST_MOE_ARCH} {label}", counts, want, 1)
+        add_launches(total, counts)
+        check(bool(torch.isfinite(runs[0]).all()), f"distributed moe {label}: non-finite")
+        line = (f"distributed {cfg.name} {label} ({c.n_layers} layers, {c.moe.n_experts} "
+                f"experts top-{c.moe.top_k}, capacity factor {c.moe.capacity_factor}, native "
+                f"wire; lm.forward over {DIST_MOE_B} x {DIST_MOE_S} tokens through the "
+                f"expert-parallel region, {_dist_where(mesh, world)}): init {t_init:.2f} s, wall "
+                f"{wall:.3f} s, peak memory {peak} B; collectives a forward (calls, bytes) "
+                f"{json.dumps(_per_pass(ctx.stats, 1))}; launches {json.dumps(counts)}")
+        if grouped is not None:
+            scale = grouped.abs().max().item()
+            err = (runs[0] - grouped).abs().max().item() / scale
+            check(err <= 1e-4, f"distributed moe f32 ({world} ranks): {err:.3g} of the logits' "
+                               f"scale from the grouped path (bound 1e-4)")
+            line += f"; vs the grouped path {err:.3g} of the logits' scale {scale:.4g} (bound 1e-4)"
+        elif world == 1:
+            check(torch.equal(runs[0], runs[1]), "distributed moe bf16: two runs differ")
+            line += "; two runs byte-identical"
+        if world > 1:
+            check(_same_on_every_rank(torch, runs[0]), f"distributed moe {label}: ranks differ")
+            line += f"; the {world} ranks' logits byte-identical"
+        log(line + f" ({card})")
+        del params, runs, logits, grouped
+        torch.cuda.empty_cache()
+    return total
+
+
+def dist_flash(torch, np, card, mesh, log):
+    """granite-3-8b at full width and depth (40 layers) on the native wire
+    and native KV through ``flash_decode``: 4 rows of 64 tokens prefilled
+    into a window-sharded ring (``lm.make_cache`` under ``mesh``), then 32
+    greedy ``decode_step`` calls.  f32 under wdbb against the plain ring
+    path without a context (tokens equal, logits within 5e-4 of their
+    scale), every rank's tokens and logits byte-identical on several; bf16
+    under awdbb on one rank: logits finite, two runs byte-identical.
+    Launches against ``wdbb_launches``/``ring_launches`` a pass.  Returns
+    the launches."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.models import attention, lm
+    from repro_torch.sharding.context import use_mesh
+
+    world = dist.get_world_size()
+    cfg = configs.get_config(DIST_DEC_ARCH)
+    prompts = torch.tensor(np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab, (DIST_DEC_B, DIST_DEC_S0)), dtype=torch.int32, device="cuda")
+    max_seq = DIST_DEC_S0 + DIST_DEC_NEW
+
+    def run(params, c):
+        cache = lm.make_cache(c, DIST_DEC_B, max_seq, "cuda")
+        logits, cache = lm.prefill(params, prompts, c, cache)
+        tok = logits[:, -1, :c.vocab].argmax(dim=-1, keepdim=True).to(torch.int32)
+        toks, rows = [], []
+        for i in range(DIST_DEC_NEW):
+            logits, cache = lm.decode_step(params, cache, tok, DIST_DEC_S0 + i, c)
+            row = logits[:, -1, :c.vocab]
+            rows.append(row.float())
+            tok = row.argmax(dim=-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        return torch.cat(toks, dim=1), torch.stack(rows, dim=1), isinstance(
+            cache, attention.ShardedRing)
+
+    total = {}
+    runs = (("f32 wdbb", _f32_wdbb(cfg)), ("bf16 awdbb", cfg))
+    # ranks sharing one card: the f32 check only (a bf16 run there would
+    # double the sub-phase's wall; the MoE's bf16 run holds its ranks equal)
+    for label, c in runs[:1] if world > 1 else runs:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        t0 = time.perf_counter()
+        params = lm.init_params(c, gen, "cuda", wire_dtype="native")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        f32 = c is not cfg
+        with torch.no_grad():
+            results = []
+            for _ in range(2 if not f32 and world == 1 else 1):
+                with use_mesh(mesh) as ctx:
+                    res, counts, passes, wall, peak = drive(torch, lambda: run(params, c))
+                results.append(res)
+            toks, rows, sharded = results[0]
+            check(sharded, f"distributed {DIST_DEC_ARCH} {label}: the ring was not sharded")
+            check(passes == 1 + DIST_DEC_NEW, f"distributed flash: {passes} passes")
+            want = ring_launches(c, "native") if not f32 else wdbb_launches(c)
+            check_launches(f"distributed {DIST_DEC_ARCH} {label}", counts, want, passes)
+            add_launches(total, counts)
+            check(bool(torch.isfinite(rows).all()), f"distributed flash {label}: non-finite")
+            line = (f"distributed {cfg.name} {label} ({c.n_layers} layers, native wire, "
+                    f"native KV; {DIST_DEC_B} x {DIST_DEC_S0} prefilled into a window-sharded "
+                    f"ring, then {DIST_DEC_NEW} greedy decode_step calls through flash_decode, "
+                    f"{_dist_where(mesh, world)}): init {t_init:.2f} s, wall {wall:.3f} s "
+                    f"({DIST_DEC_B * DIST_DEC_NEW / wall:.2f} tokens/s, prefill included), "
+                    f"peak memory {peak} B; collectives a pass (calls, bytes) "
+                    f"{json.dumps(_per_pass(ctx.stats, DIST_DEC_NEW))} (decode steps only: "
+                    f"prefill makes none); launches {json.dumps(counts)} over {passes} passes")
+            if f32:
+                ptoks, prows, psharded = run(params, c)  # no context: the plain ring
+                check(not psharded, "distributed flash: a ring made without a context sharded")
+                scale = prows.abs().max().item()
+                err = (rows - prows).abs().max().item() / scale
+                check(torch.equal(toks, ptoks), f"distributed flash f32 ({world} ranks): greedy "
+                                                f"tokens differ from the plain ring path")
+                check(err <= 5e-4, f"distributed flash f32 ({world} ranks): {err:.3g} of the "
+                                   f"logits' scale from the plain ring (bound 5e-4)")
+                line += (f"; vs the plain ring path: greedy tokens equal, logits {err:.3g} of "
+                         f"their scale {scale:.4g} (bound 5e-4)")
+            elif world == 1:
+                check(torch.equal(toks, results[1][0]) and torch.equal(rows, results[1][1]),
+                      "distributed flash bf16: two runs differ")
+                line += "; two runs byte-identical"
+            if world > 1:
+                check(_same_on_every_rank(torch, toks, rows),
+                      f"distributed flash {label}: ranks differ")
+                line += f"; the {world} ranks' tokens and logits byte-identical"
+        log(line + f" ({card})")
+        del params, results
+        torch.cuda.empty_cache()
+    return total
+
+
+def dist_shared_rank(rank, world, work, card):
+    """One of ``world`` ranks sharing card 0 over gloo (spawned by
+    ``phase_distributed``): the (1, world) mesh, both regions at full
+    width; rank 0 prints; each rank writes its launches to ``work``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh()
+        log = say if rank == 0 else (lambda *a: None)
+        counts = dist_moe(torch, np, card, mesh, log)
+        add_launches(counts, dist_flash(torch, np, card, mesh, log))
+        with open(os.path.join(work, f"launches_{rank}.json"), "w") as f:
+            json.dump(counts, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed(torch, np, card, launches):
+    """The two distributed regions over ``torch.distributed`` at full
+    width: granite-moe-1b-a400m through the expert-parallel region
+    (:func:`dist_moe`), granite-3-8b through ``flash_decode``
+    (:func:`dist_flash`).  First nccl at world size 1 from a ``FileStore``
+    in ``$TMPDIR``, the (1, 1) ``("data", "model")`` mesh of
+    ``launch.mesh.make_host_mesh``; then ``DIST_SHARED_RANKS`` spawned
+    ranks sharing the card over gloo in a (1, 2) mesh (nccl refuses two
+    ranks a device), each rank's launches added.  Every group is
+    destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp()
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"),
+                  f"distributed: mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+            add_launches(launches, dist_moe(torch, np, card, mesh, say))
+            add_launches(launches, dist_flash(torch, np, card, mesh, say))
+        finally:
+            dist.destroy_process_group()
+        t1 = time.perf_counter()
+        say(f"distributed: world size 1 {t1 - t_phase:.1f} s")
+        shared = os.path.join(work, "shared")
+        os.makedirs(shared)
+        mp.start_processes(dist_shared_rank, args=(DIST_SHARED_RANKS, shared, card),
+                           nprocs=DIST_SHARED_RANKS, start_method="spawn")
+        for rank in range(DIST_SHARED_RANKS):
+            with open(os.path.join(shared, f"launches_{rank}.json")) as f:
+                add_launches(launches, json.load(f))
+        say(f"distributed: {DIST_SHARED_RANKS} ranks on the card {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter() - t_phase
+    say(f"distributed: phase wall {t:.1f} s")
+    return t
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -2625,6 +2937,7 @@ def main():
     t_new = phase_recurrent(torch, np, card, launches) + phase_encdec(torch, np, card, launches)
     say(f"recurrent and encdec phases together: {t_new:.1f} s")
     phase_train(torch, np, card, launches, stats)
+    phase_distributed(torch, np, card, launches)
 
     record = []
     for name, info in KERNELS.items():

@@ -12,6 +12,11 @@ boundary (:func:`ring_window`).  Prefill quantizes its K/V once and
 attends over the dequantization, so it sees the bytes stepped decode will
 read back.  The ring helpers write in place, like the paged ones.
 
+Under a distribution context ``lm.make_cache`` may build the ring
+window-sharded instead (:class:`ShardedRing`): each rank holds its rows
+and its ``W / n_model`` slots, and decode runs the sequence-parallel
+:func:`flash_decode`.
+
 **Paged cache.**  Per layer the cache holds ``k/v [N_pages, PS, D]`` pools — int8 with
 per-token ``k_scale/v_scale [N_pages, PS]`` planes under the int8 KV wire
 — and one slot-position table ``pos [N_pages, PS]`` shared by all layers.
@@ -42,11 +47,23 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.models import common, rope
-from repro_torch.models.common import einsum_f32, linear, make_linear, make_norm, rmsnorm
+from repro_torch.models.common import (
+    DATA,
+    MODEL,
+    einsum_f32,
+    linear,
+    linear_specs,
+    make_linear,
+    make_norm,
+    norm_specs,
+    rmsnorm,
+)
+from repro_torch.sharding.partition import P
 
 NEG_INF = -1e30
 NULL_PAGE = 0
@@ -133,6 +150,110 @@ def fill_ring(cache_layer, new_k, new_v, s: int, quantized=None) -> None:
             cache_layer[sname][:, slots] = sc[:, sel]
         cache_layer[name][:, slots] = new[:, sel].to(cache_layer[name].dtype)
     cache_layer["pos"][:, slots] = sel.to(torch.int32)
+
+
+# ------------------------------------------ the window-sharded ring (flash-decode)
+
+
+class ShardedRing(dict):
+    """A ring cache, or one layer of it, whose attention planes hold this
+    rank's shard ``[B / n_batch, W / n_model, ...]`` under ``ctx`` (the
+    reference's ``cache_specs`` on the rank; a hybrid's ``ssm_state`` and
+    ``ssm_conv`` stay whole, as its mixer runs outside the region).
+    ``lm.make_cache`` decides the layout once (:func:`window_shards`);
+    the attention ring paths follow the cache: prefill fills the rank's
+    shard and decode runs :func:`flash_decode`."""
+
+    def __init__(self, planes, ctx):
+        super().__init__(planes)
+        self.ctx = ctx
+
+
+def ring_layer(cache, i: Optional[int] = None, names=None) -> dict:
+    """Layer ``i``'s planes of a stacked ring cache (``i`` None: the
+    planes as they are), only ``names`` when given, in the cache's
+    layout (a :class:`ShardedRing` stays one)."""
+    planes = {n: (p if i is None else p[i]) for n, p in cache.items()
+              if names is None or n in names}
+    return ShardedRing(planes, cache.ctx) if isinstance(cache, ShardedRing) else planes
+
+
+def window_shards(cfg, ctx, batch: int, window: int) -> bool:
+    """The reference's flash-decode guard (``repro/models/attention.py``,
+    ``gqa_forward``), on the global shapes: a context is set, the
+    attention is GQA over a full-precision ring, ``window`` divides over
+    the model axis (at least one slot a shard) and ``batch`` over the
+    batch axes.  Decode's ``s == 1`` always holds on the ring."""
+    if ctx is None or cfg.family == "ssm" or cfg.mla is not None:
+        return False
+    if cfg.sparsity.kv_dtype == "int8":  # sharded int8 windows: not in the reference
+        return False
+    n = ctx.size(ctx.expert_axis)
+    return window % n == 0 and window >= n and batch % ctx.size(ctx.batch_axes) == 0
+
+
+def _shard_rows(cache_layer):
+    """``(ctx, first global row, first global slot, global window)`` of a
+    :class:`ShardedRing` layer."""
+    ctx = cache_layer.ctx
+    b_l, w_l = cache_layer["k"].shape[:2]
+    n = ctx.size(ctx.expert_axis)
+    return ctx, ctx.index(ctx.batch_axes) * b_l, ctx.index(ctx.expert_axis) * w_l, w_l * n
+
+
+def fill_ring_shard(cache_layer, new_k, new_v, s: int) -> None:
+    """:func:`fill_ring` of the global prompt ``[B, S, D]`` into this
+    rank's shard: its rows, and of the last ``min(W, S)`` tokens those
+    whose slot ``pos % W`` it holds."""
+    ctx, r0, lo, w = _shard_rows(cache_layer)
+    b_l, w_l = cache_layer["k"].shape[:2]
+    sel = [p for p in range(max(0, s - w), s) if lo <= p % w < lo + w_l]
+    if not sel:
+        return
+    idx = torch.tensor(sel, device=new_k.device)
+    slots = idx % w - lo
+    for name, new in (("k", new_k), ("v", new_v)):
+        cache_layer[name][:, slots] = new[r0:r0 + b_l][:, idx].to(cache_layer[name].dtype)
+    cache_layer["pos"][:, slots] = idx.to(torch.int32)
+
+
+def flash_decode(q, cache_layer, new_k, new_v, decode_pos: int, window_mask):
+    """Sequence-parallel decode attention over a :class:`ShardedRing`
+    layer (the reference's ``flash_decode``; no kernel, as there).
+
+    ``q [B, 1, H, D]``, ``new_k/new_v [B, 1, KV*D]`` are global; this rank
+    takes its rows, writes the step's K/V if it owns slot ``pos % W``
+    (``owner = slot // W_l``), attends over its ``W_l`` local slots with
+    float32 logits and accumulators, and merges the partial softmax over
+    the model axis with three reductions of ``[B_l, KV, G]``-sized
+    tensors: the max, then the sums of ``l`` and of the output.  The
+    output ``[B_l, 1, H, Dv]`` is all-gathered over the batch axes, so
+    the caller gets the global ``[B, 1, H, Dv]``."""
+    ctx, r0, lo, w = _shard_rows(cache_layer)
+    k_c, v_c, pos_c = cache_layer["k"], cache_layer["v"], cache_layer["pos"]
+    b_l, w_l, kvd = k_c.shape
+    h, d = q.shape[2], q.shape[3]
+    kv = kvd // d
+    g = h // kv
+    rows = slice(r0, r0 + b_l)
+    slot = decode_pos % w
+    if lo <= slot < lo + w_l:  # the owning shard writes the step
+        k_c[:, slot - lo] = new_k[rows, 0].to(k_c.dtype)
+        v_c[:, slot - lo] = new_v[rows, 0].to(v_c.dtype)
+        pos_c[:, slot - lo] = decode_pos
+    kk = k_c.reshape(b_l, w_l, kv, d)
+    vv = v_c.reshape(b_l, w_l, kv, v_c.shape[-1] // kv)
+    qg = q[rows].reshape(b_l, 1, kv, g, d)
+    logits = einsum_f32("bskgd,btkd->bkgst", qg, kk) * (1.0 / math.sqrt(d))
+    qpos = torch.full((b_l, 1), decode_pos, dtype=torch.int32, device=q.device)
+    logits = logits + _mask_bias(qpos, pos_c, window_mask)[:, None, None, :, :]
+    m = ctx.all_reduce(logits.amax(dim=-1, keepdim=True), dist.ReduceOp.MAX, ctx.expert_axis)
+    p = torch.exp(logits - m)
+    l_sum = ctx.all_reduce(p.sum(dim=-1, keepdim=True), dist.ReduceOp.SUM, ctx.expert_axis)
+    o = ctx.all_reduce(einsum_f32("bkgst,btke->bskge", p.to(vv.dtype), vv),
+                       dist.ReduceOp.SUM, ctx.expert_axis)  # [B_l, 1, KV, G, Dv]
+    out = o / torch.clamp_min(l_sum[..., 0].permute(0, 3, 1, 2)[..., None], 1e-30)
+    return ctx.all_gather(out.reshape(b_l, 1, h, -1).to(q.dtype), ctx.batch_axes, dim=0)
 
 
 def _paged_flat_idx(positions, page_tables, page_size: int):
@@ -266,6 +387,13 @@ def make_gqa(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: p):
             "wv": lin(d, kvh * dh, cfg.qkv_bias), "wo": lin(h * dh, d)}
 
 
+def gqa_specs(cfg) -> dict:
+    """:func:`make_gqa`'s spec intent: Q/K/V over (data, model), ``wo``
+    over (model, data)."""
+    return {"wq": linear_specs(bias=cfg.qkv_bias), "wk": linear_specs(bias=cfg.qkv_bias),
+            "wv": linear_specs(bias=cfg.qkv_bias), "wo": linear_specs(P(MODEL, DATA))}
+
+
 def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=None,
                 cache_layer=None, decode_pos: Optional[int] = None, rope_cs=None,
                 causal: bool = True, page_tables=None):
@@ -279,7 +407,9 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     * ring cache, no ``decode_pos``: single-pass prefill, full-sequence
       attention over the fresh K/V while they fill the ring;
     * ring cache and ``decode_pos``: write one step at its slot, attend
-      over the ring window;
+      over the ring window; over a window-sharded ring
+      (:class:`ShardedRing`, made under a context) through
+      :func:`flash_decode`, whose prefill fills the rank's shard;
     * no cache: full-sequence attention (``causal=False`` unmasks it)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
@@ -321,8 +451,15 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
             pre = {"k": (qk, sk), "v": (qv, sv)}
             k = dequantize_kv(qk, sk, x.dtype).reshape(b, s, kvh, dh)
             v = dequantize_kv(qv, sv, x.dtype).reshape(b, s, kvh, dh)
-        fill_ring(cache_layer, k_flat, v_flat, s, quantized=pre)
+        if isinstance(cache_layer, ShardedRing):
+            fill_ring_shard(cache_layer, k_flat, v_flat, s)
+        else:
+            fill_ring(cache_layer, k_flat, v_flat, s, quantized=pre)
         out = mha(q, k, v, positions, positions, window=cfg.sliding_window, chunk=chunk)
+    elif isinstance(cache_layer, ShardedRing):
+        if s != 1:
+            raise ValueError(f"a window-sharded ring decodes one token a step, got {s}")
+        out = flash_decode(q, cache_layer, k_flat, v_flat, decode_pos, cfg.sliding_window)
     elif cache_layer is not None:
         window = cache_layer["k"].shape[1]
         _update_ring(cache_layer, k_flat, v_flat, decode_pos, window)
@@ -358,6 +495,14 @@ def make_mla(gen: torch.Generator, cfg, *, dtype, device, pack):
         "kv_up": lin(m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
         "wo": pack(lin(h * m.v_head_dim, d)),
     }
+
+
+def mla_specs(cfg) -> dict:
+    """:func:`make_mla`'s spec intent."""
+    return {"q_down": linear_specs(P(DATA, None)), "q_norm": norm_specs(),
+            "q_up": linear_specs(P(None, MODEL)), "kv_down": linear_specs(P(DATA, None)),
+            "kv_norm": norm_specs(), "kv_up": linear_specs(P(None, MODEL)),
+            "wo": linear_specs(P(MODEL, DATA))}
 
 
 def _mla_absorb_q(q_nope, w_kv_up, m, out_dtype):
@@ -499,6 +644,12 @@ def make_cross_attn(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: 
 
     return {"wq": lin(d, h * dh), "wk": lin(d, h * dh), "wv": lin(d, h * dh),
             "wo": lin(h * dh, d)}
+
+
+def cross_attn_specs() -> dict:
+    """:func:`make_cross_attn`'s spec intent."""
+    return {"wq": linear_specs(), "wk": linear_specs(), "wv": linear_specs(),
+            "wo": linear_specs(P(MODEL, DATA))}
 
 
 def cross_attn_forward(p, x: torch.Tensor, enc_kv: torch.Tensor, cfg, *,

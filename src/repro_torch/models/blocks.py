@@ -11,7 +11,18 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import layernorm, make_linear, make_norm, mlp_forward, rmsnorm
+from repro_torch.models.common import (
+    DATA,
+    MODEL,
+    layernorm,
+    linear_specs,
+    make_linear,
+    make_norm,
+    mlp_forward,
+    norm_specs,
+    rmsnorm,
+)
+from repro_torch.sharding.partition import P
 
 # a cache layer's attention planes (a hybrid's also holds ssm_state/ssm_conv)
 _ATTN_PLANES = ("k", "v", "pos", "k_scale", "v_scale")
@@ -27,6 +38,14 @@ def make_mlp(gen, d: int, f: int, *, act: str, dtype, device, pack=lambda p: p):
     mlp = {"gate": lin(d, f), "up": lin(d, f)} if act == "swiglu" else {"up": lin(d, f)}
     mlp["down"] = lin(f, d)
     return mlp
+
+
+def mlp_specs(act: str) -> dict:
+    """:func:`make_mlp`'s spec intent."""
+    specs = {"gate": linear_specs(), "up": linear_specs()} if act == "swiglu" else {
+        "up": linear_specs()}
+    specs["down"] = linear_specs(P(MODEL, DATA))
+    return specs
 
 
 def make_decoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
@@ -50,6 +69,21 @@ def make_decoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
     return layer
 
 
+def decoder_block_specs(cfg) -> dict:
+    """:func:`make_decoder_block`'s spec intent (one layer, no layer
+    axis)."""
+    specs = {"ln1": norm_specs(), "ln2": norm_specs(),
+             "attn": attn.mla_specs(cfg) if cfg.mla is not None else attn.gqa_specs(cfg)}
+    if cfg.family == "hybrid":
+        specs.update(ssm=ssm_mod.mamba2_specs(), ln_attn_out=norm_specs(),
+                     ln_ssm_out=norm_specs())
+    if cfg.moe is not None:
+        specs["moe"] = moe_mod.moe_specs()
+    else:
+        specs["mlp"] = mlp_specs(cfg.mlp_act)
+    return specs
+
+
 def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
                   decode_pos=None, rope_cs=None, page_tables=None, with_aux=False):
     """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; a hybrid adds
@@ -69,7 +103,7 @@ def decoder_block(p, x, cfg, positions, *, layer_idx=None, cache_layer=None,
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     attn_cache = cache_layer
     if cache_layer is not None and cfg.family == "hybrid":
-        attn_cache = {k: cache_layer[k] for k in _ATTN_PLANES if k in cache_layer}
+        attn_cache = attn.ring_layer(cache_layer, names=_ATTN_PLANES)
     if cfg.mla is not None:
         a_out = attn.mla_forward(
             p["attn"], h, cfg, positions, layer_idx=layer_idx,
@@ -122,6 +156,12 @@ def make_encoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
     }
 
 
+def encoder_block_specs(cfg) -> dict:
+    """:func:`make_encoder_block`'s spec intent."""
+    return {"ln1": norm_specs(bias=True), "ln2": norm_specs(bias=True),
+            "attn": attn.gqa_specs(cfg), "mlp": mlp_specs("gelu")}
+
+
 def encoder_block(p, x, cfg, positions, *, layer_idx=None):
     """Pre-layernorm encoder layer: unmasked self-attention, gelu MLP."""
     h = layernorm(x, p["ln1"], cfg.norm_eps)
@@ -142,6 +182,13 @@ def make_xdecoder_block(gen, cfg, *, dtype, device, pack=lambda p: p):
         "xattn": attn.make_cross_attn(gen, cfg, dtype=dtype, device=device, pack=pack),
         "mlp": make_mlp(gen, d, cfg.d_ff, act="gelu", dtype=dtype, device=device, pack=pack),
     }
+
+
+def xdecoder_block_specs(cfg) -> dict:
+    """:func:`make_xdecoder_block`'s spec intent."""
+    return {"ln1": norm_specs(bias=True), "ln_x": norm_specs(bias=True),
+            "ln2": norm_specs(bias=True), "attn": attn.gqa_specs(cfg),
+            "xattn": attn.cross_attn_specs(), "mlp": mlp_specs("gelu")}
 
 
 def xdecoder_block(p, x, enc_out, cfg, positions, *, layer_idx=None, cache_layer=None,

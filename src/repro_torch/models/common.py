@@ -5,6 +5,11 @@ Parameters are plain dictionaries of tensors with the reference's keys:
 ``{"w"}`` dense, ``{"w_vals", "w_mask"}`` on the native DBB wire (values
 in the model dtype) and ``{"w_vals", "w_mask", "w_scale"}`` on the int8
 wire.
+
+Every ``make_*`` of the port has a ``*_specs`` beside it: the sharding
+intent of the dense tree it draws, as the reference's ``make_*`` returns
+it (``PartitionSpec`` leaves over the axis names below; sanitized against
+a concrete mesh by ``sharding/partition.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,11 @@ from repro_torch.core import dbb, quant
 from repro_torch.core.dap import apply_dap
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.kernels import epilogue, ops
+from repro_torch.sharding.partition import P
+
+# Logical mesh axis names (launch/mesh.py).
+POD, DATA, MODEL = "pod", "data", "model"
+BATCH_AXES = (POD, DATA)  # batch shards over both
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -40,6 +50,22 @@ def make_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fal
     if bias:
         params["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return params
+
+
+def linear_specs(spec: P = P(DATA, MODEL), *, bias: bool = False) -> dict:
+    """A linear's spec intent: ``w`` by ``spec``, a bias by its output
+    axis (the reference's ``make_linear`` specs)."""
+    specs = {"w": spec}
+    if bias:
+        specs["b"] = P(spec[-1] if len(spec) >= 2 else None)
+    return specs
+
+
+def norm_specs(*, bias: bool = False) -> dict:
+    specs = {"scale": P(None)}
+    if bias:
+        specs["bias"] = P(None)
+    return specs
 
 
 def make_norm(d: int, *, device="cuda", bias: bool = False):

@@ -24,16 +24,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import blocks, rope
+from repro_torch.models import attention, blocks, rope
 from repro_torch.models.common import (
+    DATA,
+    MODEL,
     checkpointed,
     dtype_of,
     layernorm,
     linear,
+    linear_specs,
     make_linear,
     make_norm,
+    norm_specs,
     pack_linear_params,
 )
+from repro_torch.sharding.partition import P
 
 
 def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[str] = None):
@@ -65,6 +70,16 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
     params["lm_head"] = pack(make_linear(generator, d, cfg.padded_vocab, dtype=dtype,
                                          device=device))
     return params
+
+
+def param_specs(cfg) -> dict:
+    """The spec intent of every leaf of :func:`init_params`'s dense tree:
+    the reference's ``init_encdec`` specs, each layer's unstacked."""
+    return {"embed": {"w": P(None, MODEL)},
+            "enc_layers": [blocks.encoder_block_specs(cfg)] * cfg.n_enc_layers,
+            "dec_layers": [blocks.xdecoder_block_specs(cfg)] * cfg.n_layers,
+            "enc_norm": norm_specs(bias=True), "dec_norm": norm_specs(bias=True),
+            "lm_head": linear_specs(P(DATA, MODEL))}
 
 
 def _enc_cfg(cfg):
@@ -128,7 +143,7 @@ def decode_step(params, cache, enc_out: torch.Tensor, tokens: torch.Tensor, pos:
     x = _embed(params, tokens)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     for i, layer_p in enumerate(params["dec_layers"]):
-        cache_layer = {name: plane[i] for name, plane in cache.items()}
+        cache_layer = attention.ring_layer(cache, i)
         x = blocks.xdecoder_block(layer_p, x, enc_out, cfg, positions, cache_layer=cache_layer,
                                   decode_pos=pos)
     return _head(params, x, cfg), cache

@@ -31,15 +31,23 @@ import torch.nn.functional as F
 
 from repro_torch.core.sampling import sample_or_greedy
 from repro_torch.models import attention, blocks, rope, ssm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.attention import ring_layer
 from repro_torch.models.common import (
+    DATA,
+    MODEL,
     checkpointed,
     dtype_of,
     linear,
+    linear_specs,
     make_linear,
     make_norm,
+    norm_specs,
     pack_linear_params,
     rmsnorm,
 )
+from repro_torch.sharding.context import get_context
+from repro_torch.sharding.partition import P
 
 
 # the families this decoder-only LM serves; encdec runs through encdec.py
@@ -55,7 +63,8 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             "family 'encdec' is not served by the decoder-only LM: drive it through "
             "repro_torch.models.encdec (encode, forward, decode_step); what the port "
-            "lacks is distribution (ROADMAP queue 1, item 11)"
+            "still lacks is the dry-run analysis (launch/{specs,dryrun,roofline,report}) "
+            "and the examples"
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported: the reference has no such family "
@@ -101,6 +110,34 @@ def init_params(cfg, generator: torch.Generator, device, wire_dtype: Optional[st
         params["lm_head"] = pack(make_linear(generator, d, cfg.padded_vocab, dtype=dtype,
                                              device=device))
     return params
+
+
+def param_specs(cfg) -> dict:
+    """The spec intent of every leaf of :func:`init_params`'s dense tree:
+    the reference's ``init_lm`` specs with each layer's stacked spec
+    unstacked (its leading ``None`` layer axis dropped), one per entry of
+    ``"layers"``.  The embedding shards ``d_model`` (vocabularies rarely
+    divide the model axis)."""
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        layer = {"mixer": ssm.mamba2_specs(), "ln": norm_specs()}
+    else:
+        layer = blocks.decoder_block_specs(cfg)
+    specs = {"embed": {"w": P(None, MODEL)}, "layers": [layer] * cfg.n_layers,
+             "final_norm": norm_specs()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = linear_specs(P(DATA, MODEL))
+    return specs
+
+
+def local_specs(cfg) -> dict:
+    """What each rank holds of the params under a context, as a prefix
+    spec tree for ``partition.local_tree``: every leaf whole but the MoE
+    experts, each rank's ``E / n`` slice of the model axis (the
+    expert-parallel region's in-specs)."""
+    if cfg.moe is None:
+        return {}
+    return {"layers": [{"moe": moe_mod.expert_local_specs()}] * cfg.n_layers}
 
 
 def _rope_cs(cfg, positions, pos3=None):
@@ -178,7 +215,14 @@ def make_cache(cfg, batch: int, max_seq: int, device):
     quantizes only k.  An ``ssm`` cache is the mixer's ``state [L, B, H,
     P, N]`` (f32) and ``conv [L, B, K-1, C]``; a hybrid's adds them to the
     ring as ``ssm_state``/``ssm_conv``.  An encdec cache is its decoder's
-    self-attention ring."""
+    self-attention ring.
+
+    Under a distribution context whose flash-decode guard holds
+    (``attention.window_shards``: GQA, native KV, the window and the
+    batch dividing over the mesh) the ring is this rank's shard ``k/v [L,
+    B / n_batch, W / n_model, D]`` (an ``attention.ShardedRing``; a
+    hybrid's recurrent planes stay whole), decided here once: prefill
+    fills the shard and decode runs ``attention.flash_decode``."""
     if cfg.family != "encdec":  # encdec.decode_step runs over this ring
         _check_family(cfg)
     native = dtype_of(cfg.dtype)
@@ -189,7 +233,13 @@ def make_cache(cfg, batch: int, max_seq: int, device):
     v_int8 = kv_int8 and cfg.mla is None
     kv_dim = cfg.kv_dim()
     v_dim = 1 if cfg.mla is not None else kv_dim
-    lbw = (cfg.n_layers, batch, window)
+    ctx = get_context()
+    sharded = attention.window_shards(cfg, ctx, batch, window)
+    if sharded:
+        lbw = (cfg.n_layers, batch // ctx.size(ctx.batch_axes),
+               window // ctx.size(ctx.expert_axis))
+    else:
+        lbw = (cfg.n_layers, batch, window)
     cache = {
         "k": torch.zeros(lbw + (kv_dim,), dtype=torch.int8 if kv_int8 else native,
                          device=device),
@@ -204,11 +254,31 @@ def make_cache(cfg, batch: int, max_seq: int, device):
     if cfg.family == "hybrid":
         rec = ssm.make_ssm_cache(batch, cfg, cfg.n_layers, native, device)
         cache["ssm_state"], cache["ssm_conv"] = rec["state"], rec["conv"]
-    return cache
+    return attention.ShardedRing(cache, ctx) if sharded else cache
 
 
-def _ring_layer(cache, i: int) -> dict:
-    return {name: plane[i] for name, plane in cache.items()}
+def cache_specs(cfg) -> dict:
+    """The spec intent of :func:`make_cache`'s planes (stacked ``[L,
+    ...]``, as the reference's ``cache_specs``): the GQA ring's window
+    over ``model`` (the sequence-parallel ``flash_decode``), MLA's latent
+    over its latent dim, the int8 KV wire's scale planes as the slot
+    positions, the recurrent state's batch over ``data``."""
+    if cfg.family == "ssm":
+        return ssm.ssm_cache_specs()
+    if cfg.mla is None:
+        out = {"k": P(None, DATA, MODEL, None), "v": P(None, DATA, MODEL, None),
+               "pos": P(None, DATA, MODEL)}
+    else:
+        out = {"k": P(None, DATA, None, MODEL), "v": P(None, DATA, None, None),
+               "pos": P(None, DATA, None)}
+    if cfg.sparsity.kv_dtype == "int8":
+        out["k_scale"] = out["pos"]
+        if cfg.mla is None:
+            out["v_scale"] = out["pos"]
+    if cfg.family == "hybrid":
+        s = ssm.ssm_cache_specs()
+        out["ssm_state"], out["ssm_conv"] = s["state"], s["conv"]
+    return out
 
 
 def decode_step(params, cache, tokens, pos: int, cfg):
@@ -221,7 +291,7 @@ def decode_step(params, cache, tokens, pos: int, cfg):
     if cfg.family == "ssm":
         for i, layer_p in enumerate(params["layers"]):
             h = rmsnorm(x, layer_p["ln"], cfg.norm_eps)
-            x = x + ssm.mamba2_forward(layer_p["mixer"], h, cfg, cache_layer=_ring_layer(cache, i))
+            x = x + ssm.mamba2_forward(layer_p["mixer"], h, cfg, cache_layer=ring_layer(cache, i))
         return _head(params, x, cfg), cache
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     rope_cs = None
@@ -229,7 +299,7 @@ def decode_step(params, cache, tokens, pos: int, cfg):
         pos3 = positions[None].expand(3, b, 1) if cfg.m_rope_sections is not None else None
         rope_cs = _rope_cs(cfg, positions, pos3)
     for i, layer_p in enumerate(params["layers"]):
-        x = blocks.decoder_block(layer_p, x, cfg, positions, cache_layer=_ring_layer(cache, i),
+        x = blocks.decoder_block(layer_p, x, cfg, positions, cache_layer=ring_layer(cache, i),
                                     decode_pos=pos, rope_cs=rope_cs)
     return _head(params, x, cfg), cache
 
@@ -253,8 +323,8 @@ def prefill(params, tokens, cfg, cache=None):
     # the reference's prefill passes no M-RoPE streams: text positions
     rope_cs = None if cfg.mla is not None else _rope_cs(cfg, positions)
     for i, layer_p in enumerate(params["layers"]):
-        x = blocks.decoder_block(layer_p, x, cfg, positions,
-                                    cache_layer=_ring_layer(cache, i), rope_cs=rope_cs)
+        x = blocks.decoder_block(layer_p, x, cfg, positions, cache_layer=ring_layer(cache, i),
+                                    rope_cs=rope_cs)
     return _head(params, x, cfg), cache
 
 

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN with group-local capacity dispatch (port of the
-single-device half of ``repro.models.moe``).
+"""Mixture-of-Experts FFN with group-local capacity dispatch (port of
+``repro.models.moe``): the grouped path on one process, the
+expert-parallel region under a distribution context.
 
 Routing runs independently per token group (``n_groups``, 1 on one
 device).  DAP prunes the input once before the router (kernel #5 on CUDA
@@ -10,7 +11,8 @@ slot ``s`` of expert ``e`` goes to the ``s``-th (token, k) pair routed to
 output depends on the tokens it is batched with: compare MoE outputs only
 at identical batch shapes.  The expert products are dense batched
 einsums over ``[E, d, f]`` weights, outside any kernel, as in the
-reference.
+reference.  Under a context each rank holds its ``E / n`` experts and the
+dispatched rows cross ranks in two all-to-alls.
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.dap import apply_dap
 from repro_torch.kernels.epilogue import apply_act
+from repro_torch.models.common import DATA, MODEL
+from repro_torch.sharding.context import get_context
+from repro_torch.sharding.partition import P
 
 
 def make_moe(gen: torch.Generator, cfg, dtype=torch.bfloat16, device="cuda"):
@@ -40,6 +46,21 @@ def make_moe(gen: torch.Generator, cfg, dtype=torch.bfloat16, device="cuda"):
         "up": draw((e, d, f), 1.0 / math.sqrt(d)).to(dtype),
         "down": draw((e, f, d), 1.0 / math.sqrt(f)).to(dtype),
     }
+
+
+def moe_specs() -> dict:
+    """:func:`make_moe`'s spec intent: the experts over ``model`` (expert
+    parallelism), their ``d`` dims over ``data``; the router replicated."""
+    return {"router": {"w": P(None, None)}, "gate": P(MODEL, DATA, None),
+            "up": P(MODEL, DATA, None), "down": P(MODEL, None, DATA)}
+
+
+def expert_local_specs() -> dict:
+    """What a rank holds of :func:`make_moe`'s tree under a context: the
+    expert leaves as its slice of ``model`` (the in-specs of the
+    expert-parallel region), the router whole."""
+    e = P(MODEL, None, None)
+    return {"gate": e, "up": e, "down": e}
 
 
 def capacity(n_tokens: int, cfg) -> int:
@@ -80,7 +101,12 @@ def _dispatch(xt, top_e, top_p, e: int, k: int, cap: int):
 
 def moe_forward(p, x: torch.Tensor, cfg, *, layer_idx=None, n_groups: int = 1):
     """``x [B, S, d]`` -> ``(y [B, S, d], aux_loss scalar)``; ``n_groups``
-    must divide B (it is lowered until it does)."""
+    must divide B (it is lowered until it does).  Under a distribution
+    context the expert-parallel region runs instead
+    (:func:`_moe_forward_expert_parallel`)."""
+    ctx = get_context()
+    if ctx is not None:
+        return _moe_forward_expert_parallel(p, x, cfg, ctx, layer_idx=layer_idx)
     m = cfg.moe
     b, s, d = x.shape
     g = max(1, min(n_groups, b))
@@ -126,3 +152,90 @@ def moe_forward(p, x: torch.Tensor, cfg, *, layer_idx=None, n_groups: int = 1):
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens / k * frac_probs) * m.router_aux_weight
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _experts(p, buf, cfg):
+    """The expert FFN over ``buf [E_loc, C, d]`` (dense einsums)."""
+    if cfg.mlp_act == "swiglu":
+        g_ = torch.einsum("ecd,edf->ecf", buf, p["gate"].to(buf.dtype))
+        u_ = torch.einsum("ecd,edf->ecf", buf, p["up"].to(buf.dtype))
+        h = apply_act(g_, "silu") * u_
+    else:
+        h = apply_act(torch.einsum("ecd,edf->ecf", buf, p["up"].to(buf.dtype)), "gelu")
+    return torch.einsum("ecf,efd->ecd", h, p["down"].to(h.dtype))
+
+
+def _moe_forward_expert_parallel(p, x: torch.Tensor, cfg, ctx, *, layer_idx=None):
+    """Expert parallelism (the reference's ``_moe_forward_shard_map``):
+    DAP on the global ``x``, then on this rank's tokens (its batch rows,
+    and its sequence slice over the expert axis when ``S`` divides)
+    local routing, top-k and ``capacity(t_l)`` dispatch; an all-to-all
+    over the expert axis turns ``[E, C, d]`` into ``[E_loc, n*C, d]``
+    (source ranks concatenated in order); the local experts; the reverse
+    all-to-all; the combine as a scatter-add over the tokens.  The aux
+    loss is averaged over every rank, and ``y`` all-gathered back to the
+    global ``[B, S, d]``.  ``p``'s expert leaves are this rank's
+    ``E / n`` slice (``lm.local_specs``)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    ea, ba = ctx.expert_axis, ctx.batch_axes
+    n, nb = ctx.size(ea), ctx.size(ba)
+    e_loc = e // n
+    if e_loc * n != e:
+        raise ValueError(f"{e} experts do not divide over {n} expert shards")
+    if p["up"].shape[0] != e_loc:
+        raise ValueError(f"expert leaves hold {p['up'].shape[0]} experts, this rank's slice is "
+                         f"{e_loc}: place them with partition.local_tree(lm.local_specs(cfg))")
+    if b % nb:
+        raise ValueError(f"batch {b} does not divide over {nb} batch shards")
+    sp = cfg.sparsity
+    if sp is not None and sp.mode == "awdbb":
+        spec = sp.a_spec(layer_idx)
+        if spec is not None and d % spec.bz == 0:
+            x = apply_dap(x, spec)
+
+    # the sequence too is sliced over the expert axis, so every rank
+    # dispatches distinct tokens (else each expert shard would dispatch
+    # the same ones and the all-to-all carry n duplicates)
+    seq_split = s % n == 0 and s >= n
+    b_l, r = b // nb, ctx.index(ba)
+    x_l = x[r * b_l:(r + 1) * b_l]
+    if seq_split:
+        s_l, j = s // n, ctx.index(ea)
+        x_l = x_l[:, j * s_l:(j + 1) * s_l]
+    sl = x_l.shape[1]
+    t_l = b_l * sl
+    xt = x_l.reshape(1, t_l, d)
+    logits = torch.matmul(xt.float(), p["router"]["w"].float())
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, k)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    cap = capacity(t_l, cfg)
+    buf, dest, keep, w_flat = _dispatch(xt, top_e, top_p, e, k, cap)
+    # [E, C, d] -> [n (source), E_loc, C, d] -> [E_loc, n*C, d]
+    buf = ctx.all_to_all(buf.reshape(e, cap, d), ea)
+    buf = buf.reshape(n, e_loc, cap, d).transpose(0, 1).reshape(e_loc, n * cap, d)
+    out = _experts(p, buf, cfg)
+    # [E_loc, n*C, d] -> [n (destination), E_loc, C, d] -> every expert's rows: [E*C, d]
+    out = ctx.all_to_all(out.reshape(e_loc, n, cap, d).transpose(0, 1), ea)
+    out_flat = out.reshape(e * cap, d)
+    idx = torch.clamp(dest[0], 0, e * cap - 1)
+    gathered = torch.where(keep[0][:, None], out_flat[idx], 0.0)
+    gathered = (gathered * w_flat[0][:, None].to(out_flat.dtype)).reshape(t_l, k, d)
+    # the reference's scatter-add over tok (each token's k rows added onto
+    # zero in k order, rounding after each add), as k ordered adds:
+    # index_add_ on the card adds with atomics in no fixed order
+    y_l = torch.zeros((t_l, d), dtype=out_flat.dtype, device=x.device)
+    for j in range(k):
+        y_l = y_l + gathered[:, j]
+    frac_tokens = F.one_hot(top_e[0], e).float().sum(dim=1).mean(dim=0)
+    frac_probs = probs[0].mean(dim=0)
+    aux = e * torch.sum(frac_tokens / k * frac_probs) * m.router_aux_weight
+    aux = ctx.all_reduce(aux.reshape(1), dist.ReduceOp.SUM, ba) / nb
+    aux = (ctx.all_reduce(aux, dist.ReduceOp.SUM, ea) / n).reshape(())
+    y = y_l.reshape(b_l, sl, d)
+    if seq_split:
+        y = ctx.all_gather(y, ea, dim=1)
+    y = ctx.all_gather(y, ba, dim=0)
+    return y.to(x.dtype), aux

@@ -22,7 +22,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.epilogue import apply_act
-from repro_torch.models.common import einsum_f32, linear, make_linear, make_norm, rmsnorm
+from repro_torch.models.common import (
+    DATA,
+    MODEL,
+    einsum_f32,
+    linear,
+    linear_specs,
+    make_linear,
+    make_norm,
+    norm_specs,
+    rmsnorm,
+)
+from repro_torch.sharding.partition import P
 
 
 def conv_dim(cfg) -> int:
@@ -49,6 +60,18 @@ def make_mamba2(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: p):
     params["norm"] = make_norm(di, device=device)
     params["out_proj"] = pack(make_linear(gen, di, d, dtype=dtype, device=device))
     return params
+
+
+def mamba2_specs() -> dict:
+    """:func:`make_mamba2`'s spec intent."""
+    return {"in_proj": linear_specs(), "conv_w": P(None, MODEL), "conv_b": P(MODEL),
+            "A_log": P(None), "D": P(None), "dt_bias": P(None), "norm": norm_specs(),
+            "out_proj": linear_specs(P(MODEL, DATA))}
+
+
+def ssm_cache_specs() -> dict:
+    """:func:`make_ssm_cache`'s spec intent (stacked ``[L, ...]``)."""
+    return {"state": P(None, DATA, None, None, None), "conv": P(None, DATA, None, MODEL)}
 
 
 def make_ssm_cache(batch: int, cfg, n_layers: int, dtype, device):
