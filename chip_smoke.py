@@ -112,6 +112,14 @@ non-zero and prints no result:
    window split in two; f32 against the undistributed paths, the ranks
    byte-identical; the MoE in bf16 too); launches, collectives a step
    and their bytes printed.
+12. ``phase_dryrun``: the dry-run analysis (``repro_torch.launch.dryrun``,
+   host only: one rank's program of each cell traced on fake tensors
+   over a fake group) in subprocesses, since the fake group is
+   process-global: every arch x applicable shape on the single-pod
+   (16, 16) mesh, 33 cells, six processes at once; beside them one MoE
+   ``train_4k`` and one ``long_500k`` cell on the multi-pod (2, 16, 16)
+   mesh and one ``--packed`` decode cell; the report's tables and the
+   phase's wall printed; any failed cell fails the run.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2861,6 +2869,75 @@ def phase_distributed(torch, np, card, launches):
     return t
 
 
+DRYRUN_EXTRA = (  # (arch, shape, mesh, packed) traced beside the single-pod grid
+    ("granite_moe_1b_a400m", "train_4k", "multi", False),
+    ("starcoder2_15b", "long_500k", "multi", False),
+    ("granite_3_8b", "decode_32k", "single", True),
+)
+
+
+def phase_dryrun(card):
+    """The dry-run analysis on this host: ``python -m
+    repro_torch.launch.dryrun --all --mesh single`` (six processes) and
+    the cells of ``DRYRUN_EXTRA`` in processes of their own, all at once,
+    into a temporary directory; every process must exit 0 and every
+    cell's JSON must be there.  Prints the report's table a mesh."""
+    import tempfile
+
+    from repro_torch.launch import report
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out]
+        cmds = [base + ["--all", "--mesh", "single", "--jobs", "6"]]
+        for arch, shape, mesh, packed in DRYRUN_EXTRA:
+            cmds.append(base + ["--arch", arch, "--shape", shape, "--mesh", mesh]
+                        + ["--packed"] * packed)
+        logs = [tempfile.TemporaryFile("w+") for _ in cmds]
+        procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                  text=True) for c, log in zip(cmds, logs)]
+        try:
+            for c, proc, log in zip(cmds, procs, logs):
+                proc.wait(timeout=600)
+                if proc.returncode:
+                    log.seek(0)
+                    print("".join(log.readlines()[-40:]), file=sys.stderr)
+                check(proc.returncode == 0, f"dry-run {' '.join(c[5:])}: exit {proc.returncode}")
+        finally:
+            for proc, log in zip(procs, logs):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        cells = report.load_cells(out)
+    from repro_torch import configs
+
+    want = sum(len(configs.applicable_shapes(a)) for a in configs.ARCH_IDS)
+    single = [c for c in cells if c["mesh"] == "single" and not c["tags"]]
+    check(len(single) == want, f"dry-run: {len(single)} single-pod cells, want {want}")
+    check(len(cells) == want + len(DRYRUN_EXTRA), f"dry-run: {len(cells)} cells")
+    for c in cells:
+        rl = c["roofline"]
+        check(rl["flops_per_device"] > 0 and rl["bytes_per_device"] > 0,
+              f"dry-run {c['arch']}/{c['shape']}/{c['mesh']}: empty counts")
+    for mesh in ("single", "multi"):
+        say(f"dry-run roofline, mesh {mesh} (H100 SXM data-sheet peaks; counts of one "
+            f"rank's program):")
+        say(report.table(cells, mesh))
+    for c in cells:
+        if c["tags"]:
+            rl = c["roofline"]
+            say(f"dry-run {c['arch']}/{c['shape']}/{c['mesh']} [{c['tags']}]: "
+                f"t_compute {report.fmt_s(rl['t_compute_s'])} t_memory "
+                f"{report.fmt_s(rl['t_memory_s'])} t_collective "
+                f"{report.fmt_s(rl['t_collective_s'])} ({rl['bottleneck']})")
+    wall = time.perf_counter() - t0
+    say(f"phase_dryrun: {len(cells)} cells ({want} single-pod, {len(DRYRUN_EXTRA)} more) "
+        f"traced on this host in {wall:.1f} s wall ({card})")
+    return wall
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -2938,6 +3015,7 @@ def main():
     say(f"recurrent and encdec phases together: {t_new:.1f} s")
     phase_train(torch, np, card, launches, stats)
     phase_distributed(torch, np, card, launches)
+    phase_dryrun(card)
 
     record = []
     for name, info in KERNELS.items():

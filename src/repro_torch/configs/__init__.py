@@ -23,11 +23,14 @@ from repro_torch.configs import (
     starcoder2_15b,
     whisper_base,
 )
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, shape_by_name  # noqa: F401
 
 ARCH_IDS = ("granite_3_8b", "minicpm3_4b", "granite_moe_1b_a400m", "qwen2_vl_72b",
             "starcoder2_15b", "phi3_5_moe_42b_a6_6b", "qwen1_5_110b", "mamba2_130m",
             "hymba_1_5b", "whisper_base")
+
+# pure full-attention archs skip long_500k (the reference's applicability rule)
+LONG_CONTEXT_OK = {"hymba_1_5b", "mamba2_130m", "starcoder2_15b"}
 
 _MODULES = {
     "granite_3_8b": granite_3_8b,
@@ -63,3 +66,10 @@ def get_config(name: str, smoke: bool = False, sparsity_mode: str | None = None)
         cfg = dataclasses.replace(
             cfg, sparsity=dataclasses.replace(cfg.sparsity, mode=sparsity_mode))
     return cfg
+
+
+def applicable_shapes(name: str) -> list:
+    """The dry-run shape cells of ``name``: every cell of ``SHAPES``,
+    ``long_500k`` only for the archs of ``LONG_CONTEXT_OK``."""
+    return [s for s in SHAPES
+            if s.name != "long_500k" or canon(name) in LONG_CONTEXT_OK]

@@ -134,3 +134,37 @@ class ModelConfig:
             di = s.d_inner(d)
             total += n_l * (d * (2 * di + 2 * s.ngroups * s.d_state + s.n_heads(d)) + di * d)
         return total
+
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (6·N_active·D convention)."""
+        if self.moe is None:
+            return self.param_count()
+        d, f, n_l = self.d_model, self.d_ff, self.n_layers
+        mlp = 3 * d * f if self.mlp_act == "swiglu" else 2 * d * f
+        base = dataclasses.replace(self, moe=None).param_count() - n_l * mlp
+        return base + n_l * self.moe.top_k * mlp
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One dry-run input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -12,9 +12,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import dbb
 from repro_torch.kernels import ops
+from repro_torch.sharding import context
 
 HW_MAX_STAGES = 5  # paper §6.2: "We cap the maxpool stages at 5"
 
@@ -82,7 +84,11 @@ class DAPSTE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, pruned = ctx.saved_tensors
-        sel = selection_mask(a, pruned, ctx.nnz, ctx.bz)
+        if isinstance(a, DTensor):  # shard by shard, as the forward pruned
+            sel = context.run_local(lambda x, p: selection_mask(x, p, ctx.nnz, ctx.bz),
+                                    (a, pruned), context.row_placements(a, ctx.bz))
+        else:
+            sel = selection_mask(a, pruned, ctx.nnz, ctx.bz)
         return torch.where(sel, g, torch.zeros_like(g)), None, None
 
 

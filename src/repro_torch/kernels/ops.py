@@ -13,11 +13,13 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import dbb, quant
 from repro_torch.kernels import dap_prune as dap_mod
 from repro_torch.kernels import dbb_matmul as dbb_mm
 from repro_torch.kernels import native, paged_attn, ref
+from repro_torch.sharding import context
 
 
 def counters() -> Dict[str, native.Counter]:
@@ -188,7 +190,11 @@ def paged_attention(q, k_pages, v_pages, pos_tbl, page_tables, q_pos, *,
 
 def dap_prune(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
     """DAP (kernel #5): ``(pruned [..., K], mask [..., K//bz] uint8)``.
-    Accepts any ``[..., K]``; the kernel sees it as 2-D."""
+    Accepts any ``[..., K]``; the kernel sees it as 2-D.  A ``DTensor``
+    is pruned shard by shard (``context.run_local``)."""
+    if isinstance(x, DTensor):
+        return context.run_local(lambda t: dap_prune(t, nnz, bz), (x,),
+                                 context.row_placements(x, bz))
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if _on_cuda(x2):
@@ -238,7 +244,11 @@ def dap_pack_int8(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ,
 def dap_pack(x: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ):
     """Fused DAP-prune + pack: dense ``[..., K]`` -> native wire ``(vals
     [..., K//bz, nnz], mask [..., K//bz] uint8)`` in ``x``'s dtype; the
-    pruned dense tensor is never materialized (#5's packed form on CUDA)."""
+    pruned dense tensor is never materialized (#5's packed form on CUDA).
+    A ``DTensor`` is packed shard by shard."""
+    if isinstance(x, DTensor):
+        return context.run_local(lambda t: dap_pack(t, nnz, bz), (x,),
+                                 context.row_placements(x, bz))
     if not _on_cuda(x):
         dap_mod.DAP_PACK.plain += 1
         return ref.dap_pack_ref(x, nnz, bz)

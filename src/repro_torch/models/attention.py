@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import quant
 from repro_torch.kernels import ops
@@ -62,6 +63,14 @@ from repro_torch.models.common import (
     make_norm,
     norm_specs,
     rmsnorm,
+)
+from repro_torch.sharding.context import (
+    from_local,
+    local_shard,
+    reduce_over,
+    region_placements,
+    shard_reshape,
+    split_dims,
 )
 from repro_torch.sharding.partition import P
 
@@ -117,6 +126,28 @@ def ring_window(cache_layer, dtype):
     return k, v
 
 
+def _write_slot(plane, slot: int, value) -> None:
+    """``plane[:, slot] = value`` in place.  A ``DTensor`` plane is written
+    on its local shard, by the rank whose window slice holds ``slot``,
+    with ``value`` (``plane[:, slot]``'s shape) brought to the plane's
+    placements."""
+    if isinstance(plane, DTensor):
+        mesh, pl = plane.device_mesh, plane.placements
+        local = plane.to_local()
+        w_l, shard = local.shape[1], 0
+        for m, p in enumerate(pl):
+            if p == Shard(1):
+                shard = shard * mesh.size(m) + mesh.get_local_rank(m)
+        if not shard * w_l <= slot < (shard + 1) * w_l:
+            return
+        if isinstance(value, torch.Tensor):
+            v_pl = [Replicate() if not isinstance(p, Shard) or p.dim == 1
+                    else Shard(p.dim - (p.dim > 1)) for p in pl]
+            value = local_shard(value, mesh, v_pl)
+        plane, slot = local, slot - shard * w_l
+    plane[:, slot] = value
+
+
 def _update_ring(cache_layer, new_k, new_v, pos: int, window: int) -> None:
     """Write one step (``[B, 1, D]``) at slot ``pos % window``, in place;
     under the int8 KV wire the row quantizes here."""
@@ -125,9 +156,9 @@ def _update_ring(cache_layer, new_k, new_v, pos: int, window: int) -> None:
         sname = name + "_scale"
         if sname in cache_layer:
             new, sc = quantize_kv(new)
-            cache_layer[sname][:, slot] = sc[:, 0]
-        cache_layer[name][:, slot] = new[:, 0].to(cache_layer[name].dtype)
-    cache_layer["pos"][:, slot] = pos
+            _write_slot(cache_layer[sname], slot, sc[:, 0])
+        _write_slot(cache_layer[name], slot, new[:, 0].to(cache_layer[name].dtype))
+    _write_slot(cache_layer["pos"], slot, pos)
 
 
 def fill_ring(cache_layer, new_k, new_v, s: int, quantized=None) -> None:
@@ -228,9 +259,23 @@ def flash_decode(q, cache_layer, new_k, new_v, decode_pos: int, window_mask):
     the model axis with three reductions of ``[B_l, KV, G]``-sized
     tensors: the max, then the sums of ``l`` and of the output.  The
     output ``[B_l, 1, H, Dv]`` is all-gathered over the batch axes, so
-    the caller gets the global ``[B, 1, H, Dv]``."""
-    ctx, r0, lo, w = _shard_rows(cache_layer)
+    the caller gets the global ``[B, 1, H, Dv]``.
+
+    On ``DTensor`` planes (the ring placed by ``lm.cache_specs``) the
+    region works on their local shards and takes its rows of ``q`` and
+    the step's K/V by their placements; the output leaves as a
+    ``DTensor`` with its batch sharded, and is not gathered."""
     k_c, v_c, pos_c = cache_layer["k"], cache_layer["v"], cache_layer["pos"]
+    dt = isinstance(k_c, DTensor)
+    if dt:
+        ctx, mesh, b_glob = cache_layer.ctx, k_c.device_mesh, q.shape[0]
+        rows_pl = [Shard(0) if p == Shard(0) else Replicate() for p in k_c.placements]
+        q, new_k, new_v = (local_shard(t, mesh, rows_pl) for t in (q, new_k, new_v))
+        k_c, v_c, pos_c = k_c.to_local(), v_c.to_local(), pos_c.to_local()
+        w_l = k_c.shape[1]
+        r0, lo, w = 0, ctx.index(ctx.expert_axis) * w_l, w_l * ctx.size(ctx.expert_axis)
+    else:
+        ctx, r0, lo, w = _shard_rows(cache_layer)
     b_l, w_l, kvd = k_c.shape
     h, d = q.shape[2], q.shape[3]
     kv = kvd // d
@@ -253,7 +298,10 @@ def flash_decode(q, cache_layer, new_k, new_v, decode_pos: int, window_mask):
     o = ctx.all_reduce(einsum_f32("bkgst,btke->bskge", p.to(vv.dtype), vv),
                        dist.ReduceOp.SUM, ctx.expert_axis)  # [B_l, 1, KV, G, Dv]
     out = o / torch.clamp_min(l_sum[..., 0].permute(0, 3, 1, 2)[..., None], 1e-30)
-    return ctx.all_gather(out.reshape(b_l, 1, h, -1).to(q.dtype), ctx.batch_axes, dim=0)
+    out = out.reshape(b_l, 1, h, -1).to(q.dtype)
+    if dt:
+        return from_local(out, mesh, rows_pl, (b_glob,) + tuple(out.shape[1:]))
+    return ctx.all_gather(out, ctx.batch_axes, dim=0)
 
 
 def _paged_flat_idx(positions, page_tables, page_size: int):
@@ -349,6 +397,9 @@ def mha(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
     KV heads are never repeated.  q ``[B, S, H, D]``, k/v ``[B, T, KV, D]``,
     q_pos ``[B, S]``, k_pos ``[B, T]``.  Query-chunked above ``chunk``
     (when it divides S) to bound the ``[S, T]`` logits working set."""
+    if isinstance(q, DTensor):
+        return _mha_region(q, k, v, q_pos, k_pos, window=window, chunk=chunk,
+                           softmax_scale=softmax_scale)
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -367,6 +418,74 @@ def mha(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
         return block(q, q_pos)
     return torch.cat([block(q[:, i:i + chunk], q_pos[:, i:i + chunk])
                       for i in range(0, s, chunk)], dim=1)
+
+
+def _key_shards(t, dims=(1,)) -> list:
+    """The mesh dims that shard ``t``'s key (window) dim, or any of
+    ``dims``."""
+    if not isinstance(t, DTensor):
+        return []
+    return [m for m, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim in dims]
+
+
+def _softmax_merge(logits, values, mesh, pl, keys):
+    """A softmax over keys split across the mesh dims ``keys`` (each rank
+    holds its slice of the last dim of ``logits``): the max, the sum and
+    ``values(p)`` combined over them, flash-decode's merge.  Returns
+    ``(values(p) summed, the sum of p)``, both still to be divided.  The
+    max is a shift the quotient does not depend on, taken without a
+    gradient (each rank would see only its own keys' part of it)."""
+    m = reduce_over(logits.detach().amax(dim=-1, keepdim=True), mesh, pl, keys, "max")
+    p = torch.exp(logits - m)
+    return (reduce_over(values(p), mesh, pl, keys, "sum"),
+            reduce_over(p.sum(dim=-1, keepdim=True), mesh, pl, keys, "sum"))
+
+
+def _mha_keys_region(q, k, v, q_pos, k_pos, keys, *, window=None, softmax_scale=None,
+                     chunk=None):
+    """:func:`mha` with the keys sharded over the mesh dims ``keys`` (a
+    window-sharded ring that the flash-decode guard does not take): each
+    rank attends over its own slots and the partial softmaxes merge
+    (:func:`_softmax_merge`), so no K/V moves; the queries keep their
+    batch shards and are whole on the key dims."""
+    mesh = q.device_mesh
+    qp = [Replicate() if m in keys or q.placements[m] != Shard(0) else Shard(0)
+          for m in range(mesh.ndim)]
+    kp = [Shard(1) if m in keys else qp[m] for m in range(mesh.ndim)]
+    split = split_dims(qp, kp)
+    ql, kl, vl = (local_shard(t, mesh, pl, split) for t, pl in ((q, qp), (k, kp), (v, kp)))
+    b, s, h, d = ql.shape
+    kv = kl.shape[2]
+    logits = einsum_f32("bskgd,btkd->bkgst", ql.reshape(b, s, kv, h // kv, d), kl)
+    logits = logits * (softmax_scale or 1.0 / math.sqrt(d)) + _mask_bias(
+        local_shard(q_pos, mesh, qp), local_shard(k_pos, mesh, kp), window)[:, None, None]
+    o, l_sum = _softmax_merge(
+        logits, lambda p: einsum_f32("bkgst,btke->bskge", p.to(vl.dtype), vl), mesh, qp, keys)
+    out = o / torch.clamp_min(l_sum[..., 0].permute(0, 3, 1, 2)[..., None], 1e-30)
+    return from_local(out.reshape(b, s, h, -1).to(q.dtype), mesh, qp, q.shape[:3] + v.shape[3:])
+
+
+def _mha_region(q, k, v, q_pos, k_pos, **kw):
+    """:func:`mha` on ``DTensor`` queries as a region on local shards (as
+    a ``shard_map`` runs it): the batch keeps its shards, the queries'
+    sequence takes the other mesh dims where it divides (else they are
+    replicated), keys, values and their positions are whole on every
+    rank of those dims.  The output leaves the region with its heads
+    over those dims where they divide (an all-to-all), else whole (an
+    all-gather): the layouts the output projection takes."""
+    mesh = q.device_mesh
+    keys = _key_shards(k)
+    if keys:
+        out = _mha_keys_region(q, k, v, q_pos, k_pos, keys, **kw)
+        return out.redistribute(mesh, region_placements(out, mesh, seq_dim=2))
+    qp = region_placements(q, mesh, seq_dim=1)
+    kp = region_placements(q, mesh)
+    split = split_dims(qp, kp)
+    out = mha(local_shard(q, mesh, qp, split), local_shard(k, mesh, kp, split),
+              local_shard(v, mesh, kp, split), local_shard(q_pos, mesh, qp),
+              local_shard(k_pos, mesh, kp), **kw)
+    out = from_local(out, mesh, qp, q.shape[:3] + v.shape[3:])
+    return out.redistribute(mesh, region_placements(out, mesh, seq_dim=2))
 
 
 def _gather(sp) -> bool:
@@ -415,9 +534,9 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     sp, li = cfg.sparsity, layer_idx
     xin = common.maybe_pack_input(x, (p["wq"], p["wk"], p["wv"]), sp, li)
-    q = linear(p["wq"], xin, sparsity=sp, layer_idx=li).reshape(b, s, h, dh)
-    k = linear(p["wk"], xin, sparsity=sp, layer_idx=li).reshape(b, s, kvh, dh)
-    v = linear(p["wv"], xin, sparsity=sp, layer_idx=li).reshape(b, s, kvh, dh)
+    q = shard_reshape(linear(p["wq"], xin, sparsity=sp, layer_idx=li), b, s, h, dh)
+    k = shard_reshape(linear(p["wk"], xin, sparsity=sp, layer_idx=li), b, s, kvh, dh)
+    v = shard_reshape(linear(p["wv"], xin, sparsity=sp, layer_idx=li), b, s, kvh, dh)
     cos, sin = rope_cs if rope_cs is not None else rope.rope_cos_sin(
         positions, dh, cfg.rope_theta
     )
@@ -464,7 +583,7 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
         window = cache_layer["k"].shape[1]
         _update_ring(cache_layer, k_flat, v_flat, decode_pos, window)
         kk, vv = ring_window(cache_layer, x.dtype)
-        out = mha(q, kk.reshape(b, window, kvh, dh), vv.reshape(b, window, kvh, dh),
+        out = mha(q, shard_reshape(kk, b, window, kvh, dh), shard_reshape(vv, b, window, kvh, dh),
                   positions, cache_layer["pos"], window=cfg.sliding_window)
     else:
         k_pos = positions if causal else torch.zeros_like(positions)
@@ -523,7 +642,11 @@ def _mla_absorbed(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtyp
     """Absorbed-form MLA over a latent window ``lat [B, T, lora+rope]``
     (the ``(c_kv ‖ k_rope)`` latent, from the ring or gathered from pages)
     with slot positions ``k_pos [B, T]``: q absorbs through ``kv_up`` per
-    head, so the latent is never expanded.  Returns ``[B, S, H, dv]``."""
+    head, so the latent is never expanded.  Returns ``[B, S, H, dv]``.
+    A ``DTensor`` window runs as a region (:func:`_mla_absorbed_region`)."""
+    if isinstance(lat, DTensor):
+        return _mla_absorbed_region(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale,
+                                    out_dtype)
     lora = m.kv_lora_rank
     c_all, kr_all = lat[..., :lora], lat[..., lora:]
     q_abs = _mla_absorb_q(q_nope, w_kv_up, m, out_dtype)
@@ -532,6 +655,41 @@ def _mla_absorbed(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtyp
     probs = _softmax(logits + _mask_bias(q_pos, k_pos, None)[:, None, :, :])
     ctx = einsum_f32("bhst,btl->bshl", probs.to(c_all.dtype), c_all)
     return _mla_up_project(ctx, w_kv_up, m, out_dtype)
+
+
+def _mla_absorbed_region(q_nope, q_rope, lat, q_pos, k_pos, w_kv_up, m, scale, out_dtype):
+    """:func:`_mla_absorbed` over a ``DTensor`` latent window as a region:
+    a latent sharded on its latent dim (the reference's ``cache_specs``)
+    moves to its window dim (an all-to-all: the ``c_kv ‖ k_rope`` split
+    cuts across latent shards), each rank scores its own slots, and the
+    partial softmaxes and contexts merge (:func:`_softmax_merge`).  The
+    queries keep their batch shards; ``kv_up`` is whole on every rank."""
+    mesh = lat.device_mesh
+    keys = _key_shards(lat, dims=(1, 2))
+    n = 1
+    for mm in keys:
+        n *= mesh.size(mm)
+    if lat.shape[1] % n:
+        keys = []
+    qp = [Shard(0) if p == Shard(0) else Replicate() for p in lat.placements]
+    kp = [Shard(1) if mm in keys else qp[mm] for mm in range(mesh.ndim)]
+    split = split_dims(qp, kp)
+    latl = local_shard(lat, mesh, kp, split)
+    qn, qr = local_shard(q_nope, mesh, qp, split), local_shard(q_rope, mesh, qp, split)
+    w = local_shard(w_kv_up, mesh, [Replicate()] * mesh.ndim, split)
+    lora = m.kv_lora_rank
+    c_all, kr_all = latl[..., :lora], latl[..., lora:]
+    q_abs = _mla_absorb_q(qn, w, m, out_dtype)
+    logits = (einsum_f32("bshl,btl->bhst", q_abs, c_all)
+              + einsum_f32("bshr,btr->bhst", qr, kr_all)) * scale
+    logits = logits + _mask_bias(local_shard(q_pos, mesh, qp), local_shard(k_pos, mesh, kp),
+                                 None)[:, None, :, :]
+    ctx, l_sum = _softmax_merge(
+        logits, lambda p: einsum_f32("bhst,btl->bshl", p.to(c_all.dtype), c_all), mesh, qp,
+        keys)
+    out = _mla_up_project(ctx / l_sum.permute(0, 2, 1, 3), w, m, out_dtype)
+    b_glob = q_nope.shape[0]
+    return from_local(out, mesh, qp, (b_glob,) + tuple(out.shape[1:]))
 
 
 def _mla_absorbed_fused(q_nope, q_rope, cache_layer, page_tables, q_pos, w_kv_up, m,
@@ -577,7 +735,7 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
 
     xin = common.maybe_pack_input(x, (p["q_down"], p["kv_down"]), sp, li)
     cq = rmsnorm(linear(p["q_down"], xin, sparsity=sp, layer_idx=li), p["q_norm"])
-    q = linear(p["q_up"], cq, sparsity=sp, layer_idx=li).reshape(b, s, h, qk_nope + qk_rope)
+    q = shard_reshape(linear(p["q_up"], cq, sparsity=sp, layer_idx=li), b, s, h, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     cos, sin = rope.rope_cos_sin(positions, qk_rope, cfg.rope_theta)
     q_rope = rope.apply_rope(q_rope, cos, sin)
@@ -586,7 +744,7 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     c_kv = rmsnorm(kv[..., : m.kv_lora_rank], p["kv_norm"])
     k_rope = rope.apply_rope(kv[..., m.kv_lora_rank:][:, :, None, :], cos, sin)[:, :, 0, :]
 
-    w_kv_up = p["kv_up"]["w"].reshape(m.kv_lora_rank, h, qk_nope + dv)
+    w_kv_up = shard_reshape(p["kv_up"]["w"], m.kv_lora_rank, h, qk_nope + dv)
     latent = torch.cat([c_kv, k_rope], dim=-1)
     dummy_v = torch.zeros((b, s, 1), dtype=latent.dtype, device=latent.device)
 
@@ -662,9 +820,9 @@ def cross_attn_forward(p, x: torch.Tensor, enc_kv: torch.Tensor, cfg, *,
     h, dh = cfg.n_heads, cfg.head_dim()
     sp, li = cfg.sparsity, layer_idx
     kvin = common.maybe_pack_input(enc_kv, (p["wk"], p["wv"]), sp, li)
-    q = linear(p["wq"], x, sparsity=sp, layer_idx=li).reshape(b, s, h, dh)
-    k = linear(p["wk"], kvin, sparsity=sp, layer_idx=li).reshape(b, t, h, dh)
-    v = linear(p["wv"], kvin, sparsity=sp, layer_idx=li).reshape(b, t, h, dh)
+    q = shard_reshape(linear(p["wq"], x, sparsity=sp, layer_idx=li), b, s, h, dh)
+    k = shard_reshape(linear(p["wk"], kvin, sparsity=sp, layer_idx=li), b, t, h, dh)
+    v = shard_reshape(linear(p["wv"], kvin, sparsity=sp, layer_idx=li), b, t, h, dh)
     qp = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     kp = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     out = mha(q, k, v, qp, kp)

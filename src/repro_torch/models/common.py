@@ -20,11 +20,13 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import dbb, quant
 from repro_torch.core.dap import apply_dap
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.kernels import epilogue, ops
+from repro_torch.sharding import context
 from repro_torch.sharding.partition import P
 
 # Logical mesh axis names (launch/mesh.py).
@@ -226,7 +228,13 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     * packed input and dense weights: expand the wire format, then the
       dense path (DAP is not re-applied);
     * dense weights: a plain matmul.
+
+    On ``DTensor`` operands the layer runs as a region on local shards
+    (:func:`_linear_region`).
     """
+    if isinstance(x.vals if isinstance(x, PackedAct) else x, DTensor):
+        return _linear_region(p, x, sparsity=sparsity, layer_idx=layer_idx,
+                              dap_input=dap_input, first_layer=first_layer, act=act)
     sp = sparsity
     dtype, x_scale = x.dtype, None
     if isinstance(x, PackedAct):
@@ -290,6 +298,102 @@ def linear(p, x: ActOrPacked, *, sparsity: Optional[SparsityConfig] = None,
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return epilogue.apply_act(y, act)
+
+
+def _local_bytes(t) -> int:
+    t = t.to_local() if isinstance(t, DTensor) else t
+    return t.numel() * t.element_size()
+
+
+def _linear_region(p, x: ActOrPacked, *, act=None, **kw) -> torch.Tensor:
+    """:func:`linear` on ``DTensor`` operands, as a region on local shards
+    with Megatron's layouts, chosen mesh dim by mesh dim from where the
+    input and the weight lie (the weight's in dim is dim 0, its out dim
+    the last, packed or not):
+
+    * the input sharded on a leading dim (the batch): it stays, and a
+      weight sharded on that mesh dim is gathered (FSDP), unless the
+      weight is out-sharded there and the input is the smaller to gather
+      (decode's weight-stationary layout: the input is gathered and the
+      output is out-sharded);
+    * the weight out-sharded: column parallel, the input gathered whole,
+      the output out-sharded;
+    * the weight in-sharded, or the input sharded on its in dim: row
+      parallel, the input sliced (or kept) on its in dim, the output a
+      partial sum, whose bias and activation are applied after the
+      region (on the reduced value);
+    * else replicated.
+
+    DTensor's own matmul propagation weighs each op alone and may leave
+    the sequence and the batch both sharded, which no later flatten can
+    take; here the layouts are fixed by the rules above."""
+    packed = isinstance(x, PackedAct)
+    xs = x.vals if packed else x
+    mesh = xs.device_mesh
+    w = p["w"] if "w" in p else p["w_vals"]
+    n_w = w.ndim - 1
+    # the input's in dim (its blocks when packed), and the output's out dim
+    x_k = xs.ndim - (2 if packed else 1)
+    x_pl, w_pl, o_pl = [], [], []
+    partial, n_k = False, 1
+
+    def k_splits(n):  # whole 8-blocks on every rank, for DAP and the wire
+        return (w.shape[0] % n == 0 and xs.shape[x_k] % n == 0
+                and (packed or (xs.shape[x_k] // n) % dbb.DEFAULT_BZ == 0))
+
+    for m in range(mesh.ndim):
+        xp = xs.placements[m]
+        wp = w.placements[m] if isinstance(w, DTensor) else Replicate()
+        w_on = wp.dim if isinstance(wp, Shard) else None
+        if isinstance(xp, Shard) and xp.dim < x_k:
+            if w_on == n_w and _local_bytes(xs) < _local_bytes(w):
+                x_pl.append(Replicate()), w_pl.append(Shard(n_w)), o_pl.append(Shard(x_k))
+            else:
+                x_pl.append(xp), w_pl.append(Replicate()), o_pl.append(xp)
+        elif w_on == n_w:
+            x_pl.append(Replicate()), w_pl.append(Shard(n_w)), o_pl.append(Shard(x_k))
+        elif (w_on == 0 or (isinstance(xp, Shard) and xp.dim == x_k)) and k_splits(
+                n_k * mesh.size(m)):
+            x_pl.append(Shard(x_k)), w_pl.append(Shard(0)), o_pl.append(Partial())
+            partial, n_k = True, n_k * mesh.size(m)
+        else:
+            x_pl.append(Replicate()), w_pl.append(Replicate()), o_pl.append(Replicate())
+    n_pl = [Shard(0) if o == Shard(x_k) else Replicate() for o in o_pl]  # bias, scales
+    split = context.split_dims(x_pl, w_pl, o_pl)
+
+    def loc(t, pl):
+        return context.local_shard(t, mesh, pl, split) if t is not None else None
+
+    p_loc = {}
+    for name, t in p.items():
+        if name in ("b", "w_scale"):
+            p_loc[name] = loc(t, n_pl)
+        else:
+            p_loc[name] = loc(t, [Shard(t.ndim - 1) if pl == Shard(n_w) else pl for pl in w_pl])
+    bias = p_loc.pop("b", None) if partial else None
+    if packed:
+        k_loc = x.k
+        for m, pl in enumerate(x_pl):
+            if pl == Shard(x_k):
+                k_loc //= mesh.size(m)
+        scale = x.scale
+        if scale is not None:  # one scalar, or one a token: the input's leading shards
+            scale = loc(scale, [pl if isinstance(pl, Shard) and pl.dim < x_k and scale.ndim
+                                else Replicate() for pl in x_pl])
+        x_loc = PackedAct(loc(x.vals, x_pl), loc(x.mask, x_pl), x.cfg, k_loc, x.dtype, scale)
+    else:
+        x_loc = loc(x, x_pl)
+    y = linear(p_loc, x_loc, act=None if partial else act, **kw)
+    shape = list(y.shape)
+    for m, pl in enumerate(o_pl):
+        if isinstance(pl, Shard):
+            shape[pl.dim] *= mesh.size(m)
+    y = context.from_local(y, mesh, o_pl, shape)
+    if partial:
+        if bias is not None:
+            y = y + p["b"].to(y.dtype)
+        y = epilogue.apply_act(y, act)
+    return y
 
 
 # weight elements packed at a time: the plain packers' temporaries (int64

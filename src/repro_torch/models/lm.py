@@ -63,8 +63,9 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             "family 'encdec' is not served by the decoder-only LM: drive it through "
             "repro_torch.models.encdec (encode, forward, decode_step); what the port "
-            "still lacks is the dry-run analysis (launch/{specs,dryrun,roofline,report}) "
-            "and the examples"
+            "still lacks is the examples (examples/*) and a few public names of the "
+            "reference (core.dbb.pack/unpack, core.dap.dap, Scheduler.cancel, "
+            "paged_cache.cache_nbytes)"
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported: the reference has no such family "

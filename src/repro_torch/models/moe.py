@@ -22,10 +22,12 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.dap import apply_dap
 from repro_torch.kernels.epilogue import apply_act
 from repro_torch.models.common import DATA, MODEL
+from repro_torch.sharding import context
 from repro_torch.sharding.context import get_context
 from repro_torch.sharding.partition import P
 
@@ -175,7 +177,13 @@ def _moe_forward_expert_parallel(p, x: torch.Tensor, cfg, ctx, *, layer_idx=None
     all-to-all; the combine as a scatter-add over the tokens.  The aux
     loss is averaged over every rank, and ``y`` all-gathered back to the
     global ``[B, S, d]``.  ``p``'s expert leaves are this rank's
-    ``E / n`` slice (``lm.local_specs``)."""
+    ``E / n`` slice (``lm.local_specs``).
+
+    On ``DTensor`` operands (leaves placed by ``moe_specs``) the region
+    takes local shards instead: its batch rows of ``x``, its experts
+    (gathered over the other mesh dims), the router whole; ``y`` leaves
+    as a ``DTensor`` with its batch sharded (its sequence gathered over
+    the expert axis by DTensor), ``aux`` replicated."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -184,6 +192,16 @@ def _moe_forward_expert_parallel(p, x: torch.Tensor, cfg, ctx, *, layer_idx=None
     e_loc = e // n
     if e_loc * n != e:
         raise ValueError(f"{e} experts do not divide over {n} expert shards")
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        rows_pl = [Shard(0) if a in ba else Replicate() for a in names]
+        exp_pl = [Shard(0) if a == ea else Replicate() for a in names]
+        split = context.split_dims(rows_pl, exp_pl)
+        whole = [Replicate()] * len(names)
+        p = {"router": {"w": context.local_shard(p["router"]["w"], mesh, whole, split)},
+             **{w: context.local_shard(p[w], mesh, exp_pl, split)
+                for w in ("gate", "up", "down") if w in p}}
     if p["up"].shape[0] != e_loc:
         raise ValueError(f"expert leaves hold {p['up'].shape[0]} experts, this rank's slice is "
                          f"{e_loc}: place them with partition.local_tree(lm.local_specs(cfg))")
@@ -200,7 +218,8 @@ def _moe_forward_expert_parallel(p, x: torch.Tensor, cfg, ctx, *, layer_idx=None
     # the same ones and the all-to-all carry n duplicates)
     seq_split = s % n == 0 and s >= n
     b_l, r = b // nb, ctx.index(ba)
-    x_l = x[r * b_l:(r + 1) * b_l]
+    x_l = (context.local_shard(x, mesh, rows_pl, split) if mesh is not None
+           else x[r * b_l:(r + 1) * b_l])
     if seq_split:
         s_l, j = s // n, ctx.index(ea)
         x_l = x_l[:, j * s_l:(j + 1) * s_l]
@@ -235,6 +254,13 @@ def _moe_forward_expert_parallel(p, x: torch.Tensor, cfg, ctx, *, layer_idx=None
     aux = ctx.all_reduce(aux.reshape(1), dist.ReduceOp.SUM, ba) / nb
     aux = (ctx.all_reduce(aux, dist.ReduceOp.SUM, ea) / n).reshape(())
     y = y_l.reshape(b_l, sl, d)
+    if mesh is not None:
+        # the sequence gathered over the expert axis by DTensor, whose
+        # backward takes each rank's slice of the (replicated) gradient
+        y_pl = [Shard(1) if a == ea and seq_split else pl for a, pl in zip(names, rows_pl)]
+        y = context.from_local(y.to(x.dtype), mesh, y_pl, (b, s, d))
+        return (y.redistribute(mesh, rows_pl),
+                context.from_local(aux, mesh, [Replicate()] * mesh.ndim, ()))
     if seq_split:
         y = ctx.all_gather(y, ea, dim=1)
     y = ctx.all_gather(y, ba, dim=0)

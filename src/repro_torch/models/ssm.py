@@ -20,6 +20,7 @@ dtype where the reference's do.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.epilogue import apply_act
 from repro_torch.models.common import (
@@ -33,6 +34,7 @@ from repro_torch.models.common import (
     norm_specs,
     rmsnorm,
 )
+from repro_torch.sharding import context
 from repro_torch.sharding.partition import P
 
 
@@ -209,15 +211,50 @@ def mamba2_forward(p, u: torch.Tensor, cfg, *, layer_idx=None, cache_layer=None)
     [B, H, P, N] f32, "conv" [B, K-1, C]}``, S == 1) one decode step,
     the cache written in place; without, the chunked scan."""
     sp, li = cfg.sparsity, layer_idx
-    b, s, _ = u.shape
     zxbcdt = linear(p["in_proj"], u, sparsity=sp, layer_idx=li)
+    mixer = _mixer_region if isinstance(zxbcdt, DTensor) else _mixer
+    y = mixer(p, zxbcdt, cfg, cache_layer, u.dtype)
+    return linear(p["out_proj"], y, sparsity=sp, layer_idx=li)
+
+
+def _mixer(p, zxbcdt, cfg, cache_layer, out_dtype):
+    """Between the two projections: the conv, the scan (or the recurrent
+    step over ``cache_layer``), the gate and the gated norm."""
+    s = zxbcdt.shape[1]
     z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
     dt = _softplus(dt.float() + p["dt_bias"])  # [B, S, H]
     if cache_layer is not None:
         if s != 1:
             raise ValueError(f"the recurrent step takes one token, got S={s}")
-        y = _decode(p, (z, xbc, dt), cfg, cache_layer, u.dtype)
+        y = _decode(p, (z, xbc, dt), cfg, cache_layer, out_dtype)
     else:
-        y = _chunked(p, xbc, dt, cfg, s, u.dtype)
-    y = rmsnorm(y * apply_act(z, "silu"), p["norm"], cfg.norm_eps)
-    return linear(p["out_proj"], y, sparsity=sp, layer_idx=li)
+        y = _chunked(p, xbc, dt, cfg, s, out_dtype)
+    return rmsnorm(y * apply_act(z, "silu"), p["norm"], cfg.norm_eps)
+
+
+_MIXER_LEAVES = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+def _mixer_region(p, zxbcdt, cfg, cache_layer, out_dtype):
+    """:func:`_mixer` on ``DTensor`` operands, as a region on local
+    shards: the batch keeps its shards and every head is whole on each
+    rank (the heads rarely divide the model axis: 24 for mamba2-130m), so
+    the in-projection's output is gathered over the other mesh dims.  The
+    recurrent planes are read at those placements and written back to
+    their own."""
+    mesh = zxbcdt.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in zxbcdt.placements]
+    whole = [Replicate()] * mesh.ndim
+    split = context.split_dims(rows)
+    p_loc = {k: context.local_shard(p[k], mesh, whole, split) for k in _MIXER_LEAVES}
+    p_loc["norm"] = {"scale": context.local_shard(p["norm"]["scale"], mesh, whole, split)}
+    c_loc = None
+    if cache_layer is not None:
+        c_loc = {n: context.local_shard(cache_layer[n], mesh, rows) for n in ("state", "conv")}
+    y = _mixer(p_loc, context.local_shard(zxbcdt, mesh, rows), cfg, c_loc, out_dtype)
+    if cache_layer is not None:
+        for n, plane in cache_layer.items():
+            if list(plane.placements) != rows:  # written to a gathered copy: write it back
+                back = context.from_local(c_loc[n], mesh, rows, plane.shape)
+                plane.to_local().copy_(back.redistribute(mesh, plane.placements).to_local())
+    return context.from_local(y, mesh, rows, zxbcdt.shape[:2] + y.shape[2:])

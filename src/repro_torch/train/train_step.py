@@ -14,9 +14,11 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import tree
 from repro_torch.models import encdec, lm
+from repro_torch.sharding import context
 from repro_torch.train import compression, optimizer
 
 
@@ -41,6 +43,12 @@ def loss_fn(params, batch, cfg):
                                        device=labels.device), labels], dim=1)
     valid = labels >= 0
     safe = torch.clamp_min(labels, 0).long()
+    if isinstance(logits, DTensor):
+        logz, gold, hit = _vocab_parallel_terms(logits, safe, cfg.vocab)
+        n_valid = torch.clamp_min(valid.sum().float(), 1.0)
+        ce = torch.sum(torch.where(valid, logz - gold, 0.0)) / n_valid
+        acc = torch.sum(torch.where(valid, hit, 0.0)) / n_valid
+        return ce + aux, {"ce": ce, "aux": aux, "acc": acc}
     logits_f = logits.float()
     if logits.shape[-1] != cfg.vocab:  # mask the vocab padding
         vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
@@ -52,6 +60,47 @@ def loss_fn(params, batch, cfg):
     hit = (torch.argmax(logits_f, dim=-1) == safe).float()
     acc = torch.sum(torch.where(valid, hit, 0.0)) / n_valid
     return ce + aux, {"ce": ce, "aux": aux, "acc": acc}
+
+
+def _vocab_parallel_terms(logits, labels, vocab: int):
+    """``(logsumexp, gold logit, argmax == label)`` per token of ``DTensor``
+    logits ``[B, S, V_padded]``, as a region on the local vocabulary
+    shards (the vocabulary-parallel cross entropy): each rank reduces its
+    own columns, and the max, the sums and the first arg-max index are
+    combined over the vocabulary's mesh dims (``Partial`` max, sum, min);
+    nothing of ``[B, S, V]`` moves.  The same values as the plain path
+    (padded columns at -1e30, arg-max ties to the lower index)."""
+    mesh = logits.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in logits.placements]
+    lead = [p if p == Shard(0) else Replicate() for p in pl]
+    lg = context.local_shard(logits, mesh, pl).float()
+    lab = context.local_shard(labels, mesh, lead)
+    v_l = lg.shape[-1]
+    shard = 0  # this rank's index along the vocabulary's mesh dims
+    for m, p in enumerate(pl):
+        if p == Shard(2):
+            shard = shard * mesh.size(m) + mesh.get_local_rank(m)
+    ids = torch.arange(v_l, device=lg.device) + shard * v_l
+    lg = torch.where(ids < vocab, lg, -1e30)
+
+    def combine(t, op):
+        red = [Partial(op) if p == Shard(2) else p for p in pl]
+        return context.from_local(t, mesh, red, logits.shape[:2]).redistribute(
+            mesh, lead).to_local()
+
+    lmax, lidx = lg.max(dim=-1)
+    # the shift: logsumexp does not depend on it, and each rank would see
+    # only its own columns' part of its gradient
+    m = combine(lmax.detach(), "max")
+    logz = m + torch.log(combine(torch.exp(lg - m[..., None]).sum(dim=-1), "sum"))
+    local = (lab >= ids[0]) & (lab < ids[0] + v_l)
+    idx = torch.clamp(lab - ids[0], 0, v_l - 1)
+    gold = combine(torch.where(local, torch.gather(lg, -1, idx[..., None])[..., 0], 0.0), "sum")
+    first = combine(torch.where(lmax == m, lidx + ids[0], torch.iinfo(torch.int64).max), "min")
+    hit = (first == lab).float()
+    shape = logits.shape[:2]
+    return tuple(context.from_local(t, mesh, lead, shape) for t in (logz, gold, hit))
 
 
 def _masked(t, masks):

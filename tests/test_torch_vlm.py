@@ -238,9 +238,9 @@ def test_vlm_invariants_byte_exact(weights, wire):
 
 def test_vlm_family_is_served_and_others_raise(weights):
     """``vlm`` is admitted by the model and the engine; ``encdec`` raises,
-    naming what the port still lacks (the dry-run analysis and the
-    examples; distribution and training are ported)."""
+    naming what the port still lacks (the examples and a few public
+    names; distribution, training and the dry-run are ported)."""
     _, tcfg, _, tparams = weights
     tengine.Engine(tparams, tcfg, tengine.ServeConfig(**PACKED), device="cpu")
-    with pytest.raises(NotImplementedError, match="dry-run analysis"):
+    with pytest.raises(NotImplementedError, match="the examples"):
         tlm.init_params(dataclasses.replace(tcfg, family="encdec"), torch.Generator(), "cpu")
