@@ -120,6 +120,17 @@ non-zero and prints no result:
    ``train_4k`` and one ``long_500k`` cell on the multi-pod (2, 16, 16)
    mesh and one ``--packed`` decode cell; the report's tables and the
    phase's wall printed; any failed cell fails the run.
+13. ``phase_examples``: the four ``examples/*_torch.py`` entry points in
+   this process, each driven with the counters at 0 and its launches
+   checked and counted into the record: the paper's Table 3 CNN at its
+   example size (300 base + 3 x 150 fine-tune steps, f32, TF32 off; its
+   first 5 steps of each fine-tune mode held against the CPU's, its rows
+   printed beside the CPU port's; #5's dense form at its rows, K = 8 and
+   16, NNZ 4 and 2, bit for bit and timed), quickstart at full size (#1
+   against ``kernels/ref.py``), serve_packed (packed == dense, int8-KV
+   batched == stepped, KV bytes on meta tensors) and train_e2e at its
+   ~110M-parameter default for 60 of its 300 steps (``E2E_STEPS``: the
+   phase stays under 90 s), checkpoint and resume.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -184,7 +195,12 @@ DAP_WIDTHS = (
     (24576, "starcoder2 down input", ("dap_pack",)),
     (29568, "qwen2-vl down input", ("dap_pack_int8",)),
     (49152, "qwen1.5-110b down input", ("dap_pack_int8",)),
+    (8, "CNN input (examples/cnn_dap_finetune_torch.py), f32", ("dap_prune",)),
+    (16, "CNN after pool 1, f32", ("dap_prune",)),
 )
+# the CNN's widths: held at NNZ 4 and 2 (its fine-tunes and its 2/8 row),
+# timed at its own rows in phase_examples (CNN_DAP), not at M = 4 and 64
+CNN_WIDTHS = {8: (4, 2), 16: (4, 2)}
 # the widths whose forms are also held at a long M, rows bitwise equal to M =
 # 4's: {K: (M, forms)}: the per-row forms at a solo prefill's 512 rows (K =
 # 49152 takes two blocks a row), whisper's encoder forms at its 6000 rows
@@ -1155,7 +1171,9 @@ def phase_dap_prune(torch, run_ms, qwen):
     at M = 512, whisper's encoder forms at its 6000 rows), with a NaN
     block, +-inf, ties and -0.0 planted; timed in bf16 at M = 4 and 64
     beside the plain version and the bytes bound (no library call
-    computes DAP: ``torch.topk`` breaks ties in no fixed order).  dense_int8 is also timed beside the chain it replaces on
+    computes DAP: ``torch.topk`` breaks ties in no fixed order); the
+    CNN's widths (K = 8 and 16, ``CNN_WIDTHS``) held at NNZ 4 and 2 and
+    timed in ``phase_examples``.  dense_int8 is also timed beside the chain it replaces on
     granite's wo (#5's dense form, then the plain per-row quantize).  The
     record holds one form's pass (``DAP_RECORD``), ``qwen`` qwen2-vl-72b's
     int8 forms' pass."""
@@ -1172,26 +1190,31 @@ def phase_dap_prune(torch, run_ms, qwen):
             long_m, long_forms = DAP_LONG_ROWS.get(k, (None, ()))
             if name in long_forms:
                 rows += (long_m,)
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype, nnz in [(d, n) for d in (torch.bfloat16, torch.float32)
+                               for n in CNN_WIDTHS.get(k, (4,))]:
                 x = dap_inputs(torch, gen, rows[-1], k, dtype)
-                full = kern(x, 4)
+                full = kern(x, nnz)
                 err = 0.0  # over the finite entries of every output (codes and scales too)
                 for m in rows:
-                    got, want = kern(x[:m], 4), plain(x[:m], 4)
+                    got, want = kern(x[:m], nnz), plain(x[:m], nnz)
                     for i, (g, w) in enumerate(zip(got, want)):
                         v = view.get(g.dtype, g.dtype)
                         check(g.dtype == w.dtype and g.shape == w.shape
                               and torch.equal(g.view(v), w.view(v)),
-                              f"{name} K={k} M={m} {dtype} output {i}: differs from its plain "
-                              f"version")
+                              f"{name} K={k} M={m} {dtype} NNZ {nnz} output {i}: differs from "
+                              f"its plain version")
                         check(torch.equal(g.view(v), full[i][:m].view(v)),
-                              f"{name} K={k} M={m} {dtype} output {i}: a row's bits depend on M")
+                              f"{name} K={k} M={m} {dtype} NNZ {nnz} output {i}: a row's bits "
+                              f"depend on M")
                         gf, wf = g.float(), w.float()
                         diff = (gf - wf)[torch.isfinite(gf) & torch.isfinite(wf)]
                         if diff.numel():
                             err = max(err, diff.abs().max().item())
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-                if dtype != torch.bfloat16:
+                if k in CNN_WIDTHS:
+                    say(f"kernel {name} K={k} ({what}) {dtype} NNZ {nnz}: bit-exact at M="
+                        f"{', '.join(str(r) for r in rows)}, NaN, +-inf, ties and -0.0 planted")
+                if dtype != torch.bfloat16 or k in CNN_WIDTHS:
                     continue
                 for m in (4, 64):
                     xm = x[:m]
@@ -1277,13 +1300,7 @@ def phase_main_path(torch, np, arch, wire, kv_dtype, n_layers=None):
     params = lm.init_params(cfg, gen, "cuda", wire_dtype=wire)
     torch.cuda.synchronize()
 
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(nbytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-
+    nbytes = paged_cache.cache_nbytes  # bytes of any nest of tensors
     say(f"main path {arch}: init_params {time.perf_counter() - t0:.1f} s, "
         f"{depth}, {wire} DBB wire, {kv_dtype} KV, layer and head weights "
         f"{nbytes(params['layers']) + nbytes(params['lm_head'])} B, embedding "
@@ -2266,7 +2283,8 @@ def ste_phase(torch, run_ms, gen, launches_per_step):
     part-zero blocks, -0.0, ties and a NaN block; #5's dense form timed at
     that shape beside its plain version, its bytes bound, and the STE
     backward's plain ms.  Returns the record's ``"train"`` entry."""
-    from repro_torch.core import dap, dbb
+    from repro_torch.core import dbb
+    from repro_torch.core.dap import DAPSTE, selection_mask
     from repro_torch.kernels import dap_prune, ref
 
     m, k = TRAIN_B * TRAIN_S, 1024
@@ -2277,7 +2295,7 @@ def ste_phase(torch, run_ms, gen, launches_per_step):
     x = x.to(torch.bfloat16)
     g = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     xa = x.clone().requires_grad_(True)
-    y = dap.DAPSTE.apply(xa, 4, 8)
+    y = DAPSTE.apply(xa, 4, 8)
     y.backward(g)
     cfg = dbb.DBBConfig(4, 8)
     want_y = dbb.prune(x, cfg)
@@ -2292,7 +2310,7 @@ def ste_phase(torch, run_ms, gen, launches_per_step):
     t_k = run_ms(lambda: dap_prune.dap_prune_cuda(xb, 4), iters=15)
     t_p = run_ms(lambda: ref.dap_prune_ref(xb, 4), iters=3)
     gb = g[8:]
-    t_bwd = run_ms(lambda: torch.where(dap.selection_mask(xb, out[0], 4, 8), gb,
+    t_bwd = run_ms(lambda: torch.where(selection_mask(xb, out[0], 4, 8), gb,
                                        torch.zeros_like(gb)), iters=15)
     nbytes = xb.numel() * 2 + sum(t.numel() * t.element_size() for t in out)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2938,6 +2956,210 @@ def phase_dryrun(card):
     return wall
 
 
+# ------------------------------------------------------------ the examples
+
+CNN_STEPS = (300, 150)  # the CNN example's steps_base and steps_ft (its __main__)
+CNN_CHECK_STEPS = 5  # the first fine-tune steps of each mode, card against CPU
+# of each leaf's largest magnitude: cuDNN's and oneDNN's f32 convolutions
+# sum in their own orders (3e-7 of the logits' scale between XLA and oneDNN)
+CNN_TOL = 1e-4
+# #5's dense form at the CNN's two DAP points: (K, what, rows a training
+# step, rows an evaluation batch); one call each a forward
+CNN_DAP = ((8, "CNN input", 128 * 10 * 10, 256 * 10 * 10),
+           (16, "CNN after pool 1", 128 * 5 * 5, 256 * 5 * 5))
+# train_e2e's steps: 60 of its default 300, which took 172.7 s (a host-bound
+# 0.50 s step); at 60 the phase stays under 90 s and the W-DBB masks still
+# reach 4/8 (refreshed every 10 steps up to step 30)
+E2E_STEPS = 60
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (the folder is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cnn_dap_shapes(torch, run_ms, gen):
+    """#5's dense form at the CNN's rows in f32, NNZ 4 and 2: bit for bit
+    against its plain version (NaN, +-inf, ties and -0.0 planted), timed
+    beside it and its bytes bound.  Returns the record's ``"cnn"``
+    entries."""
+    from repro_torch.kernels import dap_prune, ref
+
+    out = []
+    for k, what, m_train, m_eval in CNN_DAP:
+        for m, use in ((m_train, "training step"), (m_eval, "evaluation")):
+            x = dap_inputs(torch, gen, m, k, torch.float32)
+            for nnz in CNN_WIDTHS[k]:
+                got, want = dap_prune.dap_prune_cuda(x, nnz), ref.dap_prune_ref(x, nnz)
+                check(all(torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                                      w.view(torch.int32) if w.dtype == torch.float32 else w)
+                          for g, w in zip(got, want)),
+                      f"dap_prune K={k} M={m} NNZ {nnz} f32: differs from its plain version")
+                t_k = run_ms(lambda: dap_prune.dap_prune_cuda(x, nnz), iters=15)
+                t_p = run_ms(lambda: ref.dap_prune_ref(x, nnz), iters=3)
+                nbytes = x.numel() * 4 + sum(t.numel() * t.element_size() for t in got)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                say(f"kernel dap_prune M={m} K={k} ({what}, a {use}) f32 NNZ {nnz}: kernel_ms "
+                    f"{t_k:.4f} plain_ms {t_p:.3f} library_ms none bound_ms {bound:.5f} (bytes) "
+                    f"bit-exact")
+                out.append(dict(K=k, M=m, nnz=nnz, dtype="float32", use=use, ms=t_k,
+                                plain_ms=t_p, bound_ms=bound, bound_by="bytes", max_abs_err=0.0))
+    return out
+
+
+def cnn_card_vs_cpu(torch, tc, init):
+    """The first ``CNN_CHECK_STEPS`` steps of each fine-tune mode on the
+    card and on the CPU (plain versions) from the same init and batches:
+    the largest parameter difference of each mode over its leaves'
+    largest magnitude, and of the losses, relative."""
+    from repro_torch.data.pipeline import SyntheticVision
+
+    worst = {}
+    for name, wdbb, a_nnz in tc.FINE_TUNES:
+        p_cpu, m_cpu = tc.prepare(init, wdbb)
+        p_card = {k: v.cuda() for k, v in p_cpu.items()}
+        m_card = None if m_cpu is None else {k: v.cuda() for k, v in m_cpu.items()}
+        data = SyntheticVision(tc.N_CLASSES, tc.IMG, batch=128, seed=SEED)
+        loss_err = 0.0
+        for _ in range(CNN_CHECK_STEPS):
+            raw = next(data)
+            p_cpu, ce_cpu, _ = tc.train_step(p_cpu, tc.to_batch(raw, "cpu"), m_cpu, a_nnz)
+            p_card, ce_card, _ = tc.train_step(p_card, tc.to_batch(raw, "cuda"), m_card, a_nnz)
+            loss_err = max(loss_err, abs(float(ce_card) - float(ce_cpu)) / abs(float(ce_cpu)))
+        err = max((p_card[k].cpu() - p_cpu[k]).abs().max().item() / p_cpu[k].abs().max().item()
+                  for k in p_cpu)
+        check(err <= CNN_TOL and loss_err <= CNN_TOL,
+              f"CNN {name}: {CNN_CHECK_STEPS} steps on the card differ from the CPU's by "
+              f"{err:.3g} of a leaf's scale, losses by {loss_err:.3g} (bound {CNN_TOL})")
+        worst[name] = (err, loss_err)
+    return worst
+
+
+def cnn_launches(tc, steps_ft):
+    """#5's launches of one ``run``: two DAP calls a forward (the input
+    and the first pooled map) in the 2/8 evaluation and in the A-DBB and
+    A/W-DBB fine-tunes and their evaluations (the straight-through
+    backward launches nothing); none in the dense and W-DBB rows."""
+    dap_fts = sum(1 for _, _, a_nnz in tc.FINE_TUNES if a_nnz is not None)
+    return {"dap_prune": 2 * (20 * (1 + dap_fts) + steps_ft * dap_fts)}  # 20 batches an evaluation
+
+
+def phase_examples(torch, np, card, launches, stats):
+    """The four examples' entry points in this process on the card, each
+    driven with the launch counters at 0 just before and read just after
+    (no plain version may run), the launches checked and counted into the
+    record: the Table 3 CNN at its example size (its first fine-tune steps
+    held against the CPU's, its rows beside the CPU port's, #5 timed at
+    its rows), quickstart at full size, serve_packed, and train_e2e at its
+    ~110M default for ``E2E_STEPS`` steps (60 of its 300)."""
+    import tempfile
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    tc = load_example("cnn_dap_finetune_torch")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    run_ms = timer(torch, flush)
+    stats["dap_prune"]["cnn"] = cnn_dap_shapes(torch, run_ms,
+                                               torch.Generator(device="cuda").manual_seed(SEED + 9))
+    del flush
+    torch.cuda.empty_cache()
+
+    # the CNN: card against CPU step by step, then the table on both
+    init = tc.init_cnn(torch.Generator().manual_seed(SEED))
+    worst = cnn_card_vs_cpu(torch, tc, init)
+    (rows, derived), counts, _, wall, peak = drive(
+        torch, lambda: tc.run(*CNN_STEPS, SEED, "cuda", params=init))
+    check_launches("examples cnn", counts, cnn_launches(tc, CNN_STEPS[1]), 1)
+    add_launches(launches, counts)
+    check(rows[0]["acc"] > 0.5, f"CNN: the baseline did not learn: {rows}")
+    t0 = time.perf_counter()
+    cpu_rows, cpu_derived = tc.run(*CNN_STEPS, SEED, "cpu", params=init)
+    t_cpu = time.perf_counter() - t0
+    # steady fine-tune steps a second on the card (A/W-DBB, DAP and masks)
+    from repro_torch.data.pipeline import SyntheticVision
+
+    p, masks = tc.prepare({k: v.cuda() for k, v in init.items()}, True)
+    data = SyntheticVision(tc.N_CLASSES, tc.IMG, batch=128, seed=SEED)
+    p = tc.fit(p, data, 10, masks, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = tc.fit(p, data, CNN_STEPS[1], masks, 4)
+    torch.cuda.synchronize()
+    steps_s = CNN_STEPS[1] / (time.perf_counter() - t0)
+    del p, masks
+    say(f"examples cnn (Table 3, {CNN_STEPS[0]} base + 3 x {CNN_STEPS[1]} fine-tune steps, "
+        f"batch 128 of {tc.IMG}, f32, TF32 off): card wall {wall:.2f} s (peak {peak} B), CPU "
+        f"port wall {t_cpu:.2f} s; first {CNN_CHECK_STEPS} fine-tune steps card vs CPU: "
+        + ", ".join(f"{n} params {e:.3g} losses {le:.3g}" for n, (e, le) in worst.items())
+        + f" (bound {CNN_TOL} of the scale); #5 launches {counts.get('dap_prune', 0)}; A/W-DBB "
+        f"fine-tune {steps_s:.1f} steps/s on the card ({card})")
+    w = max(len(r["config"]) for r in rows)
+    say(f"examples cnn table: {'config':<{w}}  card    CPU port")
+    for r, c in zip(rows, cpu_rows):
+        say(f"examples cnn table: {r['config']:<{w}}  {r['acc']:.4f}  {c['acc']:.4f}")
+    say(f"examples cnn table: joint A/W-DBB vs baseline: card {derived:+.4f}, CPU port "
+        f"{cpu_derived:+.4f} (paper: ~1% loss, recovered by fine-tuning)")
+
+    # quickstart at full size: #5 in section 3 and the awdbb forward, #1 in 4-5
+    qs = load_example("quickstart_torch")
+    cfg_q = configs.get_config("granite_3_8b", smoke=True)
+    logits, counts, _, wall, _ = drive(torch, lambda: qs.main([]))
+    check_launches("examples quickstart", counts,
+                   {"dbb_matmul": 1, "dap_prune": 1 + (4 + 3) * cfg_q.n_layers}, 1)
+    add_launches(launches, counts)
+    say(f"examples quickstart (full size: granite smoke, seq 32): {wall:.2f} s, logits "
+        f"{tuple(logits.shape)} finite, kernel #1 against ref.py, launches {counts} ({card})")
+
+    # serve_packed: #1 on the packed and int8-KV engines, #2 on the int8 wire
+    sp = load_example("serve_packed_torch")
+    cfg_s = configs.get_config("granite_3_8b", smoke=True, sparsity_mode="wdbb")
+    res, counts, passes, wall, _ = drive(torch, lambda: sp.main([]))
+    per_pass = wdbb_launches(cfg_s)["dbb_matmul"]
+    n_new, s0 = 16, 12
+    check_launches("examples serve_packed", counts, {
+        "dbb_matmul": (2 * (1 + n_new) + s0 + n_new) * per_pass,
+        "dbb_matmul_int8": (1 + n_new) * per_pass}, 1)
+    add_launches(launches, counts)
+    kv_f, kv_8 = res["kv_bytes"]
+    say(f"examples serve_packed: {wall:.2f} s over {passes} passes; packed == dense, int8-KV "
+        f"batched == stepped; KV bytes {kv_f} -> {kv_8} (cache_nbytes on meta tensors); "
+        f"launches {counts} ({card})")
+
+    # train_e2e at its default size
+    e2e = load_example("train_e2e_torch")
+    cfg_e, e_batch, e_seq = e2e.model_config(False)
+    with tempfile.TemporaryDirectory(prefix="e2e_") as ckpt_dir:
+        res, counts, _, wall, peak = drive(torch, lambda: e2e.main(
+            ["--steps", str(E2E_STEPS), "--ckpt-dir", ckpt_dir]))
+    check_launches("examples train_e2e", counts, train_launches(cfg_e), E2E_STEPS)
+    add_launches(launches, counts)
+    losses = [h["loss"] for h in res["history"]]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train_e2e: losses {losses[0]} -> {losses[-1]}")
+    check(res["wdbb_ok"] and res["resumed_step"] == E2E_STEPS,
+          f"train_e2e: W-DBB bound {res['wdbb_ok']}, resumed at {res['resumed_step']}")
+    times = [h["step_time"] for h in res["history"]]
+    p50 = statistics.median(times[1:])
+    say(f"examples train_e2e ({cfg_e.n_layers}L d{cfg_e.d_model}, {cfg_e.param_count()} params, "
+        f"f32 awdbb, batch {e_batch} x {e_seq}, {E2E_STEPS} of its 300 steps, W-DBB 4/8 by "
+        f"step {E2E_STEPS // 2}): {wall:.2f} s with two checkpoints and the resume; loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; step p50 {p50:.4f} s "
+        f"({e_batch * e_seq / p50:.1f} tokens/s); peak {peak} B; "
+        f"W-DBB bound on layer 0's up; resumed at step {res['resumed_step']}; #5 launches "
+        f"{counts.get('dap_prune', 0)} ({card})")
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - t_phase
+    say(f"phase_examples: phase wall {t:.1f} s ({card})")
+    return t
+
+
 def say_pass(arch, n_layers, per_kernel):
     """One line: ``arch``'s kernels summed over a mixed-step pass."""
     lib = {"dbb_matmul_aw_int8": "_int_mm", "dbb_matmul_int8": "_int_mm",
@@ -3016,6 +3238,7 @@ def main():
     phase_train(torch, np, card, launches, stats)
     phase_distributed(torch, np, card, launches)
     phase_dryrun(card)
+    phase_examples(torch, np, card, launches, stats)
 
     record = []
     for name, info in KERNELS.items():
@@ -3030,8 +3253,9 @@ def main():
         })
         if name in rec_shapes:
             record[-1]["shapes"] = rec_shapes[name]
-        if "train" in st:
-            record[-1]["train"] = st["train"]
+        for extra in ("train", "cnn"):
+            if extra in st:
+                record[-1][extra] = st[extra]
     say("kernel times above in the record: one mixed-step forward pass (M=64 rows, S=16 "
         "query tokens per request; attention on a mixed step's rows: decode rows and a "
         "chunk tail padded to S), summed over its launches, of granite-3-8b for "
@@ -3039,8 +3263,9 @@ def main():
         "of minicpm3-4b for "
         "dbb_matmul, dbb_matmul_aw, paged_attn_latent and dap_pack, of granite-moe-1b-a400m "
         "for dap_prune; launches summed over the main paths, the serving-mode, spec, "
-        "durability, recurrent and encdec phases; under \"shapes\" the #1-#4 calls at the "
-        "recurrent families' mixer shapes (M=4 and 64)")
+        "durability, recurrent, encdec, train, distributed and examples phases; under "
+        "\"shapes\" the #1-#4 calls at the recurrent families' mixer shapes (M=4 and 64), "
+        "under dap_prune's \"train\" and \"cnn\" its training shape and the CNN's rows")
     say(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f} s, the build included")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 """Where one training step of the PyTorch port spends its time, on the GPU.
 
     python3 scripts/profile_torch_train_step.py [--arch granite_moe_1b_a400m]
-        [--layers N] [--batch 8] [--seq 512] [--iters 3] [--remat full]
+        [--layers N] [--batch 8] [--seq 512] [--iters 3] [--remat full] [--e2e]
 
 Builds the ``Trainer`` of ``chip_smoke.py``'s ``phase_train`` (full width,
 seeded random bf16 weights, the arch's awdbb sparsity with the
@@ -14,7 +14,10 @@ the wall of its parts: the forward and backward (``loss_fn`` and
 profiles one step with ``torch.profiler``: the device time summed over
 kernels, the kernel launches, the device's idle share, and the kernels
 that take the most device time; and times the straight-through backward
-at one DAP site's shape.
+at one DAP site's shape.  ``--e2e`` takes the model, batch and stream of
+``examples/train_e2e_torch.py`` instead (its ~110M-parameter default,
+f32, ``MarkovLM(8192)``, 8 x 256) and also times the steps fed through a
+``Prefetcher``, as the example feeds them.
 """
 
 import argparse
@@ -36,25 +39,39 @@ def main():
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--remat", default=None, choices=("none", "full", "dots"))
+    ap.add_argument("--e2e", action="store_true",
+                    help="examples/train_e2e_torch.py's model, batch and stream instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch import configs
-    from repro_torch.core import dap, dbb, schedule, tree
-    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.core import dbb, schedule, tree
+    from repro_torch.core.dap import selection_mask
+    from repro_torch.data.pipeline import MarkovLM, Prefetcher
     from repro_torch.kernels import native, ops
     from repro_torch.train import optimizer, train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     native.build_all()
-    cfg = configs.get_config(args.arch)
+    vocab = 2048
+    if args.e2e:
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "train_e2e_torch", ROOT / "examples" / "train_e2e_torch.py")
+        e2e = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(e2e)
+        cfg, args.batch, args.seq = e2e.model_config(False)
+        args.arch, vocab = "train_e2e", cfg.vocab
+    else:
+        cfg = configs.get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.remat is not None:
         cfg = dataclasses.replace(cfg, remat=args.remat)
-    data = MarkovLM(2048, args.batch, args.seq, seed=0)
+    data = MarkovLM(vocab, args.batch, args.seq, seed=0)
     sched = schedule.WDBBSchedule(dbb.DBBConfig(4, 8), begin_step=0, end_step=1, update_every=1)
     tr = Trainer(cfg, optimizer.OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100),
                  TrainerConfig(log_every=0, wdbb=sched), data,
@@ -69,6 +86,16 @@ def main():
     tok = args.batch * args.seq
     print(f"{args.arch} ({cfg.n_layers} layers, remat {cfg.remat}, batch {args.batch} x "
           f"{args.seq}) on {card}: wall {wall * 1e3:.1f} ms/step, {tok / wall:.1f} tokens/s")
+    if args.e2e:  # the same steps, the batches drawn by a Prefetcher's thread
+        tr.data = Prefetcher(MarkovLM(vocab, args.batch, args.seq, seed=1))
+        try:
+            hist = tr.run(args.iters + 1)[1:]
+        finally:
+            tr.data.close()
+            tr.data = data
+        steps = sorted(h["step_time"] for h in hist)
+        print(f"through a Prefetcher: step time (the step alone, synchronized) median "
+              f"{steps[len(steps) // 2] * 1e3:.1f} ms, min {steps[0] * 1e3:.1f} ms")
 
     # the step's parts, each synchronized
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
@@ -118,9 +145,9 @@ def main():
     g = torch.randn_like(x)
     pruned = ops.dap_prune(x, 4, 8)[0]
     for _ in range(3):
-        torch.where(dap.selection_mask(x, pruned, 4, 8), g, torch.zeros_like(g))
+        torch.where(selection_mask(x, pruned, 4, 8), g, torch.zeros_like(g))
     with torch.profiler.profile(activities=acts) as prof:
-        torch.where(dap.selection_mask(x, pruned, 4, 8), g, torch.zeros_like(g))
+        torch.where(selection_mask(x, pruned, 4, 8), g, torch.zeros_like(g))
         torch.cuda.synchronize()
     ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     print(f"STE backward at [{tok}, {cfg.d_model}] bf16: {len(ks)} kernels, "

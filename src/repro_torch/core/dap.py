@@ -15,7 +15,6 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.core import dbb
-from repro_torch.kernels import ops
 from repro_torch.sharding import context
 
 HW_MAX_STAGES = 5  # paper §6.2: "We cap the maxpool stages at 5"
@@ -65,6 +64,15 @@ def selection_mask(a: torch.Tensor, pruned: torch.Tensor, nnz: int, bz: int) -> 
     return dbb._from_blocks(kept | fill)
 
 
+def _dap_prune(a: torch.Tensor, nnz: int, bz: int) -> torch.Tensor:
+    """``ops.dap_prune``'s pruned tensor.  ``kernels`` imports ``core``,
+    so ``kernels.ops`` is imported at the call, not with this module:
+    then ``core`` and every ``kernels`` module may be imported first."""
+    from repro_torch.kernels import ops
+
+    return ops.dap_prune(a, nnz, bz)[0]
+
+
 class DAPSTE(torch.autograd.Function):
     """DAP with the straight-through gradient.  Forward: exactly
     ``ops.dap_prune`` (kernel #5's dense form on CUDA, its plain version
@@ -76,7 +84,7 @@ class DAPSTE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, nnz: int, bz: int):
-        pruned = ops.dap_prune(a, nnz, bz)[0]
+        pruned = _dap_prune(a, nnz, bz)
         ctx.save_for_backward(a, pruned)
         ctx.nnz, ctx.bz = nnz, bz
         return pruned
@@ -92,12 +100,20 @@ class DAPSTE(torch.autograd.Function):
         return torch.where(sel, g, torch.zeros_like(g)), None, None
 
 
-def apply_dap(a: torch.Tensor, spec: DAPSpec | None) -> torch.Tensor:
-    """Top-NNZ-per-block pruning (``ops.dap_prune``, pruned tensor only),
-    through :class:`DAPSTE` when a gradient is wanted; identity when
-    ``spec`` is None or dense."""
-    if spec is None or spec.is_dense:
+def dap(a: torch.Tensor, nnz: int, bz: int = dbb.DEFAULT_BZ) -> torch.Tensor:
+    """Top-NNZ-per-block pruning along the last axis (``ops.dap_prune``,
+    pruned tensor only), through :class:`DAPSTE` when a gradient is
+    wanted: the reference's ``custom_vjp`` as one function.  Identity at
+    ``nnz == bz``."""
+    if nnz == bz:
         return a
     if torch.is_grad_enabled() and a.requires_grad:
-        return DAPSTE.apply(a, spec.nnz, spec.bz)
-    return ops.dap_prune(a, spec.nnz, spec.bz)[0]
+        return DAPSTE.apply(a, nnz, bz)
+    return _dap_prune(a, nnz, bz)
+
+
+def apply_dap(a: torch.Tensor, spec: DAPSpec | None) -> torch.Tensor:
+    """:func:`dap` at ``spec``; identity when ``spec`` is None or dense."""
+    if spec is None or spec.is_dense:
+        return a
+    return dap(a, spec.nnz, spec.bz)

@@ -78,6 +78,68 @@ def prune(x: torch.Tensor, cfg: DBBConfig) -> torch.Tensor:
     return torch.where(topk_block_mask(x, cfg), x, torch.zeros_like(x))
 
 
+@dataclasses.dataclass
+class PackedDBB:
+    """A compressed DBB tensor: values and per-block positions.
+
+    ``values [..., K//bz, nnz]`` in the dense tensor's dtype; ``indices
+    [..., K//bz, nnz]`` int8, the position of each value in its block:
+    always ``nnz`` *distinct* positions, the kept ones first in ascending
+    order, then unused positions holding 0 (paper §3.1).  ``k`` is the
+    dense extent of the last axis."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    cfg: DBBConfig
+    k: int
+
+    @property
+    def bitmask(self) -> torch.Tensor:
+        """The paper's bitmask ``M``: uint8 a block, bit ``b`` set when
+        position ``b`` holds a non-zero value."""
+        pos = torch.arange(self.cfg.bz, dtype=torch.int32, device=self.values.device)
+        onehot = (self.indices[..., None].to(torch.int32) == pos) & (self.values != 0)[..., None]
+        bits = onehot.any(dim=-2)  # [..., nblk, BZ]
+        return (bits.to(torch.int32) * (2 ** pos)).sum(dim=-1).to(torch.uint8)
+
+    def compression_ratio(self) -> float:
+        """Bytes of the dense block over the packed one (an int8 index a
+        kept value)."""
+        b = self.values.element_size()
+        return self.cfg.bz * b / (self.cfg.nnz * (b + 1))
+
+
+def pack(x: torch.Tensor, cfg: DBBConfig, assume_pruned: bool = False) -> PackedDBB:
+    """Dense -> :class:`PackedDBB`, Top-NNZ pruned first unless
+    ``assume_pruned`` (then the non-zeros are kept, in position order).
+    Exact when every block obeys the bound, as :func:`prune` makes it."""
+    xb = _to_blocks(x, cfg.bz)
+    pos = torch.arange(cfg.bz, device=x.device)
+    keep = xb != 0 if assume_pruned else _to_blocks(topk_block_mask(x, cfg), cfg.bz)
+    # kept positions first, ascending, then the rest; the keys are distinct
+    key = (~keep).to(torch.int64) * cfg.bz + pos
+    order = torch.argsort(key, dim=-1)[..., : cfg.nnz]
+    vals = torch.gather(xb, -1, order)
+    if not assume_pruned:
+        vals = torch.where(torch.gather(keep, -1, order), vals, torch.zeros_like(vals))
+    return PackedDBB(values=vals, indices=order.to(torch.int8), cfg=cfg, k=x.shape[-1])
+
+
+def unpack(p: PackedDBB) -> torch.Tensor:
+    """:class:`PackedDBB` -> dense, the inverse of :func:`pack` on
+    DBB-compliant tensors: a one-hot sum in float32 as the reference does
+    (the DP4M8 mux, paper Fig. 6c); the positions are distinct, so one
+    term a position is non-zero and the sum is exact.  Zeros keep XLA's
+    signs: its reduce starts from +0.0, as torch's sum does, except over
+    one term (NNZ 1), which it copies (a -0.0 term stays -0.0)."""
+    pos = torch.arange(p.cfg.bz, dtype=torch.int32, device=p.values.device)
+    onehot = p.indices[..., None].to(torch.int32) == pos  # [..., nblk, NNZ, BZ]
+    terms = p.values[..., None].float() * onehot.float()
+    out_b = terms[..., 0, :] if p.cfg.nnz == 1 else terms.sum(dim=-2)
+    out_b = out_b.to(p.values.dtype)
+    return _from_blocks(out_b)
+
+
 def pack_bitmask(x: torch.Tensor, cfg: DBBConfig):
     """Dense -> ``(values [..., K//bz, nnz], bitmask [..., K//bz] uint8)``
     in rank order.  Zeros are never kept: they take no value slot and no
@@ -123,6 +185,16 @@ def pack_bitmask_int8(x: torch.Tensor, cfg: DBBConfig, scale_axis=None):
     vals, bitmask = pack_bitmask(x, cfg)
     q, scale = quant.quantize(vals, axis=scale_axis)
     return q, bitmask, scale
+
+
+def expand_bitmask_int8(values: torch.Tensor, bitmask: torch.Tensor, scale: torch.Tensor,
+                        cfg: DBBConfig, scale_axis=None, dtype=torch.float32) -> torch.Tensor:
+    """``(int8 values, bitmask, scale) -> dense``: the inverse of
+    :func:`pack_bitmask_int8` up to the quantization grid."""
+    from repro_torch.core import quant
+
+    deq = quant.dequantize(values, scale, axis=scale_axis)
+    return expand_bitmask(deq, bitmask, cfg).to(dtype)
 
 
 def block_density(x: torch.Tensor, bz: int = DEFAULT_BZ) -> torch.Tensor:

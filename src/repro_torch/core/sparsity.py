@@ -42,6 +42,13 @@ class SparsityConfig:
         if self.paged_attn not in ("auto", "gather", "fused"):
             raise ValueError(f"unknown paged_attn {self.paged_attn!r}; auto|gather|fused")
 
+    @property
+    def w_cfg(self) -> Optional[dbb.DBBConfig]:
+        """The weight bound under ``wdbb`` and ``awdbb``, else None."""
+        if self.mode in ("wdbb", "awdbb"):
+            return dbb.DBBConfig(self.w_nnz, self.bz)
+        return None
+
     def a_spec(self, layer_idx: int | None = None) -> Optional[DAPSpec]:
         """The DAP spec of layer ``layer_idx``.  The paged layer loop
         passes ``None`` (as the reference's layer scan does), so every
@@ -68,4 +75,5 @@ class SparsityConfig:
 
 
 DENSE = SparsityConfig(mode="dense")
+WDBB_4_8 = SparsityConfig(mode="wdbb", w_nnz=4)
 AWDBB_4_8 = SparsityConfig(mode="awdbb", w_nnz=4, a_nnz=4)

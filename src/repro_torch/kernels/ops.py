@@ -262,5 +262,8 @@ def expand_act(vals: torch.Tensor, mask: torch.Tensor, cfg: dbb.DBBConfig) -> to
     return ref.decode_a(vals, mask, cfg)
 
 
+# the packers, so users need only ``repro_torch.kernels.ops``
 pack_weight = ref.pack_weight_for_kernel
+pack_act = ref.pack_act_for_kernel
 pack_weight_int8 = ref.pack_weight_int8
+quantize_act = ref.quantize_act_int8

@@ -127,6 +127,11 @@ def pack_weight_for_kernel(w: torch.Tensor, cfg: dbb.DBBConfig):
     return torch.movedim(vals, 0, -1).contiguous(), torch.movedim(mask, 0, -1).contiguous()
 
 
+def pack_act_for_kernel(x: torch.Tensor, cfg: dbb.DBBConfig):
+    """Dense ``x [..., K]`` -> ``(x_vals [..., K//BZ, NNZ], x_mask [..., K//BZ])``."""
+    return dbb.pack_bitmask(x, cfg)
+
+
 def pack_weight_int8(w: torch.Tensor, cfg: dbb.DBBConfig):
     """Dense ``w [K, N]`` -> ``(w_vals [K//BZ, NNZ, N] int8, w_mask
     [K//BZ, N] uint8, w_scale [N] f32)`` with per-output-channel scales."""

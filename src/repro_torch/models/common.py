@@ -431,6 +431,10 @@ def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "native"):
     return out
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
 def mlp_forward(p, x: ActOrPacked, *, act: str, sparsity=None, layer_idx=None):
     """Gated (swiglu) or plain (gelu) MLP: the input is DAP-packed once for
     gate+up, the activation fuses into the matmul epilogue, and the hidden

@@ -62,10 +62,7 @@ def _check_family(cfg) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
             "family 'encdec' is not served by the decoder-only LM: drive it through "
-            "repro_torch.models.encdec (encode, forward, decode_step); what the port "
-            "still lacks is the examples (examples/*) and a few public names of the "
-            "reference (core.dbb.pack/unpack, core.dap.dap, Scheduler.cancel, "
-            "paged_cache.cache_nbytes)"
+            "repro_torch.models.encdec (encode, forward, decode_step)"
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported: the reference has no such family "

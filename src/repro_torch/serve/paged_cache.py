@@ -72,6 +72,10 @@ class PageAllocator:
     def page_table(self, rid) -> Tuple[int, ...]:
         return tuple(self._tables[rid])
 
+    def n_slots(self, rid) -> int:
+        """Logical capacity currently backed by pages."""
+        return len(self._tables[rid]) * self.page_size
+
     def refcount(self, page: int) -> int:
         return self._refs.get(page, 0)
 
@@ -365,3 +369,13 @@ def make_paged_cache(cfg, n_pages: int, page_size: int, device):
     if v_int8:
         cache["v_scale"] = torch.ones(k_shape[:3], dtype=torch.float32, device=device)
     return cache
+
+
+def cache_nbytes(cache) -> int:
+    """Total bytes of a cache's tensors (a ring or paged cache, or any
+    nest of dicts and lists of them).  Reads shapes and dtypes only, so a
+    full-size cache made on the ``meta`` device is measured without
+    allocating it."""
+    from repro_torch.core import tree
+
+    return sum(t.numel() * t.element_size() for t in tree.leaves(cache))

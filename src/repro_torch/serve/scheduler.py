@@ -365,6 +365,16 @@ class Scheduler:
             req.t_enqueue = time.monotonic()
         self.pending.append(req)
 
+    def cancel(self, rid: int) -> bool:
+        """Request cancellation of ``rid`` (pending, queued, or running).
+        Takes effect at the next reap; returns False for unknown/finished
+        rids."""
+        for req in self.pending + self.queue + [r for r in self.slots if r is not None]:
+            if req.rid == rid:
+                req.cancelled = True
+                return True
+        return False
+
     def has_work(self) -> bool:
         return (
             any(r is not None for r in self.slots)

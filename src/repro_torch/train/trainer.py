@@ -45,8 +45,8 @@ def resolve_device(device) -> torch.device:
     """``device``, or ``"cuda"`` when None; raises without a card."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU "
-                               "with the kernels' plain versions")
+            raise RuntimeError("no CUDA device; pass device='cpu' (--device cpu) to run on "
+                               "the CPU with the kernels' plain versions")
         device = "cuda"
     return torch.device(device)
 

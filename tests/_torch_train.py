@@ -5,6 +5,7 @@ both sides (to name a site whose Top-NNZ selection differs)."""
 
 import dataclasses
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,6 @@ from repro.models import moe as jmoe
 from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import dap as tdap
 from repro_torch.core import tree
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
@@ -29,6 +29,9 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 
 from _torch_parity import leaves, nonzero_biases, small_cfgs, to_np
+
+# the module: ``repro_torch.core.dap`` is the function, as in the reference
+tdap = importlib.import_module("repro_torch.core.dap")
 
 
 def np_tree(t):

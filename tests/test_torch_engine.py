@@ -139,7 +139,7 @@ def test_lifted_limits_serve(weights, name, tmp_path):
 
 def test_non_dense_family_and_sampling_raise(weights):
     """``encdec`` raises (whisper runs through ``models/encdec.py``, not the
-    engine), naming what the port lacks; sampled decoding is ported, so a
+    engine); sampled decoding is ported, so a
     sampling temperature constructs."""
     _, tcfg, _, tparams = weights
     with pytest.raises(NotImplementedError, match="family 'encdec' is not served"):

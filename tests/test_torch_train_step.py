@@ -35,7 +35,6 @@ from repro.core import dbb as jdbb
 from repro.core import schedule as jschedule
 from repro.train import optimizer as jopt
 from repro.train import train_step as jts
-from repro_torch.core import dap as tdap
 from repro_torch.core import dbb as tdbb
 from repro_torch.core import schedule as tschedule
 from repro_torch.core import tree
@@ -57,8 +56,11 @@ from _torch_train import (
     tbatch,
 )
 
-# ``repro.core`` re-exports the function ``dap``, which shadows its module
+# the modules: ``core.dap`` is the function, as in the reference
+tdap = importlib.import_module("repro_torch.core.dap")
 jdap = importlib.import_module("repro.core.dap")
+
+# ``repro.core`` re-exports the function ``dap``, which shadows its module
 
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 

@@ -238,9 +238,8 @@ def test_vlm_invariants_byte_exact(weights, wire):
 
 def test_vlm_family_is_served_and_others_raise(weights):
     """``vlm`` is admitted by the model and the engine; ``encdec`` raises,
-    naming what the port still lacks (the examples and a few public
-    names; distribution, training and the dry-run are ported)."""
+    pointing to ``models/encdec.py``, which drives it."""
     _, tcfg, _, tparams = weights
     tengine.Engine(tparams, tcfg, tengine.ServeConfig(**PACKED), device="cpu")
-    with pytest.raises(NotImplementedError, match="the examples"):
+    with pytest.raises(NotImplementedError, match="repro_torch.models.encdec"):
         tlm.init_params(dataclasses.replace(tcfg, family="encdec"), torch.Generator(), "cpu")
