@@ -17,6 +17,15 @@ import torch.nn.functional as F
 ACTIVATIONS = (None, "relu", "silu", "gelu")
 
 
+def sigmoid(y: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-y))``, each operation rounded to ``y``'s dtype: the
+    reference's logistic as it lowers (negate, exp, add, divide), which in
+    bf16 rounds after every step (``torch.sigmoid`` rounds once, one bf16
+    ulp apart on about half the values); the CUDA epilogues compute it in
+    this order too.  Four launches on the card (``torch.sigmoid``: one)."""
+    return torch.reciprocal(torch.exp(-y) + 1.0)
+
+
 def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     """A named activation, dtype-preserving (gelu is the tanh form)."""
     if act is None:
@@ -24,7 +33,7 @@ def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "relu":
         return torch.clamp_min(y, 0.0)
     if act == "silu":
-        return y * torch.sigmoid(y)
+        return y * sigmoid(y)
     if act == "gelu":
         return F.gelu(y, approximate="tanh")
     raise ValueError(f"unknown epilogue activation {act!r}; one of {ACTIVATIONS}")

@@ -48,10 +48,25 @@ def make_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fal
     scale rule; its random stream is JAX's and cannot be reproduced)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
-    params = {"w": (w * scale).to(dtype)}
+    params = {"w": w.mul_(scale).to(dtype)}
     if bias:
         params["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return params
+
+
+def make_linear_by_columns(gen: torch.Generator, d_in: int, d_out: int, *,
+                           dtype=torch.bfloat16, device="cuda"):
+    """:func:`make_linear`'s seeded weight (no bias), drawn in f32 a slice
+    of output columns at a time (the packers' slices, ``_column_slices``)
+    into the one ``dtype`` weight, so the whole f32 weight never exists (a
+    152064-column head at d 8192 is 4.98 GB in f32, 2.49 GB in bf16).  A
+    weight of one slice is :func:`make_linear`'s draw; a wider one draws
+    another stream."""
+    w = torch.empty((d_in, d_out), dtype=dtype, device=device)
+    for cols in _column_slices(d_in, d_out):
+        w[:, cols] = make_linear(gen, d_in, cols.stop - cols.start, dtype=dtype,
+                                 device=device)["w"]
+    return {"w": w}
 
 
 def linear_specs(spec: P = P(DATA, MODEL), *, bias: bool = False) -> dict:
@@ -402,14 +417,21 @@ def _linear_region(p, x: ActOrPacked, *, act=None, **kw) -> torch.Tensor:
 _PACK_ELEMS = 1 << 27
 
 
+def _column_slices(d_in: int, d_out: int):
+    """A ``[d_in, d_out]`` weight's output columns, ``_PACK_ELEMS``
+    elements a slice at most."""
+    step = max(1, _PACK_ELEMS // d_in)
+    return [slice(j, min(j + step, d_out)) for j in range(0, d_out, step)]
+
+
 def _pack_by_columns(pack, w: torch.Tensor, cfg):
     """``pack(w, cfg)`` over slices of ``w``'s output columns, joined: a
     packer works column by column (8-blocks run along K, scales are per
     output channel), so the bytes are those of one call on all of ``w``."""
-    step = max(1, _PACK_ELEMS // w.shape[0])
-    if w.shape[1] <= step:
+    slices = _column_slices(*w.shape)
+    if len(slices) == 1:
         return pack(w, cfg)
-    parts = [pack(w[:, j:j + step], cfg) for j in range(0, w.shape[1], step)]
+    parts = [pack(w[:, cols], cfg) for cols in slices]
     return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
@@ -432,7 +454,7 @@ def pack_linear_params(p, sp: SparsityConfig, wire_dtype: str = "native"):
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    return epilogue.apply_act(x, "silu")
 
 
 def mlp_forward(p, x: ActOrPacked, *, act: str, sparsity=None, layer_idx=None):

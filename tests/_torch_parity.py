@@ -116,6 +116,32 @@ def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def reference_tree(tparams):
+    """The port's parameter tree (raw or wire-packed) -> the reference's,
+    numpy leaves, bit for bit: the inverse of ``params_from_numpy``, the
+    per-layer list stacked back into ``[L, ...]`` leaves (bfloat16 as
+    ml_dtypes arrays through a ``uint16`` view)."""
+    import ml_dtypes
+
+    def leaf(t):
+        if t.dtype == torch.bfloat16:
+            return to_np(t.view(torch.uint16)).view(ml_dtypes.bfloat16)
+        return to_np(t)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return leaf(t)
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([layer[k] for layer in layers]) for k in first}
+        return np.stack([leaf(t) for t in layers])
+
+    return {k: stack(v) if isinstance(v, list) else walk(v) for k, v in tparams.items()}
+
+
 def leaves(tree, prefix=""):
     """``(path, leaf)`` pairs of a parameter tree of dicts and lists."""
     if isinstance(tree, dict):

@@ -17,7 +17,11 @@ kernel-vs-oracle bound, on every row (rows with no valid key included),
 and in bf16 (the tensor-core kernel) to 1.6e-2 absolute, two bf16 ulps
 at 1, as ``chip_smoke.py`` holds it: the sums run in another order than
 the plain version's, which can straddle a bf16 rounding of a probability
-or of the output; DAP (#5) is selection and is held bit for bit."""
+or of the output; DAP (#5) is selection and is held bit for bit.  The
+bf16 gate's card twin holds whole teacher-forced model steps under DAP
+to the CPU port's own bf16-vs-f32 gap (``tests/test_torch_bf16_gate.py``'s
+bound, with the CPU port in the reference's place) and to 0.125, twice
+the largest error its sound runs measure."""
 
 import functools
 import importlib.util
@@ -1230,6 +1234,135 @@ def test_engine_serves_new_archs_bf16(cuda, monkeypatch, arch, wire):
         else:
             again = eng.generate_requests([prompts[2]], 6)[0]
             np.testing.assert_array_equal(again, outs["cuda"][2])
+
+
+# ------------------------------------------------- the bf16 gate's card twin
+
+# the smoke configs at 2 layers in bf16, widened where a call would miss
+# its tc body (int8: K % 128, N % 16): qwen1.5's down (K = d_ff) and
+# minicpm3's q_up (K = q_lora), kv_down (N = kv_lora + rope) and wo (K =
+# H * v_head); starcoder2's window bites in the gate's prompts
+GATE_TWIN_OVERRIDES = {"qwen1_5_110b": dict(d_ff=384), "starcoder2_15b": dict(sliding_window=6)}
+GATE_TWIN_MLA = dict(q_lora_rank=128, kv_lora_rank=24, v_head_dim=32)
+GATE_DROPPING = 0.3  # granite-moe's capacity factor at which these steps drop pairs
+# the card's logits against the CPU port's: sound runs are bit for bit in 14
+# of the 20 cases and within 0.0606 in the rest; this is twice that, 8 bf16
+# ulps at the logits' 2-4, where the fault the CPU gate found (the silu's
+# rounding) moved them by 1.69-2.14
+GATE_TWIN_TOL = 0.125
+
+
+def _gate_twin_cfg(arch, capacity_factor=None):
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch, smoke=True)
+    kw = dict(GATE_TWIN_OVERRIDES.get(arch, {}))
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(cfg.mla, **GATE_TWIN_MLA)
+    if capacity_factor is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=capacity_factor)
+    return dataclasses.replace(cfg, n_layers=2, dtype="bfloat16", **kw)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _gate_twin_cases():
+    import _torch_bf16_gate as gate
+
+    return ([c + (None,) for c in gate.CASES]
+            + [("granite_moe_1b_a400m", w, w, GATE_DROPPING) for w in ("native", "int8")])
+
+
+@pytest.mark.parametrize("arch,wire,kv_dtype,capacity_factor", _gate_twin_cases())
+def test_bf16_gate_card_twin(cuda, monkeypatch, arch, wire, kv_dtype, capacity_factor):
+    """The bf16 gate's cases (``tests/test_torch_bf16_gate.py``) on the
+    card, under ``awdbb`` with random non-zero biases: the CUDA port's
+    logits within the gate's bound of the CPU port's on the same weights,
+    the bound taken from the CPU port's own bf16 and f32 runs,
+
+        bound = max(max|cpu_bf16 - cpu_f32|, 2e-2 * max|cpu_f32|),
+
+    and within ``GATE_TWIN_TOL`` of them, twice the largest error of the
+    sound runs (the bound is about a logit, and would pass a wrong
+    kernel); greedy tokens equal wherever the CPU's top two logits are more than
+    ``2 * bound`` apart, every run fed the CPU's bf16 greedy tokens.  Every
+    kernel launches on its tensor-core body and no plain version runs.
+    granite-moe also runs at a capacity factor of 0.3 with an idle row in
+    the batch: #6's tensor-core kernel sums the keyless rows in another
+    order, and under MoE those rows take capacity and decide which pairs
+    drop (the dispatch drops pairs on the card)."""
+    import dataclasses
+
+    import numpy as np
+
+    import _torch_bf16_gate as gate
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = _gate_twin_cfg(arch, capacity_factor)
+    idle = 1 if capacity_factor is not None else 0
+    params = _with_biases(lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                         wire_dtype=None), 7)
+    scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, wire_dtype=wire,
+                       kv_dtype=kv_dtype, max_seq=64, page_size=8, max_batch=2,
+                       prefill_chunk=8)
+    cpu = Engine(params, cfg, scfg, device="cpu")
+    want, fed = gate.teacher_forced(gate.port_step(cpu.params, cpu.cfg, "cpu", idle),
+                                    cfg.vocab, idle=idle)
+    f32 = Engine(_tree_map(lambda t: t.float() if t.is_floating_point() else t, params),
+                 dataclasses.replace(cfg, dtype="float32"), scfg, device="cpu")
+    want32, _ = gate.teacher_forced(gate.port_step(f32.params, f32.cfg, "cpu", idle),
+                                    cfg.vocab, fed, idle)
+
+    ops.reset_counters()
+    dbb_matmul.AW_NATIVE_TC.launches = dbb_matmul.AW_INT8_TC.launches = 0
+    dbb_matmul.NATIVE_TC.launches = dbb_matmul.INT8_TC.launches = 0
+    paged_attn.PAGED_ATTN_TC.launches = paged_attn.PAGED_ATTN_LATENT_TC.launches = 0
+    drops = {"n": 0}
+    inner = moe_mod._dispatch
+
+    def spy(*a, **kw):
+        out = inner(*a, **kw)
+        drops["n"] += int((~out[2]).sum())
+        return out
+
+    monkeypatch.setattr(moe_mod, "_dispatch", spy)
+    got, _ = gate.teacher_forced(
+        gate.port_step(_tree_map(lambda t: t.to("cuda"), cpu.params), cpu.cfg, "cuda", idle),
+        cfg.vocab, fed, idle)
+    counts = ops.counters()
+    assert all(c.plain == 0 for c in counts.values()), counts
+    tc = {"dbb_matmul": dbb_matmul.NATIVE_TC, "dbb_matmul_aw": dbb_matmul.AW_NATIVE_TC,
+          "dbb_matmul_int8": dbb_matmul.INT8_TC, "dbb_matmul_aw_int8": dbb_matmul.AW_INT8_TC,
+          "paged_attn": paged_attn.PAGED_ATTN_TC,
+          "paged_attn_latent": paged_attn.PAGED_ATTN_LATENT_TC}
+    for name, counter in tc.items():
+        assert counter.launches == counts[name].launches, name
+    aw, w = (("dbb_matmul_aw_int8", "dbb_matmul_int8") if wire == "int8"
+             else ("dbb_matmul_aw", "dbb_matmul"))
+    attn = "paged_attn_latent" if cfg.mla is not None else "paged_attn"
+    assert counts[aw].launches > 0 and counts[w].launches > 0 and counts[attn].launches > 0
+    if capacity_factor is not None:
+        assert drops["n"] > 0
+
+    assert np.isfinite(got).all() and got.shape == want.shape == want32.shape
+    err, bound, ref_gap, sure = gate.gate_report(got, want, want32)
+    line = (f"{arch} {wire} wire {kv_dtype} KV{'' if idle == 0 else ', capacity 0.3, idle row'}"
+            f": |cuda - cpu_bf16| {err:.4g}, bound {bound:.4g} (|cpu_bf16 - cpu_f32| "
+            f"{ref_gap:.4g}), limit {GATE_TWIN_TOL}; tokens compared at {int(sure.sum())} of "
+            f"{len(sure)} positions")
+    print(line)
+    assert err <= bound and err <= GATE_TWIN_TOL, line
+    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure], err_msg=line)
 
 
 # ------------------------------------------------ sampler and serving modes
