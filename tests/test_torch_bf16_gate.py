@@ -53,7 +53,6 @@ Three choices on the reference's side, each measured as a departure by
     port there, within the bound).
 """
 
-import numpy as np
 import pytest
 
 import _torch_bf16_gate as gate
@@ -77,16 +76,5 @@ def test_bf16_awdbb_step_within_reference_bound(runs, arch, wire, kv_dtype, reco
     the margin."""
     key = gate.case_key(arch, wire, kv_dtype)
     got, want, want32 = (runs[f"{key}/{side}"] for side in ("port", "ref_bf16", "ref_f32"))
-    n_pos = sum(gate.LENS) + len(gate.LENS) * gate.N_DECODE
-    assert got.shape == want.shape == want32.shape == (n_pos, got.shape[-1])
-    assert np.isfinite(got).all()
-    err, bound, ref_gap, sure = gate.gate_report(got, want, want32)
-    line = (f"{arch} {wire} wire {kv_dtype} KV: |port - ref_bf16| {err:.4g}, bound {bound:.4g} "
-            f"(|ref_bf16 - ref_f32| {ref_gap:.4g}, logits up to {np.abs(want32).max():.4g}); "
-            f"tokens compared at {int(sure.sum())} of {n_pos} positions, "
-            f"{int((~sure).sum())} below the margin")
-    print(line)
-    record_property("bf16_gate", line)
-    assert err <= bound, line
-    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure], err_msg=line)
-    np.testing.assert_array_equal(got, want, err_msg=line)
+    assert got.shape == (gate.n_positions("paged"), got.shape[-1])
+    gate.check_case(f"{arch} {wire} wire {kv_dtype} KV", got, want, want32, record_property)
