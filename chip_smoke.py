@@ -39,7 +39,15 @@ non-zero and prints no result:
    qwen1.5-110b's down input (K = 49152, also at M = 512), NaN,
    infinities, ties and -0.0 included; one line of qwen2-vl-72b's kernel
    times over a mixed-step pass; a bf16 smoke minicpm3-4b engine served at
-   pages of 16 and 72 slots;
+   pages of 16 and 72 slots; ``phase_autotune``: ``kernels/autotune.py``
+   sweeps every legal tc-body plan of #3 at granite-3-8b's wq, gate, down
+   and qwen2-vl-72b's gate, down, #2 at granite's lm_head, #4 at
+   minicpm3-4b's gate, down and #1 at its lm_head (M = 64, cold L2; each
+   candidate exact or within tolerance and, native, M-invariant), and
+   gather against fused at granite's decode step and minicpm3's latent
+   one; the winners go to a JSON cache in a temporary directory, a fresh
+   process resolves them, and the cache is cleared so every later phase
+   runs today's plans;
 4. the main paths, each driven with the launch counters set to 0 just
    before and read just after: full-width granite-3-8b (40 layers, int8
    DBB wire, int8 KV), full-width minicpm3-4b (62 layers, native DBB
@@ -698,18 +706,7 @@ def phase_attention(torch, run_ms, qwen):
             k_p, v_p, k_s, v_s = k_f.to(torch.bfloat16), v_f.to(torch.bfloat16), None, None
             k32, v32 = k_p.float(), v_p.float()
         del k_f, v_f
-        pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
-        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-        tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")  # null padded
-        nxt = 0
-        for i, t in enumerate(lengths):
-            used = -(-t // ps) + 1  # + one recycled page: allocated, slots scrubbed
-            pages = perm[nxt:nxt + used]
-            nxt += used
-            tables[i, :used] = pages
-            for j, page in enumerate(pages[:-1].tolist()):
-                pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
-                pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
+        pos_tbl, tables = paged_tables(torch, gen, b, ps, p_cnt, lengths)
         kw = dict(kv_heads=kv, k_scale=k_s, v_scale=v_s, window=window)
         # library yardstick: SDPA over the gathered (dequantized) window;
         # the gather is set-up, outside the timed call
@@ -1061,19 +1058,8 @@ def phase_latent_attention(torch, run_ms):
     lat = torch.randn((n_pages, ps, dk), generator=gen, device="cuda")
     lat_q, lat_s = quant.quantize_rows(lat)
     lat = lat.to(torch.bfloat16)
-    pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
     lengths = (1000, 517, 64, 250)  # tokens cached per request
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")  # null padded
-    nxt = 0
-    for i, t in enumerate(lengths):
-        used = -(-t // ps) + 1  # + one recycled page: allocated, slots scrubbed
-        pages = perm[nxt:nxt + used]
-        nxt += used
-        tables[i, :used] = pages
-        for j, page in enumerate(pages[:-1].tolist()):
-            pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
-            pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
+    pos_tbl, tables = paged_tables(torch, gen, b, ps, p_cnt, lengths)
     valid_pages = pos_tbl[tables.long()].ge(0).any(dim=-1)  # [B, P] pages with data
     n_valid = int(valid_pages.sum())
     stats = new_pass()
@@ -1257,6 +1243,267 @@ def phase_dap_prune(torch, run_ms, qwen):
     for st in list(stats.values()) + list(qwen[name] for name in QWEN2_VL_DAP):
         finish_bound(st, BF16_OPS_PER_S)
     return stats
+
+
+# phase_autotune's matmul sweeps at M = 64: (kind, arch, linear, K, N, act on
+# the main path); the kinds are kernels #3, #2, #4 and #1
+AUTOTUNE_MATMULS = (
+    ("aw_int8", "granite-3-8b", "wq", 4096, 4096, None),
+    ("aw_int8", "granite-3-8b", "gate", 4096, 12800, "silu"),
+    ("aw_int8", "granite-3-8b", "down", 12800, 4096, None),
+    ("aw_int8", "qwen2-vl-72b", "gate", 8192, 29568, "silu"),
+    ("aw_int8", "qwen2-vl-72b", "down", 29568, 8192, None),
+    ("w_int8", "granite-3-8b", "lm_head", 4096, 49408, None),
+    ("aw", "minicpm3-4b", "gate", 2560, 6400, "silu"),
+    ("aw", "minicpm3-4b", "down", 6400, 2560, None),
+    ("w", "minicpm3-4b", "lm_head", 2560, 73472, None),
+)
+AUTOTUNE_M = 64
+AUTOTUNE_ITERS = 5  # cold-L2 calls a candidate's median takes
+
+
+def paged_tables(torch, gen, b, ps, p_cnt, lengths):
+    """A page pool's slot positions and ``b`` null-padded tables of
+    ``p_cnt`` pages over random pages, request ``i`` holding
+    ``lengths[i]`` tokens and one more (recycled, scrubbed) page."""
+    n_pages = b * p_cnt + 1
+    pos_tbl = torch.full((n_pages, ps), -1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((b, p_cnt), dtype=torch.int32, device="cuda")
+    nxt = 0
+    for i, t in enumerate(lengths):
+        used = -(-t // ps) + 1
+        pages = perm[nxt:nxt + used]
+        nxt += used
+        tables[i, :used] = pages
+        for j, page in enumerate(pages[:-1].tolist()):
+            pos = torch.arange(j * ps, (j + 1) * ps, device="cuda")
+            pos_tbl[page] = torch.where(pos < t, pos, -1).to(torch.int32)
+    return pos_tbl, tables
+
+
+def phase_autotune(torch, run_ms):
+    """``kernels/autotune.py`` on the card: sweep every candidate plan of
+    #3 at granite-3-8b's wq, gate, down and qwen2-vl-72b's gate, down, #2
+    at granite's lm_head, #4 at minicpm3-4b's gate, down and #1 at its
+    lm_head (M = 64, random packed operands, the main path's act and bf16
+    output), each candidate's cold-L2 median ms (``run_ms``) and its error
+    against the plain version (#2/#3: the int32 accumulators and the
+    act=None f32 output bit for bit; #1/#4: f32 within 1e-5 of the largest
+    output, bf16 within one ulp, and an M = 4 call's rows equal to the M =
+    64 call's bit for bit); then gather against fused at granite's decode
+    shape (int8 KV) and minicpm3's latent shape.  The winners go to a JSON
+    file named by ``REPRO_TORCH_AUTOTUNE_CACHE`` in a temporary directory;
+    a fresh process with the variable set resolves ``get_plan`` and
+    ``get_paged_attn_impl`` to them, and with it unset and the in-process
+    cache cleared they are the heuristic's again.  Nothing is left behind:
+    every later phase runs today's plans."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core import dbb, quant
+    from repro_torch.core.dap import DAPSpec, apply_dap
+    from repro_torch.kernels import autotune, dbb_matmul, ops, ref
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cfg = dbb.DBBConfig(4, 8)
+    bf16, m = torch.bfloat16, AUTOTUNE_M
+    var = "REPRO_TORCH_AUTOTUNE_CACHE"
+    check(var not in os.environ, f"{var} is set: the main paths must run today's plans")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "plans.json")
+    os.environ[var] = path
+    autotune.clear_cache()
+    winners, shapes = {}, []
+    try:
+        for kind, arch, name, k, n, act in AUTOTUNE_MATMULS:
+            w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            if name != "lm_head":
+                x = apply_dap(x, DAPSpec(4, 8))
+            if kind in autotune.INT8_KINDS:
+                wv, wm, ws = ref.pack_weight_int8(w.to(bf16), cfg)
+                if kind == "aw_int8":
+                    xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
+                    x_dense = ref.decode_a(xv, xm, cfg)
+                    kern = lambda r, a, o, plan, acc=None: (  # noqa: E731
+                        dbb_matmul.dbb_matmul_aw_int8_cuda(
+                            xv[:r], xm[:r], xs[:r], wv, wm, ws, cfg, cfg, act=a, out_dtype=o,
+                            acc_out=acc, plan=plan))
+                    plain = lambda r, a, o: ref.dbb_matmul_aw_int8_ref(  # noqa: E731
+                        xv[:r], xm[:r], xs[:r], wv, wm, ws, cfg, cfg, act=a, out_dtype=o)
+                else:
+                    xq, xs = ref.quantize_act_int8(x, per_row=True)
+                    x_dense = xq
+                    kern = lambda r, a, o, plan, acc=None: (  # noqa: E731
+                        dbb_matmul.dbb_matmul_int8_cuda(xq[:r], xs[:r], wv, wm, ws, cfg, act=a,
+                                                        out_dtype=o, acc_out=acc, plan=plan))
+                    plain = lambda r, a, o: ref.dbb_matmul_int8_ref(  # noqa: E731
+                        xq[:r], xs[:r], wv, wm, ws, cfg, act=a, out_dtype=o)
+                want_acc = ref.int8_acc(x_dense, ref.decode_w(wv, wm, cfg))
+                want = plain(m, None, torch.float32)
+            else:
+                wv, wm = ops.pack_weight(w.to(bf16), cfg)
+                if kind == "aw":
+                    xv, xm = ops.dap_pack(x, 4, 8)
+                    kern = lambda r, a, o, plan: dbb_matmul.dbb_matmul_aw_cuda(  # noqa: E731
+                        xv[:r], xm[:r], wv, wm, cfg, cfg, act=a, out_dtype=o, plan=plan)
+                    plain = lambda r, a, o: ref.dbb_matmul_aw_ref(  # noqa: E731
+                        xv[:r], xm[:r], wv, wm, cfg, cfg, act=a, out_dtype=o)
+                else:
+                    kern = lambda r, a, o, plan: dbb_matmul.dbb_matmul_cuda(  # noqa: E731
+                        x[:r], wv, wm, cfg, act=a, out_dtype=o, plan=plan)
+                    plain = lambda r, a, o: ref.dbb_matmul_ref(  # noqa: E731
+                        x[:r], wv, wm, cfg, act=a, out_dtype=o)
+                want = plain(m, act, torch.float32)
+                want_b = plain(m, act, bf16).float()
+            del w
+            errs = {}
+            for plan in dbb_matmul.candidate_plans(kind, m, k, n):
+                where = f"autotune {kind} {arch} {name} plan {plan}"
+                if kind in autotune.INT8_KINDS:
+                    acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
+                    y = kern(m, None, torch.float32, plan, acc)
+                    check(torch.equal(acc, want_acc) and torch.equal(y, want),
+                          f"{where}: not bit-exact")
+                    errs[plan] = (y - want).abs().max().item()
+                else:
+                    y = kern(m, act, torch.float32, plan)
+                    err32 = (y - want).abs().max().item()
+                    check(err32 <= 1e-5 * want.abs().max().item(),
+                          f"{where}: f32 off by {err32:.3g}")
+                    yb = kern(m, act, bf16, plan).float()
+                    errb = (yb - want_b).abs()
+                    check(bool((errb <= 2.0 ** -7 * torch.maximum(yb.abs(), want_b.abs())
+                                + 1e-5 * want.abs().max().item()).all()),
+                          f"{where}: bf16 off by {errb.max().item():.3g}")
+                    check(torch.equal(kern(4, act, torch.float32, plan), y[:4]),
+                          f"{where}: an M=4 call's rows differ from the M=64 call's")
+                    errs[plan] = max(err32, errb.max().item())
+            timings = {}
+            win = autotune.autotune(
+                lambda plan: (lambda: kern(m, act, bf16, plan)), m, k, n, 4, 8, kind,
+                rules=dbb_matmul.PLAN_RULES, timer=lambda fn: run_ms(fn, iters=AUTOTUNE_ITERS),
+                timings=timings)
+            check(all(isinstance(t, float) for t in timings.values()),
+                  f"autotune {kind} {arch} {name}: a candidate failed: {timings}")
+            heur = dbb_matmul.heuristic_plan(kind, m, k, n)
+            winners[(kind, m, k, n)] = win
+            shapes.append((kind, m, k, n))
+            cands = "; ".join(f"{p} {timings[p]:.4f} ms err {errs[p]:.3g}" for p in timings)
+            say(f"autotune {kind} {arch} {name} M={m} K={k} N={n}: heuristic {heur} "
+                f"{timings[heur]:.4f} ms, winner {win} {timings[win]:.4f} ms "
+                f"({timings[heur] / timings[win]:.3f}x); candidates: {cands}")
+            del wv, wm, x
+            torch.cuda.empty_cache()
+
+        # gather against fused: granite's decode step, minicpm3's latent
+        b, ps, p_cnt, lengths = 4, 16, 64, (1000, 517, 64, 250)
+        attn = {}
+        for label in ("granite-3-8b GQA", "minicpm3-4b latent"):
+            pos_tbl, tables = paged_tables(torch, gen, b, ps, p_cnt, lengths)
+            q_pos = torch.tensor([[t - 1] for t in lengths], dtype=torch.int32, device="cuda")
+            n_pages = b * p_cnt + 1
+            if label.endswith("GQA"):
+                h, kvh, d = 32, 8, 128
+                k_q, k_s = quant.quantize_rows(torch.randn((n_pages, ps, kvh * d), generator=gen,
+                                                           device="cuda"))
+                v_q, v_s = quant.quantize_rows(torch.randn((n_pages, ps, kvh * d), generator=gen,
+                                                           device="cuda"))
+                layer = dict(k=k_q, v=v_q, k_scale=k_s, v_scale=v_s, pos=pos_tbl)
+                q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(bf16)
+                sg, dk = h // kvh, d
+                fn = lambda impl: attention.paged_attend(  # noqa: E731
+                    impl, q, layer, tables, q_pos, kv_heads=kvh, window=None, dtype=bf16)
+            else:
+                mcfg = configs.get_config("minicpm3_4b")
+                mla, h = mcfg.mla, mcfg.n_heads
+                dk = mla.kv_lora_rank + mla.qk_rope_head_dim
+                lat = torch.randn((n_pages, ps, dk), generator=gen, device="cuda").to(bf16)
+                layer = dict(k=lat, v=torch.zeros((n_pages, ps, 1), dtype=bf16, device="cuda"),
+                             pos=pos_tbl)
+                q_nope = torch.randn((b, 1, h, mla.qk_nope_head_dim), generator=gen,
+                                     device="cuda").to(bf16)
+                q_rope = torch.randn((b, 1, h, mla.qk_rope_head_dim), generator=gen,
+                                     device="cuda").to(bf16)
+                w_up = (torch.randn((mla.kv_lora_rank, h, mla.qk_nope_head_dim + mla.v_head_dim),
+                                    generator=gen, device="cuda") / 16).to(bf16)
+                scale = 1.0 / math.sqrt(mla.qk_nope_head_dim + mla.qk_rope_head_dim)
+                sg = h
+                fn = lambda impl: attention.paged_attend_latent(  # noqa: E731
+                    impl, q_nope, q_rope, layer, tables, q_pos, w_up, mla, scale, bf16)
+            outs = {impl: fn(impl).float() for impl in autotune.PAGED_ATTN_IMPLS}
+            diff = (outs["gather"] - outs["fused"]).abs().max().item()
+            scale_out = outs["gather"].abs().max().item()
+            check(diff <= 1.6e-2 * max(1.0, scale_out),
+                  f"autotune paged_attn {label}: gather and fused {diff:.3g} apart")
+            timings = {}
+            win = autotune.autotune_paged_attn(
+                lambda impl: (lambda: fn(impl)), b, sg, ps, dk,
+                timer=lambda f: run_ms(f, iters=AUTOTUNE_ITERS), timings=timings)
+            check(all(isinstance(t, float) for t in timings.values()),
+                  f"autotune paged_attn {label}: an implementation failed: {timings}")
+            attn[(b, sg, ps, dk)] = win
+            say(f"autotune paged_attn {label} B={b} S=1 H={h} Dk={dk} PS={ps}: gather "
+                f"{timings['gather']:.4f} ms, fused {timings['fused']:.4f} ms, winner {win} "
+                f"(heuristic on the card: fused); outputs {diff:.3g} apart (largest "
+                f"{scale_out:.3g})")
+            del layer, pos_tbl, tables
+            torch.cuda.empty_cache()
+
+        # the file holds the winners; a fresh process resolves them
+        with open(path) as f:
+            saved = {tuple(json.loads(key)): tuple(v) for key, v in json.load(f).items()}
+        for (kind, mm, k, n), win in winners.items():
+            key = (kind, 0 if kind in autotune.NATIVE_KINDS else mm, k, n, 4, 8)
+            check(saved.get(key) == win, f"autotune: {key} -> {saved.get(key)}, not {win}")
+        for (b_, sg, ps_, dk), win in attn.items():
+            check(saved.get(("paged_attn", b_, sg, ps_, dk, 0)) == (win,),
+                  f"autotune: paged_attn {(b_, sg, ps_, dk)} not saved as {win}")
+        code = ("import json, sys; "
+                "from repro_torch.kernels import autotune as a, dbb_matmul as d; "
+                "q = json.loads(sys.argv[1]); "
+                "print(json.dumps([list(a.get_plan(*s, 4, 8, d.PLAN_RULES)) "
+                "for s in q['plans']] + "
+                "[a.get_paged_attn_impl(*s, 'cuda') for s in q['attn']]))")
+        query = dict(plans=shapes, attn=[list(s) for s in attn])
+        fresh = subprocess.run(
+            [sys.executable, "-c", code, json.dumps(query)], capture_output=True, text=True,
+            check=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        ).stdout.strip().splitlines()[-1]
+        want = [list(winners[s]) for s in shapes] + list(attn.values())
+        check(json.loads(fresh) == want, f"autotune: a fresh process resolved {fresh}, not {want}")
+    finally:
+        os.environ.pop(var, None)
+        autotune.clear_cache()
+        tmp.cleanup()
+    for kind, mm, k, n in shapes:
+        check(autotune.get_plan(kind, mm, k, n, 4, 8, dbb_matmul.PLAN_RULES)
+              == dbb_matmul.heuristic_plan(kind, mm, k, n),
+              f"autotune: {kind} {(mm, k, n)} not back on the heuristic")
+    for key in attn:
+        check(autotune.get_paged_attn_impl(*key, "cuda") == "fused",
+              f"autotune: paged_attn {key} not back on fused")
+    check(autotune.cuda_gather_calls() == 0, "autotune: a gather verdict is left on the card")
+    # the host cost a launch pays for its plan: the memoized lookup against
+    # the rule the launch called before
+    host_us = {}
+    rules = dbb_matmul.PLAN_RULES
+    for label, fn in (("get_plan",
+                       lambda: autotune.get_plan("aw_int8", 64, 4096, 4096, 4, 8, rules)),
+                      ("int8_plan", lambda: dbb_matmul.int8_plan(64, 4096, 4096))):
+        t0 = time.perf_counter()
+        for _ in range(100_000):
+            fn()
+        host_us[label] = (time.perf_counter() - t0) * 10
+    tuned = sum(winners[s] != dbb_matmul.heuristic_plan(*s) for s in shapes)
+    say(f"autotune: {len(shapes)} matmul shapes swept, {tuned} won by another plan than the "
+        f"heuristic's; winners saved and resolved by a fresh process, then cleared (every "
+        f"later phase runs today's plans); a launch's plan on the host: get_plan "
+        f"{host_us['get_plan']:.3f} us, int8_plan {host_us['int8_plan']:.3f} us; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def expected_launches(cfg, wire):
@@ -3224,6 +3471,7 @@ def main():
     stats.update(phase_native_matmuls(torch, run_ms, rec_shapes))
     stats["paged_attn_latent"] = phase_latent_attention(torch, run_ms)
     stats.update(phase_dap_prune(torch, run_ms, qwen))
+    phase_autotune(torch, run_ms)
     say_pass("qwen2-vl-72b", 80, qwen)
     phase_smoke_latent_engine(torch, np)
     del flush

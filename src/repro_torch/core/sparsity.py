@@ -3,10 +3,11 @@
 ``w_nnz``/``a_nnz`` over blocks of ``bz`` are the weight and activation
 density bounds (paper §5, 4/8 typical); ``act_scale`` picks the int8
 wire's dynamic activation-scale granularity, ``kv_dtype`` the KV-cache
-storage and ``paged_attn`` the paged read: ``"auto"`` and ``"fused"`` run
-the fused paged-attention kernel (#6; its plain version on CPU tensors),
+storage and ``paged_attn`` the paged read: ``"fused"`` runs the fused
+paged-attention kernel (#6; its plain version on CPU tensors),
 ``"gather"`` materializes each request's window and attends in plain
-PyTorch.
+PyTorch, and ``"auto"`` resolves per shape as the reference's does (the
+autotune cache, then fused on a CUDA device and gather elsewhere).
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ takes (:func:`int8_body_error`) runs it — a ``cp.async`` ring of raw
 packed tiles, each 8-block decoded straight into ``mma.sync`` fragments by
 two byte permutes whose selectors come from a mask-indexed table
 (:func:`int8_decode_table`, uploaded once per device), split-K summed in a
-thread-block cluster, one launch a call, planned by :func:`int8_plan` —
+thread-block cluster, one launch a call, planned by ``autotune.get_plan``
+(:func:`int8_plan` unless a sweep cached another plan for the shape) —
 counted in ``INT8_TC`` / ``AW_INT8_TC`` as well as ``INT8`` / ``AW_INT8``;
 any other call runs the generic body (an int32 split-K workspace, a
 memset and a second launch), at any N: a guarded column tail where N % 4
@@ -22,8 +23,9 @@ Native wire (values in the model dtype, bf16 or f32): kernel #1
 (``dbb_matmul_cuda``) replaces ``dbb_matmul_pallas`` and kernel #4
 (``dbb_matmul_aw_cuda``) replaces ``dbb_matmul_aw_pallas``: an f32
 accumulator drained through ``act(acc + bias)``.  Their launch plan
-(:func:`native_plan`: tile width, K splits, cluster) depends on (K, N)
-only, so a row's output is bitwise the same whatever M is.  A bf16 call
+(``autotune.get_plan``: :func:`native_plan`, the tile width, K splits and
+cluster, unless a sweep cached another) depends on (K, N) only, so a
+row's output is bitwise the same whatever M is.  A bf16 call
 of a shape the tc body takes (:func:`tc_body_error`) runs it — a
 ``cp.async`` ring of raw packed tiles, decoded in shared memory by a
 mask-indexed byte-permute table into dense tiles for ``mma.sync``,
@@ -31,8 +33,10 @@ split-K summed in a thread-block cluster — counted in ``NATIVE_TC`` /
 ``AW_NATIVE_TC`` as well as ``NATIVE`` / ``AW_NATIVE``; any other call
 runs the generic body (a split-K workspace and a second launch).
 
-These wrappers take CUDA tensors only; ``kernels/ops.py`` dispatches CPU
-tensors to the plain versions.
+Each wrapper takes an explicit tc-body ``plan``, which wins over the
+cache as the reference's explicit tiles do.  The wrappers take CUDA
+tensors only; ``kernels/ops.py`` dispatches CPU tensors to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import dbb
-from repro_torch.kernels import native
+from repro_torch.kernels import autotune, native
 
 INT8 = native.Counter()  # kernel #2: dense int8 x, packed int8 w
 AW_INT8 = native.Counter()  # kernel #3: packed int8 x and w
@@ -158,7 +162,7 @@ def _decode_table(dev: torch.device) -> torch.Tensor:
 
 
 def _launch(counter, tc_counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w_scale,
-            cfg_w, out_dtype, bias, act, acc_out):
+            cfg_w, out_dtype, bias, act, acc_out, plan):
     if cfg_w.bz != 8:
         raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
     if act not in _ACT:
@@ -188,11 +192,15 @@ def _launch(counter, tc_counter, x, x_mask, m, nnz_a, x_scale, w_vals, w_mask, w
     p_x = x.data_ptr()
     p_xm = None if x_mask is None else x_mask.data_ptr()
     ptrs = (p_x, p_wv, p_wm) + (() if p_xm is None else (p_xm,))
-    tc = int8_body_error(kb, n, max(nnz_a, nnz_w), ptrs) is None
+    body_err = int8_body_error(kb, n, max(nnz_a, nnz_w), ptrs)
+    tc = body_err is None
+    kind = "w_int8" if x_mask is None else "aw_int8"
+    _check_plan(plan, kind, body_err, 8 * kb, n)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fn, tiles = _entries()
     if tc:
-        bm, kb_per_split, split_k = int8_plan(m, 8 * kb, n)
+        bm, kb_per_split, split_k = plan or autotune.get_plan(kind, m, 8 * kb, n, nnz_w, 8,
+                                                              PLAN_RULES)
         acc_ws, lut = None, _decode_table(dev).data_ptr()
     else:
         bm = kb_per_split = 0
@@ -224,13 +232,14 @@ def dbb_matmul_int8_cuda(
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     acc_out: Optional[torch.Tensor] = None,  # [M, N] int32: raw accumulators
+    plan=None,  # the tc body's (bm, kb_per_split, n_split); None: autotune.get_plan
 ) -> torch.Tensor:
     """Kernel #2: ``act(x_scale*w_scale * (x_q @ decode_w(w)) + bias)``."""
     if x_q.ndim != 2 or x_q.shape[1] != w_vals.shape[0] * cfg.bz:
         raise ValueError(f"x_q {tuple(x_q.shape)} does not match w_vals {tuple(w_vals.shape)}")
     native.cuda_arg(x_q, "x_q", torch.int8)
     return _launch(INT8, INT8_TC, x_q, None, x_q.shape[0], 1, x_scale, w_vals, w_mask,
-                   w_scale, cfg, out_dtype, bias, act, acc_out)
+                   w_scale, cfg, out_dtype, bias, act, acc_out, plan)
 
 
 def dbb_matmul_aw_int8_cuda(
@@ -247,6 +256,7 @@ def dbb_matmul_aw_int8_cuda(
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     acc_out: Optional[torch.Tensor] = None,
+    plan=None,
 ) -> torch.Tensor:
     """Kernel #3: kernel #2 with ``decode_a(x)`` on the left."""
     m, kb, nnz_a = x_vals.shape
@@ -258,7 +268,7 @@ def dbb_matmul_aw_int8_cuda(
     native.cuda_arg(x_vals, "x_vals", torch.int8)
     native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
     return _launch(AW_INT8, AW_INT8_TC, x_vals, x_mask, m, nnz_a, x_scale, w_vals, w_mask,
-                   w_scale, cfg_w, out_dtype, bias, act, acc_out)
+                   w_scale, cfg_w, out_dtype, bias, act, acc_out, plan)
 
 
 # ------------------------------------------------------------ native wire
@@ -315,8 +325,87 @@ def tc_body_error(dtype, kb: int, n: int, nnz: int = 4, ptrs=(), mask_ptrs=()) -
     return None
 
 
+# ------------------------------------------------------------ launch plans
+#
+# The tc bodies' plans, resolved per launch by ``autotune.get_plan`` under
+# these rules: a swept winner from its cache, else today's rule.
+
+
+def heuristic_plan(kind: str, m: int, k: int, n: int):
+    """Today's fixed rule: ``int8_plan(m, k, n)`` for the int8 kinds,
+    ``native_plan(k, n)`` for the native ones."""
+    if kind in autotune.INT8_KINDS:
+        return int8_plan(m, k, n)
+    if kind in autotune.NATIVE_KINDS:
+        return native_plan(k, n)
+    raise ValueError(f"unknown matmul kind {kind!r}; one of {autotune.KINDS}")
+
+
+def _tiles_and_step(kind: str):
+    if kind in autotune.INT8_KINDS:
+        return (16, 64), INT8_STEP_BLOCKS
+    if kind in autotune.NATIVE_KINDS:
+        return (64, 128), STEP_BLOCKS
+    raise ValueError(f"unknown matmul kind {kind!r}; one of {autotune.KINDS}")
+
+
+def plan_error(kind: str, plan, k: int, n: int) -> Optional[str]:
+    """Why ``plan`` is not a legal tc-body plan of ``kind`` over K = ``k``
+    and N = ``n``, or None when it is: the tile size (``bm`` 16 or 64 rows
+    for int8, ``bn`` 64 or 128 columns native), splits of whole k-steps, at
+    most ``MAX_SPLIT`` of them (a cluster), covering K with none empty."""
+    tiles, step = _tiles_and_step(kind)
+    if (not isinstance(plan, (tuple, list)) or len(plan) != 3
+            or any(type(v) is not int for v in plan)):
+        return f"{plan!r} is not three integers"
+    tile, per, split = plan
+    if tile not in tiles:
+        return f"{'bm' if tiles[0] == 16 else 'bn'}={tile} is not {tiles[0]} or {tiles[1]}"
+    kb = k // 8
+    if per < step or per % step:
+        return f"a split of {per} 8-blocks is not whole k-steps of {step}"
+    if not 1 <= split <= MAX_SPLIT:
+        return f"{split} splits: 1 to {MAX_SPLIT} (a cluster)"
+    if per * split < kb:
+        return f"{split} splits of {per} 8-blocks do not cover K={k}"
+    if per * (split - 1) >= kb:
+        return f"{split} splits of {per} 8-blocks leave one empty at K={k}"
+    return None
+
+
+def candidate_plans(kind: str, m: int, k: int, n: int):
+    """Every legal plan of a sweep: the heuristic's first, then both tile
+    sizes with each split count from 1 to ``MAX_SPLIT`` as whole k-steps
+    (distinct plans only)."""
+    tiles, step = _tiles_and_step(kind)
+    steps = -(-(k // 8) // step)
+    out = [heuristic_plan(kind, m, k, n)]
+    for tile in tiles:
+        for want in range(1, min(MAX_SPLIT, steps) + 1):
+            per = -(-steps // want)
+            plan = (tile, per * step, -(-steps // per))
+            if plan not in out:
+                out.append(plan)
+    return [p for p in out if plan_error(kind, p, k, n) is None]
+
+
+PLAN_RULES = autotune.PlanRules(heuristic_plan, plan_error, candidate_plans)
+
+
+def _check_plan(plan, kind, body_err, k, n):
+    """An explicit ``plan`` is the tc body's and must be legal for it
+    (:func:`plan_error`); the generic bodies take none."""
+    if plan is None:
+        return
+    if body_err is not None:
+        raise ValueError(f"plan {plan!r} given, but the call runs the generic body: {body_err}")
+    err = plan_error(kind, plan, k, n)
+    if err is not None:
+        raise ValueError(f"illegal {kind} plan {plan!r}: {err}")
+
+
 def _launch_native(counter, tc_counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg_w, out_dtype,
-                   bias, act):
+                   bias, act, plan):
     if cfg_w.bz != 8:
         raise ValueError(f"the CUDA kernel decodes 8-blocks, got bz={cfg_w.bz}")
     if act not in _ACT:
@@ -341,9 +430,16 @@ def _launch_native(counter, tc_counter, x, x_mask, m, nnz_a, w_vals, w_mask, cfg
         p_b = native.cuda_arg(bias, "bias", torch.float32, (n,))
     p_x = x.data_ptr()
     p_xm = None if x_mask is None else x_mask.data_ptr()
-    bn, kb_per_split, n_split = native_plan(8 * kb, n)
-    tc = tc_body_error(w_vals.dtype, kb, n, max(nnz_a, nnz_w), (p_x, p_wv),
-                       (p_wm,) if p_xm is None else (p_wm, p_xm)) is None
+    body_err = tc_body_error(w_vals.dtype, kb, n, max(nnz_a, nnz_w), (p_x, p_wv),
+                             (p_wm,) if p_xm is None else (p_wm, p_xm))
+    tc = body_err is None
+    kind = "w" if x_mask is None else "aw"
+    _check_plan(plan, kind, body_err, 8 * kb, n)
+    if tc:
+        bn, kb_per_split, n_split = plan or autotune.get_plan(kind, m, 8 * kb, n, nnz_w, 8,
+                                                              PLAN_RULES)
+    else:
+        bn, kb_per_split, n_split = native_plan(8 * kb, n)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     part = (torch.empty((n_split, m, n), dtype=torch.float32, device=dev)
             if n_split > 1 and not tc else None)
@@ -368,6 +464,7 @@ def dbb_matmul_cuda(
     out_dtype=None,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
+    plan=None,  # the tc body's (bn, kb_per_split, n_split); None: autotune.get_plan
 ) -> torch.Tensor:
     """Kernel #1: ``act(x @ decode_w(w) + bias)``, f32 accumulator."""
     if x.ndim != 2 or x.shape[1] != w_vals.shape[0] * cfg.bz:
@@ -375,7 +472,7 @@ def dbb_matmul_cuda(
     if native.cuda_arg(x, "x", x.dtype) % 16:
         x = x.clone()  # the kernel reads 8 values at a time
     return _launch_native(NATIVE, NATIVE_TC, x, None, x.shape[0], 1, w_vals, w_mask, cfg,
-                          out_dtype or x.dtype, bias, act)
+                          out_dtype or x.dtype, bias, act, plan)
 
 
 def dbb_matmul_aw_cuda(
@@ -389,6 +486,7 @@ def dbb_matmul_aw_cuda(
     out_dtype=None,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
+    plan=None,
 ) -> torch.Tensor:
     """Kernel #4: kernel #1 with ``decode_a(x)`` on the left."""
     m, kb, nnz_a = x_vals.shape
@@ -401,4 +499,4 @@ def dbb_matmul_aw_cuda(
     native.cuda_arg(x_vals, "x_vals", x_vals.dtype)
     native.cuda_arg(x_mask, "x_mask", torch.uint8, (m, kb))
     return _launch_native(AW_NATIVE, AW_NATIVE_TC, x_vals, x_mask, m, nnz_a, w_vals, w_mask,
-                          cfg_w, out_dtype or x_vals.dtype, bias, act)
+                          cfg_w, out_dtype or x_vals.dtype, bias, act, plan)

@@ -30,10 +30,12 @@ the slot positions only.
 Unlike the reference's functional updates, :func:`paged_update` and
 :func:`paged_update_pos` write the cache tensors **in place**: the pools
 are the largest state on the card, and no caller needs the old version.
-``cfg.sparsity.paged_attn`` picks the paged read: ``"auto"`` and
-``"fused"`` run the fused kernel (#6), ``"gather"`` materializes each
-request's window (:func:`paged_read`) and attends with :func:`mha` or
-:func:`_mla_absorbed`, plain PyTorch as in the reference.
+``cfg.sparsity.paged_attn`` picks the paged read: ``"fused"`` runs the
+fused kernel (#6), ``"gather"`` materializes each request's window
+(:func:`paged_read`) and attends with :func:`mha` or
+:func:`_mla_absorbed`, plain PyTorch as in the reference; ``"auto"``
+resolves per shape as the reference's does (:func:`_paged_attn_impl`:
+the autotune cache, then fused on a CUDA device and gather elsewhere).
 
 :func:`mha`, :func:`_mla_absorbed` and MLA's einsums sum in float64 and
 round once: a library einsum picks its summation order from the shapes,
@@ -51,7 +53,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.models import common, rope
 from repro_torch.models.common import (
     DATA,
@@ -354,9 +356,9 @@ def paged_update_pos(pos_tbl, positions, page_tables) -> None:
 def paged_read(cache_layer, pos_tbl, page_tables, dtype=torch.float32):
     """The gather path's read boundary: each request's pages as a
     contiguous window ``(k [B, P*PS, Dk], v [B, P*PS, Dv], pos [B, P*PS])``
-    in ``dtype`` (int8 planes dequantized).  The serving path never
-    materializes this window (it runs kernel #6); tests hold kernel #6's
-    plain version against this path."""
+    in ``dtype`` (int8 planes dequantized).  Serving on a CUDA device
+    does not materialize this window (``"auto"`` runs kernel #6 there);
+    tests hold kernel #6's plain version against this path."""
     b, p = page_tables.shape
     ps = cache_layer["k"].shape[1]
     tables = page_tables.long()
@@ -488,10 +490,41 @@ def _mha_region(q, k, v, q_pos, k_pos, **kw):
     return out.redistribute(mesh, region_placements(out, mesh, seq_dim=2))
 
 
-def _gather(sp) -> bool:
-    """Whether the paged read materializes the window (``"gather"``) or
-    runs the fused kernel (``"auto"``/``"fused"``)."""
-    return sp is not None and sp.paged_attn == "gather"
+def _paged_attn_impl(sp, b: int, sg: int, ps: int, dk: int, device) -> str:
+    """The paged read of this call site (the reference's
+    ``_paged_attn_impl``): the explicit knob (``SparsityConfig.paged_attn``,
+    threaded from ``ServeConfig.paged_attn``) wins; ``"auto"`` asks
+    ``kernels/autotune`` (benchmark cache, then the device heuristic:
+    fused on a CUDA device, gather elsewhere).  ``device`` is the cache's;
+    a ``DTensor``'s is its local shard's."""
+    mode = sp.paged_attn if sp is not None else "auto"
+    if mode != "auto":
+        return mode
+    return autotune.get_paged_attn_impl(b, sg, ps, dk, device)
+
+
+def _local_device(t: torch.Tensor) -> torch.device:
+    return t.to_local().device if isinstance(t, DTensor) else t.device
+
+
+def paged_attend(impl: str, q, cache_layer, page_tables, positions, *, kv_heads: int,
+                 window: Optional[int], dtype) -> torch.Tensor:
+    """GQA queries ``q [B, S, H, D]`` attend over their pages (this
+    step's K/V and positions already written) by ``impl``: ``"gather"``
+    materializes each row's window (:func:`paged_read`) for :func:`mha`,
+    ``"fused"`` runs kernel #6 (``ops.paged_attention``)."""
+    if impl == "gather":
+        b, dh = q.shape[0], q.shape[-1]
+        k_win, v_win, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables,
+                                           dtype=dtype)
+        t = k_win.shape[1]
+        return mha(q, k_win.reshape(b, t, kv_heads, dh), v_win.reshape(b, t, kv_heads, dh),
+                   positions, pos_win, window=window)
+    return ops.paged_attention(
+        q, cache_layer["k"], cache_layer["v"], cache_layer["pos"], page_tables, positions,
+        kv_heads=kv_heads, window=window, k_scale=cache_layer.get("k_scale"),
+        v_scale=cache_layer.get("v_scale"), out_dtype=dtype,
+    )
 
 
 def make_gqa(gen: torch.Generator, cfg, *, dtype, device, pack=lambda p: p):
@@ -520,8 +553,9 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     out.  The cache modes, as in the reference:
 
     * ``page_tables`` set: write this step's K/V into the pages, attend
-      with the fused paged-attention kernel (#6) or, under
-      ``paged_attn="gather"``, :func:`paged_read` + :func:`mha`
+      with the fused paged-attention kernel (#6) or, where the read
+      resolves to gather (:func:`_paged_attn_impl`), :func:`paged_read` +
+      :func:`mha`
       (``cache_layer["pos"]`` already holds this step's positions);
     * ring cache, no ``decode_pos``: single-pass prefill, full-sequence
       attention over the fresh K/V while they fill the ring;
@@ -547,19 +581,10 @@ def gqa_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
 
     if page_tables is not None:
         paged_update(cache_layer, k_flat, v_flat, positions, page_tables)
-        if _gather(sp):
-            k_win, v_win, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables,
-                                               dtype=x.dtype)
-            t = k_win.shape[1]
-            out = mha(q, k_win.reshape(b, t, kvh, dh), v_win.reshape(b, t, kvh, dh),
-                      positions, pos_win, window=cfg.sliding_window)
-        else:
-            out = ops.paged_attention(
-                q, cache_layer["k"], cache_layer["v"], cache_layer["pos"], page_tables,
-                positions, kv_heads=kvh, window=cfg.sliding_window,
-                k_scale=cache_layer.get("k_scale"), v_scale=cache_layer.get("v_scale"),
-                out_dtype=x.dtype,
-            )
+        impl = _paged_attn_impl(sp, b, s * (h // kvh), cache_layer["k"].shape[1], dh,
+                                _local_device(cache_layer["k"]))
+        out = paged_attend(impl, q, cache_layer, page_tables, positions, kv_heads=kvh,
+                           window=cfg.sliding_window, dtype=x.dtype)
     elif cache_layer is not None and decode_pos is None:
         pre = None
         if kv_is_int8(cache_layer):
@@ -710,6 +735,19 @@ def _mla_absorbed_fused(q_nope, q_rope, cache_layer, page_tables, q_pos, w_kv_up
     return _mla_up_project(ctx, w_kv_up, m, out_dtype)
 
 
+def paged_attend_latent(impl: str, q_nope, q_rope, cache_layer, page_tables, positions,
+                        w_kv_up, m, scale: float, dtype) -> torch.Tensor:
+    """MLA's absorbed attention over latent pages by ``impl``: ``"gather"``
+    materializes each row's latent window (:func:`paged_read`) for
+    :func:`_mla_absorbed`, ``"fused"`` runs kernel #6's latent mode
+    (:func:`_mla_absorbed_fused`)."""
+    if impl == "gather":
+        lat, _, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables, dtype=dtype)
+        return _mla_absorbed(q_nope, q_rope, lat, positions, pos_win, w_kv_up, m, scale, dtype)
+    return _mla_absorbed_fused(q_nope, q_rope, cache_layer, page_tables, positions, w_kv_up, m,
+                               scale, dtype)
+
+
 def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=None,
                 cache_layer=None, decode_pos: Optional[int] = None, page_tables=None):
     """MLA.  The two down-projections share one DAP+pack, RoPE rotates the
@@ -718,8 +756,9 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
     Logits scale by ``1/sqrt(qk_nope + qk_rope)``.  The cache modes:
 
     * ``page_tables`` set: write the latent into the pages, attend
-      absorbed through the fused kernel's latent mode (#6) or, under
-      ``paged_attn="gather"``, over the gathered window;
+      absorbed through the fused kernel's latent mode (#6) or, where the
+      read resolves to gather (:func:`_paged_attn_impl`), over the
+      gathered window;
     * ring cache, no ``decode_pos``: fill the ring with the latent, then
       the materialized attention (under int8 KV over the latent's
       round trip);
@@ -750,16 +789,10 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, *, layer_idx=N
 
     if page_tables is not None:
         paged_update(cache_layer, latent, dummy_v, positions, page_tables)
-        if _gather(sp):
-            lat, _, pos_win = paged_read(cache_layer, cache_layer["pos"], page_tables,
-                                         dtype=x.dtype)
-            out = _mla_absorbed(q_nope, q_rope, lat, positions, pos_win, w_kv_up, m, scale,
-                                x.dtype)
-        else:
-            out = _mla_absorbed_fused(
-                q_nope, q_rope, cache_layer, page_tables, positions, w_kv_up, m, scale,
-                x.dtype,
-            )
+        impl = _paged_attn_impl(sp, b, s * h, cache_layer["k"].shape[1],
+                                m.kv_lora_rank + qk_rope, _local_device(cache_layer["k"]))
+        out = paged_attend_latent(impl, q_nope, q_rope, cache_layer, page_tables, positions,
+                                  w_kv_up, m, scale, x.dtype)
         return linear(p["wo"], out.reshape(b, s, h * dv), sparsity=sp, layer_idx=li)
 
     if cache_layer is not None and decode_pos is not None:

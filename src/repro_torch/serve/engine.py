@@ -144,9 +144,11 @@ class ServeConfig:
 
     Every field of the reference is here, with its default and its
     validation: a config the reference refuses raises ``ValueError``
-    here too.  ``paged_attn``: ``"auto"`` and ``"fused"`` both run the
-    fused kernel (#6), ``"gather"`` materializes each request's window
-    and attends in plain PyTorch.  ``spec`` (a :class:`SpecConfig`,
+    here too.  ``paged_attn``: ``"fused"`` runs the fused kernel (#6),
+    ``"gather"`` materializes each request's window and attends in plain
+    PyTorch, and ``"auto"`` resolves per shape as the reference's does:
+    the autotune cache, then fused on a CUDA device and gather elsewhere
+    (``models/attention._paged_attn_impl``).  ``spec`` (a :class:`SpecConfig`,
     continuous mode only) turns decode-only runs into draft-then-verify
     rounds.  ``snapshot_every > 0`` publishes a snapshot to
     ``snapshot_dir`` every that many scheduler iterations (keeping

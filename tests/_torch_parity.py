@@ -25,6 +25,10 @@ from repro_torch.serve import paged_cache as tpc
 
 # the small_cfg of tests/test_serve.py: 2 layers, narrow widths, f32
 SMALL = dict(vocab=64, d_model=64, d_ff=128, n_layers=2, dtype="float32")
+# the port's paged read on the fused kernel (#6's plain version on the CPU),
+# named: "auto" resolves to the gather path on the CPU, as the reference's
+# does, so a port test of the fused path asks for it
+FUSED = dict(paged_attn="fused")
 
 
 def small_cfgs(arch="granite_3_8b", **over):
@@ -70,12 +74,13 @@ def check_config_fields(arch, smoke):
 def effective(jcfg, tcfg, kv_dtype="native", wire="int8"):
     """The configs the engines serve with: the chosen KV dtype, per-row
     activation scales on the int8 wire (the native wire quantizes no
-    activation), and (reference) the gather paged-attention path."""
+    activation), the reference on the gather paged-attention path and the
+    port on the fused kernel's plain version, by name (``FUSED``)."""
     scale = "per_row" if wire == "int8" else jcfg.sparsity.act_scale
     jsp = dataclasses.replace(
         jcfg.sparsity, act_scale=scale, kv_dtype=kv_dtype, paged_attn="gather"
     )
-    tsp = dataclasses.replace(tcfg.sparsity, act_scale=scale, kv_dtype=kv_dtype)
+    tsp = dataclasses.replace(tcfg.sparsity, act_scale=scale, kv_dtype=kv_dtype, **FUSED)
     return (
         dataclasses.replace(jcfg, sparsity=jsp),
         dataclasses.replace(tcfg, sparsity=tsp),
@@ -218,7 +223,7 @@ def engines_match(jcfg, tcfg, params, tparams, wire, kv_dtype, serve=SERVE):
     ))
     want = jeng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-        wire_dtype=wire, kv_dtype=kv_dtype, **PACKED, **serve), device="cpu")
+        wire_dtype=wire, kv_dtype=kv_dtype, **PACKED, **FUSED, **serve), device="cpu")
     ops.reset_counters()
     got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     counts = {k: (c.launches, c.plain) for k, c in ops.counters().items()}
@@ -240,7 +245,8 @@ def invariants_byte_exact(tcfg, tparams, wire, kv_dtype, serve=SERVE):
     prompts = prompts_for(tcfg.vocab)
 
     def eng(**kw):
-        scfg = tengine.ServeConfig(**{**PACKED, **serve, "wire_dtype": wire, "kv_dtype": kv_dtype,
+        scfg = tengine.ServeConfig(**{**PACKED, **FUSED, **serve, "wire_dtype": wire,
+                                      "kv_dtype": kv_dtype,
                                       **kw})
         return tengine.Engine(tparams, tcfg, scfg, device="cpu")
 
@@ -307,10 +313,10 @@ def spec_match(jcfg, tcfg, params, tparams, wire, kv_dtype, draft, **samp):
     jeng = jengine.Engine(params, jcfg, jengine.ServeConfig(paged_attn="gather", spec=jspec,
                                                             **kw))
     want = jeng.generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
-    plain = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu"
+    plain = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw, **FUSED), device="cpu"
                            ).generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
     teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-        spec=tengine.SpecConfig(draft=draft, draft_nnz=2), **kw), device="cpu")
+        spec=tengine.SpecConfig(draft=draft, draft_nnz=2), **kw, **FUSED), device="cpu")
     got = teng.generate_requests(prompts, SPEC_NEW, arrivals=ARRIVALS)
     for i in range(len(prompts)):
         np.testing.assert_array_equal(got[i], plain[i], err_msg=f"request {i}: spec != plain")

@@ -749,8 +749,9 @@ def test_engine_serves_small_pages_bf16(cuda, monkeypatch, page_size):
     cfg = dataclasses.replace(configs.get_config("granite_3_8b", smoke=True), vocab=64,
                               d_model=64, d_ff=128, n_layers=2, dtype="bfloat16")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    # "fused" by name: the CPU engine's "auto" would gather
     scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=32,
-                       page_size=page_size, max_batch=2, prefill_chunk=4)
+                       page_size=page_size, max_batch=2, prefill_chunk=4, paged_attn="fused")
     rng = np.random.default_rng(page_size)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (9, 5, 12)]
     outs = {}
@@ -797,7 +798,7 @@ def test_engine_serves_large_pages_bf16(cuda, monkeypatch, arch):
     from repro_torch.serve.engine import Engine, ServeConfig
 
     scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=160, page_size=72,
-                       max_batch=2, prefill_chunk=16)
+                       max_batch=2, prefill_chunk=16, paged_attn="fused")
     rng = np.random.default_rng(72)
     attn = "paged_attn_latent" if arch == "minicpm3_4b" else "paged_attn"
     tc = paged_attn.PAGED_ATTN_LATENT_TC if arch == "minicpm3_4b" else paged_attn.PAGED_ATTN_TC
@@ -1201,7 +1202,8 @@ def test_engine_serves_new_archs_bf16(cuda, monkeypatch, arch, wire):
     from repro_torch.serve.engine import Engine, ServeConfig
 
     scfg = ServeConfig(prefill_mode="continuous", pack_weights=True, max_seq=160, page_size=16,
-                       max_batch=2, prefill_chunk=16, wire_dtype=wire, kv_dtype=wire)
+                       max_batch=2, prefill_chunk=16, wire_dtype=wire, kv_dtype=wire,
+                       paged_attn="fused")
     rng = np.random.default_rng(20)
     for mode in ("wdbb", "awdbb"):
         cfg = configs.get_config(arch, smoke=True)
@@ -1295,12 +1297,13 @@ def _tree_map(fn, tree):
 def _gate_twin_served(params, cfg, wire, kv_dtype):
     """``(params, cfg)`` as an engine serves them: packed on ``wire``
     (dense for ``"unpacked"``), the KV dtype, per-row activation scales
-    on the int8 wire."""
+    on the int8 wire, and the fused paged read on both devices (by name:
+    the CPU's ``"auto"`` gathers)."""
     import dataclasses
 
     from repro_torch.serve.engine import pack_params_for_serving
 
-    sp = dataclasses.replace(cfg.sparsity, kv_dtype=kv_dtype)
+    sp = dataclasses.replace(cfg.sparsity, kv_dtype=kv_dtype, paged_attn="fused")
     if wire == "int8":
         sp = dataclasses.replace(sp, act_scale="per_row")
     cfg = dataclasses.replace(cfg, sparsity=sp)
@@ -1893,3 +1896,139 @@ def test_train_step_card_matches_cpu(cuda):
     cmask = schedule.wdbb_masks(tree.tree_map(lambda t: t.cuda(), params), dbb.DBBConfig(4, 8))
     for a, b in zip(tree.leaves(masks), tree.leaves(cmask)):
         assert torch.equal(a, b.cpu())
+
+
+# ------------------------------------------------------------- the autotuner
+
+
+@pytest.fixture
+def plan_cache(monkeypatch, tmp_path):
+    """``kernels/autotune`` with its cache in a file of the test's own
+    directory, empty before and cleared after."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "plans.json"))
+    autotune.clear_cache()
+    yield autotune
+    autotune.clear_cache()
+
+
+@pytest.mark.parametrize("kind", ["w_int8", "aw_int8"])
+def test_int8_every_candidate_plan_exact(cuda, plan_cache, kind):
+    """Every candidate plan of #2 / #3 at a tc shape (M = 40: bm 16 takes
+    three row tiles, 64 one; K = 1024: 1 to 8 splits) runs the tc body and
+    gives the plain version's int32 accumulators and f32 output bit for
+    bit (integer sums are exact under any split)."""
+    cfg = dbb.DBBConfig(4, 8)
+    m, k, n = 40, 1024, 384
+    w = torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)
+    wv, wm, ws = ref.pack_weight_int8(w, cfg)
+    x = torch.randn((m, k), generator=cuda, device="cuda")
+    if kind == "aw_int8":
+        xv, xm, xs = ops.dap_pack_int8(x, 4, 8, act_scale="per_row")
+        x_dense, tc = ref.decode_a(xv, xm, cfg), dbb_matmul.AW_INT8_TC
+        want = ref.dbb_matmul_aw_int8_ref(xv, xm, xs, wv, wm, ws, cfg, cfg)
+
+        def run(plan, acc):
+            return dbb_matmul.dbb_matmul_aw_int8_cuda(xv, xm, xs, wv, wm, ws, cfg, cfg,
+                                                      acc_out=acc, plan=plan)
+    else:
+        xq, xs = ref.quantize_act_int8(x, per_row=True)
+        x_dense, tc = xq, dbb_matmul.INT8_TC
+        want = ref.dbb_matmul_int8_ref(xq, xs, wv, wm, ws, cfg)
+
+        def run(plan, acc):
+            return dbb_matmul.dbb_matmul_int8_cuda(xq, xs, wv, wm, ws, cfg, acc_out=acc, plan=plan)
+    want_acc = ref.int8_acc(x_dense, ref.decode_w(wv, wm, cfg))
+    plans = dbb_matmul.candidate_plans(kind, m, k, n)
+    assert len(plans) == 10
+    for plan in plans:
+        acc = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        before = tc.launches
+        y = run(plan, acc)
+        assert tc.launches == before + 1, plan
+        assert torch.equal(acc, want_acc) and torch.equal(y, want), plan
+    with pytest.raises(ValueError, match="bm=32"):
+        run((32, 128, 1), None)
+
+
+@pytest.mark.parametrize("kind", ["w", "aw"])
+def test_native_every_candidate_plan_within_tolerance(cuda, plan_cache, kind):
+    """Every candidate plan of #1 / #4 at a tc shape (K = 1536: 1 to 8
+    splits of whole 64-wide k-steps; bn 64 and 128) runs the tc body: f32
+    within 1e-5 of the largest output, bf16 within one ulp of it (both well
+    inside the record's 0.0156), and under each plan the rows of an M = 4
+    call and a one-row call equal the M = 64 call's bit for bit."""
+    m, k, n = 64, 1536, 320
+    cfg, x, xv, xm, wv, wm, bias = _native_operands(cuda, m, k, n, torch.bfloat16)
+    tc = dbb_matmul.AW_NATIVE_TC if kind == "aw" else dbb_matmul.NATIVE_TC
+
+    def run(rows, out, plan=None, plain=False):
+        if kind == "aw":
+            fn = ref.dbb_matmul_aw_ref if plain else dbb_matmul.dbb_matmul_aw_cuda
+            kw = {} if plain else dict(plan=plan)
+            return fn(xv[rows], xm[rows], wv, wm, cfg, cfg, bias=bias, act="silu", out_dtype=out,
+                      **kw)
+        fn = ref.dbb_matmul_ref if plain else dbb_matmul.dbb_matmul_cuda
+        kw = {} if plain else dict(plan=plan)
+        return fn(x[rows], wv, wm, cfg, bias=bias, act="silu", out_dtype=out, **kw)
+
+    want = run(slice(0, m), torch.float32, plain=True)
+    want_b = run(slice(0, m), torch.bfloat16, plain=True).float()
+    tol = 1e-5 * want.abs().max().item()
+    plans = dbb_matmul.candidate_plans(kind, m, k, n)
+    assert len(plans) == 14
+    for plan in plans:
+        before = tc.launches
+        y = run(slice(0, m), torch.float32, plan)
+        assert tc.launches == before + 1, plan
+        assert (y - want).abs().max().item() <= tol, plan
+        yb = run(slice(0, m), torch.bfloat16, plan).float()
+        ulp = 2.0 ** -7 * torch.maximum(yb.abs(), want_b.abs())
+        assert bool(((yb - want_b).abs() <= ulp + tol).all()), plan
+        assert torch.equal(run(slice(0, 4), torch.float32, plan), y[:4]), plan
+        assert torch.equal(run(slice(9, 10), torch.float32, plan)[0], y[9]), plan
+    with pytest.raises(ValueError, match="leave one empty"):
+        run(slice(0, m), torch.float32, (128, 128, 3))
+
+
+def test_autotune_on_the_card(cuda, plan_cache):
+    """A sweep on the card: #3's winner is cached and resolved for its
+    shape; gather against fused at a decode step caches a verdict (both
+    implementations run here) that ``get_paged_attn_impl`` returns for
+    CUDA tensors, and a CPU lookup answers fused only by the heuristic's
+    rule (never)."""
+    import json
+    import os
+
+    from repro_torch.models import attention
+
+    autotune = plan_cache
+    cfg = dbb.DBBConfig(4, 8)
+    m, k, n = 64, 2048, 1024
+    w = torch.randn((k, n), generator=cuda, device="cuda") / math.sqrt(k)
+    wv, wm, ws = ref.pack_weight_int8(w, cfg)
+    xv, xm, xs = ops.dap_pack_int8(torch.randn((m, k), generator=cuda, device="cuda"), 4, 8,
+                                   act_scale="per_row")
+    win = autotune.autotune(
+        lambda plan: (lambda: dbb_matmul.dbb_matmul_aw_int8_cuda(
+            xv, xm, xs, wv, wm, ws, cfg, cfg, out_dtype=torch.bfloat16, plan=plan)),
+        m, k, n, 4, 8, "aw_int8", rules=dbb_matmul.PLAN_RULES)
+    assert win in dbb_matmul.candidate_plans("aw_int8", m, k, n)
+    assert autotune.get_plan("aw_int8", m, k, n, 4, 8, dbb_matmul.PLAN_RULES) == win
+    q, k_p, v_p, pos, tables, q_pos, kw = _tc_case(cuda, 4, 1, 4, 128, 8, True, 6)
+    layer = dict(k=k_p, v=v_p, k_scale=kw["k_scale"], v_scale=kw["v_scale"], pos=pos)
+    timings = {}
+    impl = autotune.autotune_paged_attn(
+        lambda i: (lambda: attention.paged_attend(i, q, layer, tables, q_pos, kv_heads=8,
+                                                  window=None, dtype=torch.bfloat16)),
+        4, 4, 16, 128, timings=timings)
+    assert set(timings) == set(autotune.PAGED_ATTN_IMPLS)
+    assert all(isinstance(t, float) for t in timings.values())
+    assert impl == min(timings, key=timings.get)
+    assert autotune.get_paged_attn_impl(4, 4, 16, 128, q.device) == impl
+    assert autotune.get_paged_attn_impl(4, 4, 16, 128, "cpu") == "gather"
+    with open(os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]) as f:
+        saved = json.load(f)
+    assert saved[json.dumps(["paged_attn", 4, 4, 16, 128, 0])] == [impl]
+    assert saved[json.dumps(["aw_int8", m, k, n, 4, 8])] == list(win)

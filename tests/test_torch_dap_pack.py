@@ -295,9 +295,12 @@ def test_chip_smoke_expected_launches_per_pass(monkeypatch, arch, wire):
     spec.loader.exec_module(smoke)
     cfg = dataclasses.replace(configs.get_config(arch, smoke=True), n_layers=2)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", wire_dtype=None)
+    # the card's "auto" runs the fused kernel (#6); the CPU's gathers, so
+    # this stand-in names the fused path
     eng = Engine(params, cfg, ServeConfig(prefill_mode="continuous", pack_weights=True,
                                           max_seq=64, page_size=16, max_batch=2,
-                                          prefill_chunk=8, wire_dtype=wire, kv_dtype=wire),
+                                          prefill_chunk=8, wire_dtype=wire, kv_dtype=wire,
+                                          paged_attn="fused"),
                  device="cpu")
     passes = []
     inner = lm.paged_step

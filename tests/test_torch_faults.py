@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import reference_params, small_cfgs
+from _torch_parity import FUSED, reference_params, small_cfgs
 from repro.serve import engine as jengine
 from repro.serve import faults as jfaults
 from repro_torch.kernels import ref as kref
@@ -56,8 +56,10 @@ def stepped_reference(tcfg, tparams, prompts, n_tokens):
 
 
 def port_engine(tcfg, tparams, **kw):
+    """The port's continuous engine, on the fused path unless ``kw``
+    names another."""
     return tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-        prefill_mode="continuous", **INT8, **kw), device="cpu")
+        prefill_mode="continuous", **INT8, **dict(FUSED, **kw)), device="cpu")
 
 
 def health_equal(teng, jeng):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _torch_parity import (
+    FUSED,
     GEN_MAX_SEQ,
     GEN_NEW,
     gen_prompts,
@@ -55,7 +56,7 @@ def test_batched_stepped_continuous_agree(wire):
         for mode in ("batched", "stepped", "continuous", "auto"):
             scfg = tengine.ServeConfig(max_seq=GEN_MAX_SEQ, prefill_mode=mode, pack_weights=True,
                                        wire_dtype=wire, page_size=8, max_batch=3,
-                                       prefill_chunk=4, **samp)
+                                       prefill_chunk=4, **FUSED, **samp)
             outs[mode] = tengine.Engine(tparams, tcfg, scfg, device="cpu").generate(
                 prompts, GEN_NEW)
         assert outs["batched"].shape == (3, 8 + GEN_NEW)

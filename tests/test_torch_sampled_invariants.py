@@ -10,14 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import reference_params, small_cfgs
+from _torch_parity import FUSED, reference_params, small_cfgs
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.serve import engine as tengine
 
 torch.set_num_threads(1)
 
 CONT = dict(prefill_mode="continuous", pack_weights=True, max_seq=32, page_size=8,
-            max_batch=2, prefill_chunk=4)
+            max_batch=2, prefill_chunk=4, **FUSED)
 _WEIGHTS = {}
 
 
@@ -83,7 +83,7 @@ def test_sampled_invariant_to_decode_block():
 
 
 PREEMPT = dict(prefill_mode="continuous", pack_weights=True, prefill_chunk=4, max_seq=24,
-               page_size=4, max_batch=3, max_pages=13, preempt_after=2)
+               page_size=4, max_batch=3, max_pages=13, preempt_after=2, **FUSED)
 
 
 @pytest.mark.parametrize("arch", ["granite_3_8b", "minicpm3_4b"])

@@ -16,6 +16,7 @@ import torch
 
 from _torch_parity import (
     ARRIVALS,
+    FUSED,
     N_NEW,
     PACKED,
     SERVE,
@@ -46,7 +47,7 @@ def serve_both(arch, wire, kv, **samp):
     kw = dict(SERVE, **PACKED, wire_dtype=wire, kv_dtype=kv, **samp)
     want = jengine.Engine(params, jcfg, jengine.ServeConfig(paged_attn="gather", **kw)
                           ).generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
-    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu")
+    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw, **FUSED), device="cpu")
     got = teng.generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
     return got, want, teng
 
@@ -79,7 +80,7 @@ def test_per_request_sampling_matches_reference():
     want = jengine.Engine(params, jcfg, jengine.ServeConfig(paged_attn="gather", **kw)
                           ).generate_requests(prompts, N_NEW, arrivals=ARRIVALS, sampling=[
                               None, JSamplingParams(temperature=0.7, seed=4), None])
-    got = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu"
+    got = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw, **FUSED), device="cpu"
                          ).generate_requests(prompts, N_NEW, arrivals=ARRIVALS, sampling=[
                              None, SamplingParams(temperature=0.7, seed=4), None])
     for i, (g, w) in enumerate(zip(got, want)):
@@ -94,7 +95,7 @@ def test_sampling_diverges_from_greedy(arch):
 
     def serve(**samp):
         return tengine.Engine(tparams, tcfg, tengine.ServeConfig(
-            **SERVE, **PACKED, wire_dtype="int8", **samp), device="cpu"
+            **SERVE, **PACKED, **FUSED, wire_dtype="int8", **samp), device="cpu"
         ).generate_requests(prompts, N_NEW, arrivals=ARRIVALS)
 
     sampled, greedy = serve(temperature=0.7, seed=11), serve()

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import reference_params, small_cfgs
+from _torch_parity import FUSED, reference_params, small_cfgs
 from repro.runtime import monitor as jmonitor
 from repro.serve import engine as jengine
 from repro_torch.checkpoint import manager
@@ -61,7 +61,7 @@ def mixed(vocab, lengths, seed=3):
 
 def serve_kwargs(wire="native", kv="native", spec=False, **kw):
     out = dict(prefill_mode="continuous", max_seq=48, page_size=4, max_batch=3, max_pages=13,
-               prefill_chunk=4, temperature=0.7, seed=11, kv_dtype=kv)
+               prefill_chunk=4, temperature=0.7, seed=11, kv_dtype=kv, **FUSED)
     if wire == "int8":
         out.update(pack_weights=True, wire_dtype="int8")
     if spec:

@@ -22,6 +22,7 @@ import torch
 
 from _torch_parity import (
     ARRIVALS,
+    FUSED,
     PACKED,
     SPEC_SERVE,
     prompts_for,
@@ -54,7 +55,7 @@ def _mixed(vocab, lengths, seed=3):
 
 
 def _engine(tcfg, tparams, spec=None, wire="int8", **over):
-    kw = dict(SPEC_SERVE, **PACKED, wire_dtype=wire, **over)
+    kw = {**SPEC_SERVE, **PACKED, **FUSED, "wire_dtype": wire, **over}
     return tengine.Engine(tparams, tcfg, tengine.ServeConfig(spec=spec, **kw), device="cpu")
 
 

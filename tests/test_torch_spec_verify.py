@@ -17,6 +17,7 @@ import torch
 
 from _torch_parity import (
     ARRIVALS,
+    FUSED,
     PACKED,
     SPEC_NEW,
     SPEC_SERVE,
@@ -126,7 +127,7 @@ def test_spec_mla_matches_plain_and_reference(wire, kv, draft):
 def test_spec_moe_reserves_identically(draft):
     _, tcfg, _, tparams = weights("granite_moe_1b_a400m")
     prompts = prompts_for(tcfg.vocab)
-    kw = dict(SPEC_SERVE, **PACKED, wire_dtype="native")
+    kw = dict(SPEC_SERVE, **PACKED, **FUSED, wire_dtype="native")
 
     def serve():
         eng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(

@@ -17,6 +17,7 @@ import torch
 
 from _torch_parity import (
     ARRIVALS,
+    FUSED,
     N_NEW,
     PACKED,
     SERVE,
@@ -47,9 +48,11 @@ def weights(arch="granite_3_8b", sparsity="awdbb"):
 
 
 def both(key, **kw):
+    """The reference's engine and the port's on ``kw``; the port's on the
+    fused path unless ``kw`` names another."""
     jcfg, tcfg, params, tparams = weights(*key)
     jeng = jengine.Engine(params, jcfg, jengine.ServeConfig(**kw))
-    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**kw), device="cpu")
+    teng = tengine.Engine(tparams, tcfg, tengine.ServeConfig(**dict(FUSED, **kw)), device="cpu")
     return jeng, teng
 
 
@@ -143,7 +146,7 @@ def _prefix_workload(vocab, ps=8, seed=11):
 
 
 STREAM = dict(prefill_mode="continuous", pack_weights=True, max_seq=48, page_size=8,
-              max_batch=2, prefill_chunk=4)
+              max_batch=2, prefill_chunk=4, **FUSED)
 
 
 def _collect(store, rid, toks, start):
@@ -176,7 +179,7 @@ def test_streaming_matches_final_output():
 def test_streaming_survives_preempt_and_recompute():
     """A preempted request streams only past what it already delivered."""
     eng = _port(prefill_mode="continuous", pack_weights=True, prefill_chunk=4, max_seq=24,
-                page_size=4, max_batch=3, max_pages=13, preempt_after=2)
+                page_size=4, max_batch=3, max_pages=13, preempt_after=2, **FUSED)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.cfg.vocab, (s,)).astype(np.int32) for s in (9, 5, 12, 7)]
     streamed = {}
